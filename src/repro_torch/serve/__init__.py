@@ -1,0 +1,8 @@
+"""Serving layer: the cell-routed SVM serving subsystem (``model_bank`` +
+``svm_engine``) and the bridge from the JAX package's banks (``convert``)."""
+from repro_torch.serve.convert import bank_from_reference
+from repro_torch.serve.model_bank import ModelBank
+from repro_torch.serve.svm_engine import OverloadError, SVMEngine, blend_weights
+
+__all__ = ["ModelBank", "OverloadError", "SVMEngine", "bank_from_reference",
+           "blend_weights"]
