@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch/CUDA port: the cell-routed serving path.
+"""Chip smoke test of the PyTorch/CUDA port: serving and training paths.
 
     python3 chip_smoke.py
 
@@ -19,11 +19,24 @@ kernels from ``src/repro_torch/csrc/`` into ``build/kernels/`` and then:
      the decisions against plain end-to-end references, each value within
      its own error bound, and reads the kernels' launch counts of each of
      those four runs (each must launch its own kernels and no other);
-  4. times each kernel at the main path's shapes beside its plain version,
+  4. times the serving waves;
+  5. training (``LiquidSVM.fit`` -> cells -> fused CV gamma scan -> FISTA
+     + Gauss-Seidel polish -> ``to_bank``) at Covertype's widths (d=54,
+     7 classes one-vs-all, liquidSVM's recursive cells of 2000, 5 folds,
+     the default 10 x 10 grid; rows from ``covtype_like``, 32004 for
+     training and 8000 held out): holds the symmetric D² (B1-sym) and the
+     Gauss-Seidel epoch (B4, and B5 at one slot) against their plain
+     versions at the training wave's shapes (16 slots x 5 folds x k_max
+     rows x 70 columns), fits a small set on the CPU and on the card and
+     compares plans, fold masks, surfaces and selections, then fits the
+     full set on the card with the launches of every wave counted, its
+     stage times, FISTA iterations and test error through
+     ``decision_function`` and through the bank served by ``SVMEngine``;
+     drives ``cd_epochs`` (B5's entry point) on one fitted cell;
+  6. times each kernel at the main path's shapes beside its plain version,
      its bound from bytes and operations, and a one-call PyTorch yardstick
-     where one exists, and times the serving waves;
-  5. prints one JSON line per phase, the kernel table, and last
-     ``{"ok": true, "device": {...}}``.
+     where one exists; prints one JSON line per phase, the kernel table,
+     and last ``{"ok": true, "device": {...}}``.
 
 Any mismatch or exception ends the run with a non-zero exit code.  Without
 a card, or without the rest of the repository beside it, it exits non-zero
@@ -49,6 +62,23 @@ OVERLAP_FRAC = 0.25      # share of overlap-bank queries near a cell border
 WIDE_P, WIDE_SLOTS = 70, 32   # the B3 check past one 64-column block
 BOUND_FLOOR = 1e-30      # absolute slack of the decision bounds (subnormals)
 
+# training slice: UCI Covertype's widths (d=54, 7 classes, one-vs-all,
+# cell size 2000) on covtype_like rows; liquidSVM's VORONOI=6 (recursive)
+# cells keep every cell within the cell size (k_max 1824 vs 6858 for
+# plain Voronoi on these rows), and the wave is 16 slots of them
+N_CLASSES, TRAIN_N, HELDOUT_N, HELDOUT_SEED = 7, 32004, 8000, 2
+TRAIN_CFG = dict(scenario="ova", cell_method="recursive", cell_size=2000,
+                 n_folds=5, grid_choice=0, tol=1e-3, max_iters=1000,
+                 cd_polish=2, n_slots_per_wave=16)
+SMALL_N, SMALL_SEED = 1008, 1      # the CPU-vs-card fit
+SMALL_CFG = dict(scenario="ova", cell_method="recursive", cell_size=500,
+                 n_folds=3, tol=1e-3, max_iters=1000, cd_polish=2)
+CD_EPOCHS = 2
+FISTA_PROFILE_ITERS = 20
+# surfaces of the CPU and the card fit: at most this share of a column's
+# validation samples may change sides (see small_fit_parity)
+FLIP_SHARE = 0.01
+
 # the card's published peaks (H100 SXM data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -60,6 +90,12 @@ KERNELS = {  # name -> (wrapper source, TPU kernel it replaces)
                      "src/repro/kernels/kernel_matrix/kernel_matrix.py:190"),
     "svm_predict_cells": ("src/repro_torch/csrc/svm_predict.cu",
                           "src/repro/kernels/svm_predict/svm_predict.py:122"),
+    "sq_dists_sym": ("src/repro_torch/csrc/kernel_matrix.cu",
+                     "src/repro/kernels/kernel_matrix/kernel_matrix.py:98"),
+    "cd_wave_epoch": ("src/repro_torch/csrc/cd_solver.cu",
+                      "src/repro/kernels/cd_solver/cd_solver.py:160"),
+    "cd_epoch": ("src/repro_torch/csrc/cd_solver.cu",
+                 "src/repro/kernels/cd_solver/cd_solver.py:115"),
 }
 
 
@@ -213,6 +249,394 @@ def serve(engine, queries):
     return np.stack([res[int(i)] for i in ids]), submit_s
 
 
+def zero_counts(tables) -> None:
+    for table in tables:
+        for name in table:
+            table[name] = 0
+
+
+def read_counts(tables) -> dict:
+    return {name: n for table in tables for name, n in table.items()}
+
+
+def require_launches(label: str, counts: dict, expect: dict) -> None:
+    """``expect``: kernel -> exact count; every other kernel must be 0."""
+    for name, n in counts.items():
+        want = expect.get(name, 0)
+        if n != want:
+            raise Mismatch(f"{label}: kernel {name} launched {n} times, "
+                           f"expected {want}")
+
+
+def wave_problem(torch, x_w, mask_w, n_folds: int, n_cols: int, seed: int):
+    """A hinge-like wave of box QPs on the cells' own Gram: per-slot gamma
+    from the mean valid D², random fold partitions and labels, one box
+    scale per column spread over the grid's range; padding rows and each
+    fold's validation rows are pinned (lo == hi == 0), as in the CV solve.
+    Returns d2 (B1-sym's output on the card), K, c0, g0, lo, hi."""
+    from repro_torch.kernels.cd_solver import ops as cd_ops
+    from repro_torch.kernels.kernel_matrix import ops as km_ops
+    dev = x_w.device
+    s, k = mask_w.shape
+    d2 = km_ops.sq_dists(x_w, x_w, symmetric=True)
+    pair = mask_w[:, :, None] * mask_w[:, None, :]
+    gam = torch.sqrt((d2 * pair).sum((1, 2)) / pair.sum((1, 2)).clamp(min=1))
+    kk = km_ops.gram_from_d2(d2, gam[:, None].contiguous())[:, 0]
+    gen = torch.Generator().manual_seed(seed)
+    y = torch.where(torch.rand(s, 1, k, 1, generator=gen) < 0.5, -1.0, 1.0)
+    fold = torch.randint(0, n_folds, (s, k), generator=gen)
+    train = ((fold[:, None, :] != torch.arange(n_folds)[None, :, None])
+             .float() * mask_w.cpu()[:, None, :])[..., None]     # (S,F,k,1)
+    cost = torch.logspace(-3, 1, n_cols)[None, None, None, :]
+    edge = y * cost * train
+    lo, hi = edge.clamp(max=0.0), edge.clamp(min=0.0)
+    c0 = torch.clamp(torch.randn(s, n_folds, k, n_cols, generator=gen) * cost,
+                     min=lo, max=hi)
+    lo, hi, c0 = lo.to(dev), hi.to(dev), c0.to(dev)
+    y_eff = (y * train).expand_as(lo).to(dev)
+    g0 = (cd_ops.slot_matmul(kk, c0) - y_eff).contiguous()
+    return d2, kk, c0.contiguous(), g0, lo.contiguous(), hi.contiguous()
+
+
+def train_kernel_checks(torch, x_w, mask_w, n_folds: int, n_cols: int):
+    """B1-sym, B4 and B5 against their plain versions at the training
+    wave's shapes.  B1-sym: bitwise equal to its transpose, and within
+    B1's 64 ulps of the largest |x|^2 + |z|^2 of the plain 0.5 (D + D^T).
+    B4: CD_EPOCHS epochs bitwise equal to the plain exact sweep on the
+    card (every operation rounded on its own on both sides).  B5: each of
+    three slots alone (its folds' columns side by side, K shared) bitwise
+    equal to B4's result for that slot."""
+    from repro_torch.kernels.cd_solver import ops as cd_ops
+    from repro_torch.kernels.cd_solver import ref as cd_ref
+    from repro_torch.kernels.kernel_matrix import ref as km_ref
+    eps = float(np.finfo(np.float32).eps)
+    errs = {}
+    prob = wave_problem(torch, x_w, mask_w, n_folds, n_cols, SEED)
+    d2, kk, c0, g0, lo, hi = prob
+    want = km_ref.sq_dists_ref(x_w, x_w, symmetric=True)
+    torch.cuda.synchronize()
+    sym = bool(torch.equal(d2, d2.transpose(1, 2)))
+    scale = float(2 * (x_w * x_w).sum(-1).max())
+    errs["sq_dists_sym"] = check(
+        "sq_dists_sym", float((d2 - want).abs().max()), 64 * eps * scale,
+        shape=list(d2.shape), bitwise_symmetric=sym)
+    if not sym:
+        raise Mismatch("sq_dists_sym: result differs from its transpose")
+    del want
+
+    kc, kg, pc, pg = c0, g0, c0, g0
+    for _ in range(CD_EPOCHS):
+        kc, kg = cd_ops.cd_wave_epoch(kk, kc, kg, lo, hi)
+        pc, pg = cd_ref.cd_wave_epoch_ref(kk, pc, pg, lo, hi)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(kc, pc) and torch.equal(kg, pg))
+    moved = float((kc != c0).float().mean())
+    errs["cd_wave_epoch"] = check(
+        "cd_wave_epoch", float(max((kc - pc).abs().max(),
+                                   (kg - pg).abs().max())), 0.0,
+        shape=list(kc.shape), epochs=CD_EPOCHS, bitwise=same,
+        moved_share=moved)
+    if not same or moved == 0.0:
+        raise Mismatch("cd_wave_epoch: not bitwise equal to the plain sweep "
+                       "or nothing moved")
+    del pc, pg
+    s, f, n, p = c0.shape
+    worst = 0.0
+    for si in range(3):
+        def cols(t):   # (F, n, P) -> (n, F P): the slot's folds side by side
+            return t[si].permute(1, 0, 2).reshape(n, f * p).contiguous()
+        oc, og = cols(c0), cols(g0)
+        for _ in range(CD_EPOCHS):
+            oc, og = cd_ops.cd_epoch(kk[si], oc, og, cols(lo), cols(hi))
+        torch.cuda.synchronize()
+        diff = float(max((oc - cols(kc)).abs().max(),
+                         (og - cols(kg)).abs().max()))
+        worst = max(worst, diff)
+        if not (torch.equal(oc, cols(kc)) and torch.equal(og, cols(kg))):
+            raise Mismatch(f"cd_epoch: slot {si} differs from B4's result")
+    errs["cd_epoch"] = check("cd_epoch[3 slots] vs cd_wave_epoch", worst, 0.0,
+                             shape=[n, f * p], bitwise=True)
+    return errs, prob
+
+
+def small_fit_parity(torch, dev, covtype_like, LiquidSVM, SVMTrainerConfig,
+                     make_fold_masks, argmin_winners):
+    """The small fit on the CPU and on the card: the same plan and fold
+    masks (bitwise); surfaces within FLIP_SHARE of each column's validation
+    samples; every flip of a selected (gamma, lambda) within one validation
+    sample's share of that column's loss.
+
+    Why FLIP_SHARE: both runs stop FISTA at a KKT residual of 1e-3 of the
+    box width and sum their products in other orders (MKL against cuBLAS),
+    so a decision may differ by about 1e-3 of its scale; a zero-one loss
+    changes only for a validation sample whose decision lies that close to
+    0, which for decisions spread over their scale is about 1e-3 of the
+    samples per unit of density: 1 % leaves a factor of ten for a denser
+    neighbourhood of the boundary."""
+    x, y = covtype_like(n=SMALL_N, d=54, n_classes=N_CLASSES, seed=SMALL_SEED)
+    cfg = SVMTrainerConfig(**SMALL_CFG)
+    t0 = time.perf_counter()
+    m_cpu = LiquidSVM(cfg, device="cpu").fit(x, y)
+    t1 = time.perf_counter()
+    m_dev = LiquidSVM(cfg, device=dev).fit(x, y)
+    t2 = time.perf_counter()
+    a, b = m_cpu.train_result, m_dev.train_result
+    for field in ("indices", "mask", "owner", "centers"):
+        if not np.array_equal(getattr(a.plan, field), getattr(b.plan, field)):
+            raise Mismatch(f"small fit: cell plans differ in {field}")
+    if not np.array_equal(a.fold_keys, b.fold_keys):
+        raise Mismatch("small fit: fold keys differ")
+    mask = torch.as_tensor(a.mask_cells)
+    vm_cpu = make_fold_masks(a.fold_keys, mask, cfg.n_folds)
+    vm_dev = make_fold_masks(b.fold_keys, mask.to(dev), cfg.n_folds).cpu()
+    if not torch.equal(vm_cpu, vm_dev):
+        raise Mismatch("small fit: fold masks differ")
+    # one validation sample's share of a column's loss (mean over folds of
+    # each fold's mean), per slot; OvA columns share the slot's mask
+    n_val = vm_cpu.sum(-1).clamp(min=1).double().numpy()       # (slots, F)
+    share = (1.0 / (cfg.n_folds * n_val)).max(-1)              # (slots,)
+    per_col = np.maximum(np.ceil(FLIP_SHARE * a.mask_cells.sum(-1)), 1.0)
+    diff = np.abs(a.surf_loss.astype(np.float64) - b.surf_loss)
+    flips_eq = diff / share[:, None, None, None, None]         # samples
+    ok_surf = bool((flips_eq <= per_col[:, None, None, None, None]
+                    + 1e-3).all())
+    ga, la = argmin_winners(a.surf_loss)
+    gb, lb = argmin_winners(b.surf_loss)
+    moved = (ga != gb) | (la != lb)
+    gaps = []
+    for si, t, u in zip(*np.nonzero(moved)):
+        wa = (si, ga[si, t, u], t, la[si, t, u], u)   # CPU's winner
+        wb = (si, gb[si, t, u], t, lb[si, t, u], u)   # the card's winner
+        # what each run loses, on its own surface, by taking the other's
+        gaps.append(max(float(a.surf_loss[wb]) - float(a.surf_loss[wa]),
+                        float(b.surf_loss[wa]) - float(b.surf_loss[wb]))
+                    / share[si])
+    emit({"phase": "small_fit", "n": SMALL_N, "cells": a.plan.n_cells,
+          "k_max": a.plan.k_max, "cpu_s": t1 - t0, "card_s": t2 - t1,
+          "plans_equal": True, "fold_masks_equal": True,
+          "surface_max_abs_diff": float(diff.max()),
+          "surface_mean_abs_diff": float(diff.mean()),
+          "surface_max_flipped_samples": float(flips_eq.max()),
+          "surface_flip_limit": per_col.tolist(),
+          "selections": int(moved.size), "selection_flips": int(moved.sum()),
+          "flip_gaps_in_samples": gaps,
+          "iters_cpu_median": float(np.median(a.iters)),
+          "iters_card_median": float(np.median(b.iters)),
+          "ok": ok_surf and all(g <= 1.0 + 1e-3 for g in gaps)})
+    if not ok_surf:
+        raise Mismatch("small fit: surfaces differ by more than "
+                       f"{FLIP_SHARE} of a column's validation samples")
+    if any(g > 1.0 + 1e-3 for g in gaps):
+        raise Mismatch(f"small fit: a selection flip costs {max(gaps)} "
+                       f"validation samples (limit 1)")
+
+
+def full_fit(torch, dev, data, LiquidSVM, SVMTrainerConfig, tables,
+             cell_trainer, obs):
+    """The training main path at full width: fit with the launch counts
+    of every wave read at the wave's end, then the test phase."""
+    x, y, xt, yt = data
+    cfg = SVMTrainerConfig(**TRAIN_CFG)
+    model = LiquidSVM(cfg, device=dev)
+    per_wave = []
+    solve_wave = cell_trainer.train_cells
+
+    def counted_wave(*args, **kwargs):
+        zero_counts(tables)
+        out = solve_wave(*args, **kwargs)
+        per_wave.append(read_counts(tables))
+        return out
+
+    obs.tracer.clear()
+    obs.tracer.enabled = True
+    cell_trainer.train_cells = counted_wave
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.fit(x, y)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    finally:
+        cell_trainer.train_cells = solve_wave
+        obs.tracer.enabled = False
+    # device time per wave and per stage, from the spans' CUDA events
+    stage_ms = {row["attrs"]["wave"]: {k.removeprefix("train."): v
+                                       for k, v in row.items()
+                                       if k != "attrs"}
+                for row in obs.tracer.breakdown_ms("train.wave")}
+    obs.tracer.clear()
+    tr = model.train_result
+    n_gamma = tr.gammas_cells.shape[1]
+    expect = {"sq_dists_sym": 1, "gram_from_d2": n_gamma,
+              "cd_wave_epoch": cfg.cd_polish * n_gamma}
+    for w, counts in enumerate(per_wave):
+        require_launches(f"fit wave {w}", counts, expect)
+    fit_counts = {k: sum(c[k] for c in per_wave) for k in per_wave[0]}
+    n_waves = -(-tr.packed.n_slots // cfg.n_slots_per_wave)
+    if len(per_wave) != n_waves:
+        raise Mismatch(f"fit ran {len(per_wave)} waves, expected {n_waves}")
+    live = tr.mask_cells.sum(-1) > 0
+    it = tr.iters[live]
+    # the batched loop runs until the wave's slowest (slot, fold) stops
+    spw = cfg.n_slots_per_wave
+    loop_iters = [int(tr.iters[w * spw:(w + 1) * spw].max(axis=(0, 2)).sum())
+                  for w in range(n_waves)]
+    emit({"phase": "train_fit", "n": x.shape[0], "d": x.shape[1],
+          "cells": tr.plan.n_cells, "k_max": tr.plan.k_max,
+          "slots": tr.packed.n_slots, "waves": len(per_wave),
+          "slots_per_wave": cfg.n_slots_per_wave, "folds": cfg.n_folds,
+          "columns": int(tr.lambdas.size * tr.tasks.n_tasks),
+          "gammas": n_gamma, "seconds": fit_s,
+          "wave_ms": {w: v.get("wave") for w, v in stage_ms.items()},
+          "stage_ms": stage_ms, "launches_per_wave": per_wave,
+          "fista_iters": {"min": int(it.min()), "median": float(np.median(it)),
+                          "max": int(it.max()),
+                          "solves": int(it.size),
+                          "at_max_iters": int((it >= cfg.max_iters).sum()),
+                          "loop_iters_per_wave": loop_iters,
+                          "fista_ms_per_loop_iter": [
+                              stage_ms[w]["fista"] / loop_iters[w]
+                              for w in range(n_waves)]},
+          "matmul_precision": torch.get_float32_matmul_precision(),
+          "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
+
+    # test phase through decision_function (B1 + B2 + one product)
+    zero_counts(tables)
+    dec_df = model.decision_function(xt)
+    err_df = model.error(xt, yt)
+    test_counts = read_counts(tables)
+    if not (test_counts["sq_dists"] and test_counts["gram_from_d2"]) or any(
+            n for k, n in test_counts.items()
+            if k not in ("sq_dists", "gram_from_d2")):
+        raise Mismatch(f"decision_function launched {test_counts}; it "
+                       f"launches B1 and B2 only")
+    return model, fit_counts, test_counts, dec_df, err_df
+
+
+def serve_trained(torch, dev, model, xt, yt, dec_df, err_df, SVMEngine,
+                  tables, refs):
+    """The fitted model compacted by ``to_bank`` and served by the port's
+    engine: its decisions and those of ``decision_function`` each within
+    ``predict_bound`` of the plain end-to-end reference, and within twice
+    it of each other; both errors below the majority-class rate."""
+    bank = model.to_bank()
+    eng = SVMEngine(bank, device=dev, fused=True)
+    zero_counts(tables)
+    dec_eng, _ = serve(eng, xt)
+    serve_counts = read_counts(tables)
+    if serve_counts["svm_predict_cells"] == 0:
+        raise Mismatch("trained bank: the engine launched no B3")
+    want, bnd = plain_decisions(bank, xt, False, dev, **refs)
+    if dec_df.shape != want.shape or not np.isfinite(dec_df).all():
+        raise Mismatch(f"decision_function: shape {dec_df.shape} vs "
+                       f"{want.shape} or non-finite decisions")
+    check_bound("train[decision_function] vs plain", dec_df, want, bnd)
+    check_bound("train[engine] vs plain", dec_eng, want, bnd)
+    check_bound("train[engine] vs decision_function", dec_eng, dec_df,
+                2 * bnd)
+    classes = np.asarray(bank.classes)
+    err_eng = float((classes[dec_eng[:, :, 0].argmax(1)] != yt).mean())
+    majority = float(np.bincount(yt.astype(np.int64)).max() / yt.size)
+    emit({"phase": "train_test", "heldout": int(yt.size),
+          "error_decision_function": err_df, "error_engine": err_eng,
+          "majority_share": majority, "majority_baseline_error": 1 - majority,
+          "bank": bank.stats(), "launches": serve_counts})
+    # below the majority class's share of the held-out rows, and so far
+    # below the error of always predicting that class (1 - share)
+    if not (err_df < majority and err_eng < majority):
+        raise Mismatch(f"test error {err_df} / {err_eng} not below the "
+                       f"majority-class rate {majority}")
+    return serve_counts
+
+
+def b5_entry(torch, dev, model, tables):
+    """``cd_epochs`` (B5's entry point) polishing one fitted cell's model:
+    all tasks at their selected (gamma, lambda), from the fold-averaged
+    coefficients clipped into the box.  Launches counted on their own;
+    the dual objective must not rise (monotone from a feasible start)."""
+    from repro_torch.kernels.cd_solver import ops as cd_ops
+    from repro_torch.kernels.kernel_matrix import ops as km_ops
+    tr = model.train_result
+    slot = int(np.argmax(tr.mask_cells.sum(-1)))
+    # the tasks that selected the same gamma as task 0 share one Gram
+    g = float(model.gamma[slot, 0, 0])
+    tasks = np.nonzero(model.gamma[slot, :, 0] == g)[0]
+    m = torch.as_tensor(tr.mask_cells[slot]).to(dev)
+    x = torch.as_tensor(tr.x_cells[slot]).to(dev)
+    kk = km_ops.gram_from_d2(km_ops.sq_dists(x, x, symmetric=True), g)
+    y = torch.as_tensor(tr.y_cells[slot][tasks].T.copy()).to(dev)  # (k, P)
+    lam = torch.as_tensor(model.lam[slot, tasks, 0]).to(dev)         # (P,)
+    cost = 1.0 / (2.0 * lam * m.sum().clamp(min=1.0))
+    edge = y * cost[None, :] * m[:, None]
+    lo, hi = edge.clamp(max=0.0), edge.clamp(min=0.0)
+    c0 = torch.clamp(
+        torch.as_tensor(model.coefs[slot][:, tasks, 0].copy()).to(dev),
+        min=lo, max=hi)
+
+    def dual(c):
+        return (0.5 * (c * (kk @ c)).sum(0) - (c * y).sum(0)).double()
+
+    torch.cuda.synchronize()
+    zero_counts(tables)
+    c = cd_ops.cd_epochs(kk, y, lo, hi, c0, epochs=CD_EPOCHS)
+    counts = read_counts(tables)
+    require_launches("cd_epochs", counts, {"cd_epoch": CD_EPOCHS})
+    before, after = dual(c0), dual(c)
+    rise = float((after - before).max())
+    tol = 1e-5 * float(before.abs().max())
+    emit({"phase": "b5_entry", "slot": slot, "k": int(m.sum()),
+          "columns": int(y.shape[1]), "epochs": CD_EPOCHS,
+          "objective_before": before.tolist(),
+          "objective_after": after.tolist(), "max_rise": rise,
+          "launches": counts, "ok": bool(rise <= tol)})
+    if rise > tol or not torch.isfinite(c).all():
+        raise Mismatch(f"cd_epochs raised the dual objective by {rise}")
+    return counts
+
+
+def fista_profile(torch, prob):
+    """Device busy share of the batched FISTA loop, which takes ~95 % of
+    the fit: ``torch.profiler`` over FISTA_PROFILE_ITERS iterations at the
+    training wave's shapes (the kernel-check problem), beside the time of
+    its K·C product alone.  The profiler slows the host, so the share is
+    a lower bound."""
+    from repro_torch.core.solvers import base as qp
+    from repro_torch.kernels.cd_solver import ops as cd_ops
+    _, kk, c0, g0, lo, hi = prob
+    y = cd_ops.slot_matmul(kk, c0) - g0
+    l_est = qp.power_iteration_l(kk)
+
+    def run():
+        return qp.box_qp_batched(kk, y, lo, hi, c0=c0, tol=0.0,
+                                 max_iters=FISTA_PROFILE_ITERS, l_est=l_est)
+
+    run()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # the kernels' own rows: an operator's row repeats its kernels' time
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    dev_ms = sum(dev_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -dev_us(e))[:6]
+    emit({"phase": "fista_profile", "iters": FISTA_PROFILE_ITERS,
+          "wall_ms": wall_ms, "device_ms": dev_ms,
+          "device_busy_share": dev_ms / wall_ms if dev_ms else None,
+          "top_kernels_ms": {e.key[:60]: dev_us(e) / 1e3 for e in top},
+          "kc_product_ms": cuda_ms(torch, lambda: cd_ops.slot_matmul(kk, c0),
+                                   iters=10)})
+
+
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
@@ -246,6 +670,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import obs
     from repro_torch.kernels import runtime
+    from repro_torch.kernels.cd_solver import ops as cd_ops
+    from repro_torch.kernels.cd_solver import ref as cd_ref
     from repro_torch.kernels.kernel_matrix import ops as km_ops
     from repro_torch.kernels.kernel_matrix import ref as km_ref
     from repro_torch.kernels.svm_predict import ops as sp_ops
@@ -253,6 +679,15 @@ def main() -> int:
     from repro_torch.distributed.planner import plan_wave
     from repro_torch.pipeline.assign import nearest_center, nearest_top2_dists
     from repro_torch.serve import ModelBank, SVMEngine, blend_weights
+    from repro_torch.core.cv import make_fold_masks
+    from repro_torch.core.select import argmin_winners
+    from repro_torch.data.scaling import Scaler
+    from repro_torch.data.synthetic import covtype_like, covtype_like_heldout
+    from repro_torch.distributed import cell_trainer
+    from repro_torch.pipeline.cell_stream import build_cells_stream
+    from repro_torch.pipeline.dataset import ArraySource
+    from repro_torch.train.svm_trainer import LiquidSVM, SVMTrainerConfig
+    tables = (km_ops.launches, sp_ops.launches, cd_ops.launches)
 
     # fp32 products in the plain versions run in full fp32, never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -274,7 +709,10 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": smi,
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+          "cuda": torch.version.cuda, "python": sys.version.split()[0],
+          "matmul_precision": torch.get_float32_matmul_precision(),
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
     emit({"phase": "build", "seconds": build_s,
           "per_source_s": {k: v["seconds"] for k, v in logs.items()},
           "ptxas": ptxas})
@@ -360,11 +798,9 @@ def main() -> int:
         raise Mismatch("overlap traffic has no two-cell requests")
     # each path's run alone: counts set to 0 just before it, read just after
     def counted(run):
-        for table in (km_ops.launches, sp_ops.launches):
-            for name in table:
-                table[name] = 0
+        zero_counts(tables)
         out = run()
-        return out, {**km_ops.launches, **sp_ops.launches}
+        return out, read_counts(tables)
 
     eng_near = SVMEngine(full, device=dev, fused=True)
     eng_over = SVMEngine(obank, device=dev, fused=True)
@@ -459,6 +895,47 @@ def main() -> int:
           "device_busy_share": wave_dev_ms * n_waves / (secs * 1e3),
           "request_ms_q": st.get("request_ms_q")})
 
+    # ------------------------------------------------------- 5. training
+    x_tr, y_tr = covtype_like(n=TRAIN_N, d=DIM, n_classes=N_CLASSES,
+                              seed=SEED)
+    x_te, y_te = covtype_like_heldout(HELDOUT_N, n=TRAIN_N, d=DIM,
+                                      n_classes=N_CLASSES, seed=SEED,
+                                      new_seed=HELDOUT_SEED)
+    # the first wave's cells as the fit stages them: scaled rows of the
+    # plan's first cells, padding rows zero
+    n_sw, n_f = TRAIN_CFG["n_slots_per_wave"], TRAIN_CFG["n_folds"]
+    n_cols = N_CLASSES * 10                       # tasks x the 10 lambdas
+    xs_tr = Scaler.fit_stream(ArraySource(x_tr), 65536).transform(x_tr)
+    tplan = build_cells_stream(ArraySource(xs_tr),
+                               cell_size=TRAIN_CFG["cell_size"],
+                               method=TRAIN_CFG["cell_method"], seed=SEED)
+    mask_w = tplan.mask[:n_sw]
+    x_w = xs_tr[tplan.indices[:n_sw]] * mask_w[:, :, None]
+    x_wd = torch.as_tensor(x_w).to(dev)
+    emit({"phase": "train_wave_shape", "cells": tplan.n_cells,
+          "slots": n_sw, "folds": n_f, "k": tplan.k_max, "d": DIM,
+          "P": n_cols})
+    errs_t, prob = train_kernel_checks(torch, x_wd,
+                                       torch.as_tensor(mask_w).to(dev),
+                                       n_f, n_cols)
+    errs.update(errs_t)
+    small_fit_parity(torch, dev, covtype_like, LiquidSVM, SVMTrainerConfig,
+                     make_fold_masks, argmin_winners)
+    model, fit_counts, test_counts, dec_df, err_df = full_fit(
+        torch, dev, (x_tr, y_tr, x_te, y_te), LiquidSVM, SVMTrainerConfig,
+        tables, cell_trainer, obs)
+    bank_counts = serve_trained(torch, dev, model, x_te, y_te, dec_df,
+                                err_df, SVMEngine, tables, refs)
+    b5_counts = b5_entry(torch, dev, model, tables)
+    fista_profile(torch, prob)
+    train_paths = {"fit": fit_counts, "test": test_counts,
+                   "trained_bank": bank_counts, "cd_epochs": b5_counts}
+    emit({"phase": "train_launches", "per_path": train_paths})
+    launches = {name: launches.get(name, 0)
+                + sum(n[name] for n in train_paths.values())
+                for name in fit_counts}
+
+    # ------------------------------------------------- 6. kernel times
     f32 = 4
     neg = (-(d2_ref[:, None] / torch.clamp(ga_w * ga_w, min=1e-12)
              [:, :, None, None])).contiguous()
@@ -486,15 +963,47 @@ def main() -> int:
                   s_ * m_ * k_ * (2 * DIM + 3) + s_ * (m_ + k_) * 2 * DIM
                   + 4 * s_ * m_ * k_ * p_)),
     }
+    d2_t, kk, c0, g0, lo, hi = prob
+    s_t, f_t, n_t, p_t = c0.shape
+    one = [t[0].permute(1, 0, 2).reshape(n_t, f_t * p_t).contiguous()
+           for t in (c0, g0, lo, hi)]
+    cd_ops_count = s_t * f_t * p_t * n_t * (2 * n_t + 5)
+    timing.update({
+        "sq_dists_sym": (
+            lambda: km_ops.sq_dists(x_wd, x_wd, symmetric=True),
+            lambda: km_ref.sq_dists_ref(x_wd, x_wd, symmetric=True),
+            None,
+            bound(f32 * (s_t * n_t * DIM + s_t * n_t * n_t),
+                  s_t * (n_t * (n_t + 1) // 2 * (2 * DIM + 3)
+                         + n_t * 2 * DIM))),
+        # one epoch: per coordinate and column a divide, a subtract, a
+        # clip and a subtract, then n multiply-adds of the gradient
+        "cd_wave_epoch": (
+            lambda: cd_ops.cd_wave_epoch(kk, c0, g0, lo, hi),
+            lambda: cd_ref.cd_wave_epoch_ref(kk, c0, g0, lo, hi),
+            None,
+            bound(f32 * (s_t * n_t * n_t + 6 * s_t * f_t * n_t * p_t),
+                  cd_ops_count)),
+        "cd_epoch": (
+            lambda: cd_ops.cd_epoch(kk[0], *one),
+            lambda: cd_ref.cd_epoch_ref(kk[0], *one),
+            None,
+            bound(f32 * (n_t * n_t + 6 * f_t * n_t * p_t),
+                  cd_ops_count // s_t)),
+    })
+    slow = {"cd_wave_epoch", "cd_epoch"}   # the plain sweeps take ~0.1-1 s
     for name, (kern, plain, lib, (b_ms, b_by)) in timing.items():
+        reps = dict(iters=3, warmup=1) if name in slow else {}
         rows.append({
             "name": name, "route": "cuda", "source": KERNELS[name][0],
             "replaces": KERNELS[name][1], "launches": launches[name],
             "max_abs_err": errs[name], "ms": cuda_ms(torch, kern),
-            "plain_ms": cuda_ms(torch, plain), "bound_ms": b_ms,
+            "plain_ms": cuda_ms(torch, plain, **reps), "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": None if lib is None else cuda_ms(torch, lib)})
     emit({"phase": "kernel_times", "shapes": shapes,
+          "train_shapes": {"slots": s_t, "folds": f_t, "k": n_t, "d": DIM,
+                           "P": p_t},
           "card": smi.splitlines()[0]})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

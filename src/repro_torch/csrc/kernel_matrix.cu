@@ -17,6 +17,22 @@
 //   no tensor cores, so no TF32 rounding on top of the GEMM-form
 //   cancellation.
 //
+// sq_dists_sym_f32 replaces sq_dists_pallas (symmetric=True, the body
+// _sq_dists_sym_kernel and the out map _sym_out_map, same file): the train
+// Gram's D2 of a whole wave of cells, (B, n, d) -> (B, n, n), one launch.
+//   Bound on the H100: at the training wave's shapes (16 slots of 1824
+//   rows, d = 54) the 213 MB written outweighs the 2.9 GFLOP of upper-half
+//   cross terms at the fp32 (non-tensor-core) rate: device memory writes.
+//   Design: one block per (upper tile pair bi <= bj, slot), 32 x 32 tiles,
+//   256 threads each holding 4 register accumulators; both row blocks are
+//   staged through shared memory in feature chunks of 32.  Each D2 value is
+//   computed once and written to (i, j) and (j, i): the tile goes through
+//   shared memory so that the mirrored store is coalesced as well.  On a
+//   diagonal tile only the values with i <= j are stored, to both places,
+//   so the result equals its transpose bitwise with no read-back.  Rows
+//   are masked at the ragged edge: n is not padded to the tile.  fp32 FMAs,
+//   no tensor cores, as in sq_dists_f32.
+//
 // gram_from_d2 replaces gram_from_d2_pallas (same file): the elementwise
 // epilogue exp(-d2 / max(g^2, 1e-12)) (Gaussian) or
 // exp(-sqrt(d2 + 1e-12) / max(g, 1e-12)) (Laplacian), f32 or bf16 in and
@@ -94,6 +110,76 @@ sq_dists_kernel(const float* __restrict__ x, const float* __restrict__ z,
   }
 }
 
+constexpr int SYM_T = 32;   // square tile
+constexpr int SYM_RY = 8;   // thread rows: each thread owns SYM_T / SYM_RY rows
+constexpr int SYM_DK = 32;  // feature chunk staged in shared memory
+
+__global__ void __launch_bounds__(SYM_T * SYM_RY)
+sq_dists_sym_kernel(const float* __restrict__ x, float* __restrict__ out,
+                    int n, int d, int n_tiles) {
+  __shared__ float xi[SYM_T][SYM_DK + 1];
+  __shared__ float xj[SYM_T][SYM_DK + 1];
+  __shared__ float tile[SYM_T][SYM_T + 1];
+  __shared__ float ni[SYM_T], nj[SYM_T];
+  const int b = blockIdx.y;
+  int rem = blockIdx.x, bi = 0;            // linear index -> tile pair bi <= bj
+  while (rem >= n_tiles - bi) { rem -= n_tiles - bi; ++bi; }
+  const int bj = bi + rem;
+  const int i0 = bi * SYM_T, j0 = bj * SYM_T;
+  const int tid = threadIdx.x, tx = tid % SYM_T, ty = tid / SYM_T;
+  const float* xb = x + (size_t)b * n * d;
+
+  float acc[SYM_T / SYM_RY];
+#pragma unroll
+  for (int q = 0; q < SYM_T / SYM_RY; ++q) acc[q] = 0.f;
+  float sq = 0.f;  // |x|^2 of row tx of tile i (ty == 0) or of tile j (ty == 1)
+
+  for (int k0 = 0; k0 < d; k0 += SYM_DK) {
+    for (int e = tid; e < SYM_T * SYM_DK; e += SYM_T * SYM_RY) {
+      const int r = e / SYM_DK, c = e % SYM_DK, gk = k0 + c;
+      xi[r][c] = (i0 + r < n && gk < d) ? xb[(size_t)(i0 + r) * d + gk] : 0.f;
+      xj[r][c] = (j0 + r < n && gk < d) ? xb[(size_t)(j0 + r) * d + gk] : 0.f;
+    }
+    __syncthreads();
+    if (ty == 0) {
+#pragma unroll 8
+      for (int c = 0; c < SYM_DK; ++c) sq = fmaf(xi[tx][c], xi[tx][c], sq);
+    } else if (ty == 1) {
+#pragma unroll 8
+      for (int c = 0; c < SYM_DK; ++c) sq = fmaf(xj[tx][c], xj[tx][c], sq);
+    }
+#pragma unroll 8
+    for (int c = 0; c < SYM_DK; ++c) {
+      const float zv = xj[tx][c];
+#pragma unroll
+      for (int q = 0; q < SYM_T / SYM_RY; ++q)
+        acc[q] = fmaf(xi[ty + SYM_RY * q][c], zv, acc[q]);
+    }
+    __syncthreads();
+  }
+  if (ty == 0) ni[tx] = sq;
+  if (ty == 1) nj[tx] = sq;
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < SYM_T / SYM_RY; ++q) {
+    const int r = ty + SYM_RY * q;
+    tile[r][tx] = fmaxf(ni[r] + nj[tx] - 2.f * acc[q], 0.f);
+  }
+  __syncthreads();
+  float* ob = out + (size_t)b * n * n;
+  const bool diag = bi == bj;
+#pragma unroll
+  for (int q = 0; q < SYM_T / SYM_RY; ++q) {
+    const int r = ty + SYM_RY * q;
+    // direct: D(i0 + r, j0 + tx) to (i0 + r, j0 + tx)
+    if (i0 + r < n && j0 + tx < n && (!diag || r <= tx))
+      ob[(size_t)(i0 + r) * n + j0 + tx] = tile[r][tx];
+    // mirror: D(i0 + tx, j0 + r) to (j0 + r, i0 + tx)
+    if (j0 + r < n && i0 + tx < n && (!diag || tx < r))
+      ob[(size_t)(j0 + r) * n + i0 + tx] = tile[tx][r];
+  }
+}
+
 __device__ __forceinline__ float load_f(const float* p, long long i) { return p[i]; }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p, long long i) {
   return __bfloat162float(p[i]);
@@ -144,6 +230,20 @@ int sq_dists_f32(const float* x, const float* z, float* out, int B, int n,
   dim3 grid((m + SQ_BM - 1) / SQ_BM, (n + SQ_BN - 1) / SQ_BN, B);
   sq_dists_kernel<<<grid, SQ_BM, 0, static_cast<cudaStream_t>(stream)>>>(
       x, z, out, n, m, d);
+  return (int)cudaGetLastError();
+}
+
+// x (B, n, d) fp32 contiguous, out (B, n, n): the D2 of x with itself.
+// Limits checked by the Python wrapper: B at most 65535 and the number of
+// upper tile pairs below 2^31.
+int sq_dists_sym_f32(const float* x, float* out, int B, int n, int d,
+                     void* stream) {
+  const int n_tiles = (n + SYM_T - 1) / SYM_T;
+  const long long pairs = (long long)n_tiles * (n_tiles + 1) / 2;
+  dim3 grid((unsigned)pairs, B);
+  sq_dists_sym_kernel<<<grid, SYM_T * SYM_RY, 0,
+                        static_cast<cudaStream_t>(stream)>>>(x, out, n, d,
+                                                             n_tiles);
   return (int)cudaGetLastError();
 }
 

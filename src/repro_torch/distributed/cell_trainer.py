@@ -1,0 +1,125 @@
+"""Wave-scheduled cell training and the test-phase cell predict (the JAX
+package's ``distributed/cell_trainer.py``).
+
+Fine cells are padded and packed (``planner.pack_cells``) into slots; a
+wave of slots is one (S, k, ...) batch on the device, and
+``core.cv.cv_cell`` solves the whole wave at once: the slot and fold axes
+are explicit leading axes of every launch (the reference vmaps them).
+With ``cfg.cd_polish > 0`` each gamma step ends in one Gauss-Seidel launch
+per epoch over every slot and fold of the wave (B4).
+
+Not ported yet: the device mesh (``mesh``: slots sharded over several
+cards) and per-wave checkpoints (``ckpt_dir``); both raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import obs
+from repro_torch.core import cv as cv_mod
+from repro_torch.core import kernel_fns, select
+
+_WAVE_KEYS = ("coefs", "gamma", "lam", "tau", "val")
+_SURFACE_KEYS = ("surf_loss", "surf_fa", "surf_det")
+
+
+def wave_keys(cfg: cv_mod.CVConfig) -> Tuple[str, ...]:
+    """Names (in output order) of the arrays one wave produces: the
+    reference's, plus ``iters`` (box-QP iterations per (gamma, fold))."""
+    return (_WAVE_KEYS + (_SURFACE_KEYS if cfg.keep_surface else ())
+            + ("iters",))
+
+
+def train_cells(x_cells: torch.Tensor, y_cells: torch.Tensor,
+                tmask_cells: torch.Tensor, mask_cells: torch.Tensor,
+                gammas_cells: torch.Tensor, keys: np.ndarray,
+                lam_c: torch.Tensor, sub_c: torch.Tensor,
+                task_c: torch.Tensor, cfg: cv_mod.CVConfig, n_lam: int,
+                n_sub: int, mesh=None) -> Tuple[torch.Tensor, ...]:
+    """One wave: x (S, k, d), y/tmask (S, T, k), mask (S, k), gammas
+    (S, G), keys (S, 2) -> the arrays named by :func:`wave_keys`, coefs
+    fold-averaged to (S, k, T, Sub)."""
+    if mesh is not None:
+        raise NotImplementedError("train_cells: mesh sharding over several "
+                                  "cards is not ported yet")
+    sel = cv_mod.cv_cell(x_cells, y_cells, tmask_cells, mask_cells,
+                         gammas_cells, lam_c, sub_c, task_c, keys, cfg,
+                         n_lam, n_sub)
+    combined = select.combine_fold_models(sel.coefs, dim=1)    # (S,k,T,Sub)
+    out = (combined, sel.gamma, sel.lam, sel.tau, sel.val_loss)
+    if cfg.keep_surface:
+        out = out + (sel.val_grid, sel.fa_grid, sel.det_grid)
+    return out + (sel.iters,)
+
+
+def train_cells_waves(stage: Callable[[int, int], tuple], n_slots: int,
+                      wave_size: Optional[int], lam_c: torch.Tensor,
+                      sub_c: torch.Tensor, task_c: torch.Tensor,
+                      cfg: cv_mod.CVConfig, n_lam: int, n_sub: int,
+                      device: torch.device, mesh=None,
+                      ckpt_dir: Optional[str] = None,
+                      fingerprint: Optional[str] = None):
+    """Wave-scheduled :func:`train_cells` with bounded staging.
+
+    ``stage(lo, hi)`` materializes slots [lo, hi) only, as six host arrays
+    ``(x, y, tmask, mask, gammas, keys)`` (slots past ``n_slots`` are empty
+    padding: zero masks).  Every wave has the same padded slot count.
+    Returns the :func:`wave_keys` arrays as numpy, concatenated over waves
+    and cut to ``n_slots``."""
+    if mesh is not None:
+        raise NotImplementedError("train_cells_waves: mesh sharding is not "
+                                  "ported yet")
+    if ckpt_dir is not None:
+        raise NotImplementedError("train_cells_waves: per-wave checkpoints "
+                                  "(ckpt_dir) are not ported yet")
+    m_solved = obs.metrics.counter("train.waves_solved")
+    if wave_size is None or wave_size >= n_slots:
+        wave_size = n_slots
+    if wave_size <= 0:
+        raise ValueError(f"wave_size must be positive, got {wave_size}")
+    n_waves = -(-n_slots // wave_size)
+    outs = []
+    for w in range(n_waves):
+        lo = w * wave_size
+        with obs.tracer.span("train.wave", device) as sp:
+            sp.set(wave=w, slots=wave_size, cd_polish=cfg.cd_polish)
+            with obs.tracer.span("train.stage", device):
+                x, y, tm, m, g, keys = stage(lo, lo + wave_size)
+                dev_arrays = [torch.as_tensor(a).to(device)
+                              for a in (x, y, tm, m, g)]
+            res = train_cells(*dev_arrays, np.asarray(keys, np.uint32),
+                              lam_c, sub_c, task_c, cfg, n_lam, n_sub)
+        outs.append(tuple(r.cpu().numpy() for r in res))
+        m_solved.inc()
+    return tuple(np.concatenate([o[i] for o in outs])[:n_slots]
+                 for i in range(len(outs[0])))
+
+
+def predict_cells(xt_cells: torch.Tensor, sv_cells: torch.Tensor,
+                  coef_cells: torch.Tensor, gamma_cells: torch.Tensor,
+                  kernel: str = "gauss_rbf", mesh=None) -> torch.Tensor:
+    """Routed test rows through their cells' models.
+
+    xt (S, m, d), sv (S, k, d), coefs (S, k, T, Sub), gammas (S, T, Sub)
+    -> (S, m, T, Sub): one cross D² for the wave (B1), every (slot, task,
+    sub) epilogue in one launch (B2), one batched product."""
+    if mesh is not None:
+        raise NotImplementedError("predict_cells: mesh sharding is not "
+                                  "ported yet")
+    s, m = xt_cells.shape[:2]
+    t, sub = gamma_cells.shape[1:]
+    cols = coef_cells.reshape(s, coef_cells.shape[1], t * sub)   # (S, k, P)
+    spec = kernel_fns.get_spec(kernel)
+    gam = gamma_cells.reshape(s, t * sub).contiguous()
+    if spec.factors_through_d2:
+        gram_of = kernel_fns.cross_gram_fn(xt_cells, sv_cells, kernel)
+        k = gram_of(gam)                                          # (S,P,m,k)
+    else:
+        k = torch.stack([spec.fn(xt_cells, sv_cells, gam[:, p, None, None])
+                         for p in range(t * sub)], dim=1)
+    out = torch.matmul(k, cols.transpose(1, 2)[..., None])[..., 0]
+    return out.transpose(1, 2).reshape(s, m, t, sub)

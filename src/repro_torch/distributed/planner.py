@@ -1,8 +1,10 @@
 """Static load balancing: replaces the paper's Spark shuffle.
 
 liquidSVM's Spark layer dynamically shuffles work to workers.  Here balance
-is decided on the host, before launch.  The training side of this module
-(LPT bin packing of cells onto devices) comes with the training slice.
+is decided on the host, before launch: cells are padded to a uniform size
+and greedily bin-packed (longest processing time first) into per-device
+slots (``pack_cells``); ``group_rows`` packs routed rows into padded
+per-slot blocks.
 
 Serving keeps a static-shape discipline: each engine step is
 one batched launch over a padded (n_slots, m_pad, d) block, but per-cell
@@ -18,9 +20,73 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.cells.builder import CellPlan
+
 
 def _round_up(v: int, mult: int) -> int:
     return -(-max(int(v), 1) // mult) * mult
+
+
+@dataclasses.dataclass
+class RowGroups:
+    """Argsort-grouped rows for padded per-slot scatter/gather:
+    ``packed[g.slot, g.pos] = x[g.rows]`` packs, ``out[g.rows] =
+    dec[g.slot, g.pos]`` unpacks."""
+    rows: np.ndarray     # (m,) int64
+    slot: np.ndarray     # (m,) int64
+    pos: np.ndarray      # (m,) int64
+    counts: np.ndarray   # (n_slots,) int64
+
+    @property
+    def m_max(self) -> int:
+        return max(int(self.counts.max()), 1) if self.counts.size else 1
+
+
+def group_rows(slot_of: np.ndarray, n_slots: int) -> RowGroups:
+    """Group row ids by destination slot (stable — ascending within slot)."""
+    slot_of = np.asarray(slot_of, np.int64)
+    counts = np.bincount(slot_of, minlength=n_slots).astype(np.int64)
+    order = np.argsort(slot_of, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    slot_sorted = slot_of[order]
+    pos = np.arange(slot_of.shape[0], dtype=np.int64) - starts[slot_sorted]
+    return RowGroups(rows=order, slot=slot_sorted, pos=pos, counts=counts)
+
+
+@dataclasses.dataclass
+class PackedCells:
+    order: np.ndarray          # (n_slots,) cell id per slot, -1 = empty slot
+    slot_of_cell: np.ndarray   # (n_cells,)
+    n_devices: int
+    slots_per_device: int
+
+    @property
+    def n_slots(self) -> int:
+        return self.order.shape[0]
+
+
+def pack_cells(plan: CellPlan, n_devices: int) -> PackedCells:
+    """LPT bin packing of cells onto devices; returns a slot ordering whose
+    leading axis splits evenly over the devices."""
+    sizes = plan.mask.sum(1)
+    n_cells = plan.n_cells
+    slots_per_device = int(np.ceil(n_cells / n_devices))
+    loads = np.zeros(n_devices)
+    counts = np.zeros(n_devices, np.int32)
+    assign = np.full((n_devices, slots_per_device), -1, np.int64)
+    for cid in np.argsort(-sizes):  # biggest first
+        free = np.where(counts < slots_per_device)[0]
+        dev = free[np.argmin(loads[free])]
+        assign[dev, counts[dev]] = cid
+        loads[dev] += sizes[cid]
+        counts[dev] += 1
+    order = assign.reshape(-1)
+    slot_of = np.full(n_cells, -1, np.int64)
+    for s, cid in enumerate(order):
+        if cid >= 0:
+            slot_of[cid] = s
+    return PackedCells(order=order, slot_of_cell=slot_of,
+                       n_devices=n_devices, slots_per_device=slots_per_device)
 
 
 @dataclasses.dataclass

@@ -1,10 +1,12 @@
 """Wrappers for the kernel-matrix kernels: checks, dispatch by device.
 
-Two entry points, the ones the serving path runs:
+Two entry points:
 
-  * ``sq_dists``      — the gamma-independent D² matrix (B1, the
-                        non-symmetric case), optionally batched over a
-                        leading slot axis;
+  * ``sq_dists``      — the gamma-independent D² matrix (B1), optionally
+                        batched over a leading slot axis; ``symmetric=True``
+                        (the train Gram of a wave of cells, z is x) takes
+                        the upper-tile kernel whose result equals its
+                        transpose bitwise;
   * ``gram_from_d2``  — the per-gamma epilogue replayed over a cached D²
                         (B2), f32 or bf16 in and out.
 
@@ -26,8 +28,10 @@ KINDS = {"gauss_rbf": 0, "laplacian": 1}
 OUT_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 _GRID_MAX = 65535
 _SQ_ROWS = 8        # x rows per block of the D² kernel
+_SYM_TILE = 32      # square tile of the symmetric D² kernel
 
-launches: Dict[str, int] = {"sq_dists": 0, "gram_from_d2": 0}
+launches: Dict[str, int] = {"sq_dists": 0, "sq_dists_sym": 0,
+                             "gram_from_d2": 0}
 
 
 def _lib() -> ctypes.CDLL:
@@ -36,6 +40,8 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.sq_dists_f32.argtypes = [p, p, p, i, i, i, i, p]
         lib.sq_dists_f32.restype = i
+        lib.sq_dists_sym_f32.argtypes = [p, p, i, i, i, p]
+        lib.sq_dists_sym_f32.restype = i
         lib.gram_from_d2.argtypes = [p, p, p, i, i, ctypes.c_longlong,
                                      i, i, i, p]
         lib.gram_from_d2.restype = i
@@ -43,11 +49,17 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def sq_dists(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+def sq_dists(x: torch.Tensor, z: torch.Tensor,
+             symmetric: bool = False) -> torch.Tensor:
     """Pairwise squared distances, f32.
 
     (n, d) x (m, d) -> (n, m), or batched (B, n, d) x (B, m, d) ->
     (B, n, m) in one launch (the engine's per-slot wave D²).
+
+    ``symmetric=True`` requires z to be the same points as x (callers pass
+    x twice, as the reference's contract says): the kernel computes only
+    the upper tiles and stores each tile's transpose, so the result equals
+    its transpose bitwise.
     """
     runtime.check_tensor("x", x, (torch.float32,))
     runtime.check_tensor("z", z, (torch.float32,))
@@ -59,8 +71,13 @@ def sq_dists(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
                          f"{tuple(z.shape)} disagree")
     if x.device != z.device:
         raise ValueError(f"sq_dists: x on {x.device}, z on {z.device}")
+    if symmetric and x.shape != z.shape:
+        raise ValueError(f"sq_dists(symmetric=True): x {tuple(x.shape)} and "
+                         f"z {tuple(z.shape)} must be the same points")
     if x.device.type == "cpu":
-        return ref.sq_dists_ref(x, z)
+        return ref.sq_dists_ref(x, z, symmetric=symmetric)
+    if symmetric:
+        return _sq_dists_sym(x)
 
     xb, zb = (x, z) if x.dim() == 3 else (x[None], z[None])
     b, n, d = xb.shape
@@ -75,6 +92,22 @@ def sq_dists(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
                                  runtime.stream_handle(x.device))
         runtime.raise_on_error("sq_dists", rc)
         launches["sq_dists"] += 1
+    return out if x.dim() == 3 else out[0]
+
+
+def _sq_dists_sym(x: torch.Tensor) -> torch.Tensor:
+    xb = x if x.dim() == 3 else x[None]
+    b, n, d = xb.shape
+    runtime.check_launch("sq_dists", (xb,), x.device)
+    n_tiles = -(-n // _SYM_TILE)
+    if b > _GRID_MAX or n_tiles * (n_tiles + 1) // 2 >= 2 ** 31:
+        raise ValueError(f"sq_dists: batch {b} or rows {n} exceed the grid")
+    out = torch.empty((b, n, n), dtype=torch.float32, device=x.device)
+    if out.numel():
+        rc = _lib().sq_dists_sym_f32(runtime.ptr(xb), runtime.ptr(out), b, n,
+                                     d, runtime.stream_handle(x.device))
+        runtime.raise_on_error("sq_dists_sym", rc)
+        launches["sq_dists_sym"] += 1
     return out if x.dim() == 3 else out[0]
 
 

@@ -10,14 +10,21 @@ from typing import Union
 import torch
 
 
-def sq_dists_ref(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+def sq_dists_ref(x: torch.Tensor, z: torch.Tensor,
+                 symmetric: bool = False) -> torch.Tensor:
     """(..., n, d) x (..., m, d) -> (..., n, m) f32 squared distances in
-    GEMM form, max(|x|^2 + |z|^2 - 2 x.z, 0)."""
+    GEMM form, max(|x|^2 + |z|^2 - 2 x.z, 0).
+
+    ``symmetric=True`` (z is x) returns 0.5 (D + D^T), which equals its
+    transpose bitwise, as the reference's symmetric contract does."""
     x = x.to(torch.float32)
     z = z.to(torch.float32)
     xx = (x * x).sum(-1)[..., :, None]
     zz = (z * z).sum(-1)[..., None, :]
-    return torch.clamp(xx + zz - 2.0 * (x @ z.transpose(-1, -2)), min=0.0)
+    d2 = torch.clamp(xx + zz - 2.0 * (x @ z.transpose(-1, -2)), min=0.0)
+    if symmetric:
+        d2 = 0.5 * (d2 + d2.transpose(-1, -2))
+    return d2
 
 
 def gram_from_d2_ref(d2: torch.Tensor, gamma: Union[float, torch.Tensor],

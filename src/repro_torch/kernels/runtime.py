@@ -14,6 +14,7 @@ toolchain.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -27,7 +28,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("kernel_matrix", "svm_predict")
+SOURCES = ("kernel_matrix", "svm_predict", "cd_solver")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -84,6 +85,20 @@ def check_launch(name: str, tensors: Iterable[torch.Tensor],
         if not t.is_contiguous():
             raise ValueError(f"{name}: operand of shape {tuple(t.shape)} is "
                              f"not contiguous")
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """fp32 matrix products in full fp32 on the card, never TF32, for the
+    duration (the GEMM-form distances and the solver already cancel to
+    ~1e-4; TF32's 10-bit mantissa would swamp that).  Restores the
+    caller's setting on exit."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def nvcc() -> str:

@@ -22,18 +22,25 @@ Design constraints (these are serve-hot-path sites):
     tracer, so an exported trace reconstructs the call tree without ids;
   * **bounded** — completed spans land in a :class:`RingBuffer`; a
     long-running serve loop cannot grow memory by being observed
-    (``dropped`` counts what the ring evicted).
+    (``dropped`` counts what the ring evicted);
+  * **device time** — ``span(name, device)`` with a CUDA device also
+    records a CUDA event pair on the current stream, so a span of
+    asynchronous launches carries the card's time for them
+    (:attr:`Span.elapsed_ms`, :meth:`Tracer.breakdown_ms`); reading it
+    synchronizes once.  Two events per span, and only while enabled.
 
 Known sites (grep ``tracer.span\\|tracer.record`` for the authoritative
 list): ``serve.route`` ``serve.pack`` ``serve.dispatch`` ``serve.device``
-``serve.collect``.  The schema id is shared with the JAX package, so one
+``serve.collect``; the training waves' ``train.wave`` with its stages
+``train.stage`` ``train.d2`` ``train.epilogue`` ``train.fista``
+``train.polish`` ``train.select`` (device-timed).  The schema id is shared with the JAX package, so one
 reader serves traces from both.
 """
 from __future__ import annotations
 
 import json
 import time
-from typing import Any, Callable, Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 TRACE_SCHEMA = "repro.obs.trace.v1"
 
@@ -121,27 +128,42 @@ NULL_SPAN = _NullSpan()
 
 class Span:
     """One completed timed section.  ``dur_s`` is monotonic-clock seconds;
-    ``depth`` 0 is a root span (nesting recorded at entry time)."""
+    ``depth`` 0 is a root span (nesting recorded at entry time); ``events``
+    the (start, end) CUDA events of a device-timed span, else None."""
 
-    __slots__ = ("name", "t0", "t1", "depth", "attrs")
+    __slots__ = ("name", "t0", "t1", "depth", "attrs", "events")
 
     def __init__(self, name: str, t0: float, t1: float, depth: int = 0,
-                 attrs: Optional[Dict[str, Any]] = None):
+                 attrs: Optional[Dict[str, Any]] = None,
+                 events: Optional[Tuple[Any, Any]] = None):
         self.name = name
         self.t0 = t0
         self.t1 = t1
         self.depth = depth
         self.attrs = attrs
+        self.events = events
 
     @property
     def dur_s(self) -> float:
         return self.t1 - self.t0
+
+    @property
+    def elapsed_ms(self) -> float:
+        """The card's time between the span's events when it has them
+        (waits for the end event), else the host's."""
+        if self.events is None:
+            return self.dur_s * 1e3
+        start, end = self.events
+        end.synchronize()
+        return start.elapsed_time(end)
 
     def to_json(self) -> Dict[str, Any]:
         d = {"name": self.name, "t0": self.t0, "t1": self.t1,
              "dur_s": self.dur_s, "depth": self.depth}
         if self.attrs:
             d["attrs"] = self.attrs
+        if self.events is not None:
+            d["device_ms"] = self.elapsed_ms
         return d
 
     def __repr__(self) -> str:
@@ -152,13 +174,19 @@ class Span:
 class _LiveSpan:
     """Context manager for an enabled tracer; records itself on exit."""
 
-    __slots__ = ("_tracer", "name", "t0", "attrs")
+    __slots__ = ("_tracer", "name", "t0", "attrs", "_events")
 
-    def __init__(self, tracer: "Tracer", name: str):
+    def __init__(self, tracer: "Tracer", name: str, device=None):
         self._tracer = tracer
         self.name = name
         self.attrs: Optional[Dict[str, Any]] = None
         self.t0 = 0.0
+        self._events = None
+        if device is not None:
+            import torch
+            if torch.device(device).type == "cuda":
+                self._events = (torch.cuda.Event(enable_timing=True),
+                                torch.cuda.Event(enable_timing=True))
 
     def set(self, **attrs: Any) -> "_LiveSpan":
         if self.attrs is None:
@@ -169,14 +197,19 @@ class _LiveSpan:
 
     def __enter__(self) -> "_LiveSpan":
         self._tracer._depth += 1
+        if self._events is not None:
+            self._events[0].record()
         self.t0 = self._tracer._clock()
         return self
 
     def __exit__(self, *exc) -> bool:
+        if self._events is not None:
+            self._events[1].record()
         t1 = self._tracer._clock()
         tr = self._tracer
         tr._depth -= 1
-        tr._emit(Span(self.name, self.t0, t1, tr._depth, self.attrs))
+        tr._emit(Span(self.name, self.t0, t1, tr._depth, self.attrs,
+                      self._events))
         return False
 
 
@@ -199,13 +232,14 @@ class Tracer:
         self._agg: Dict[str, List[float]] = {}   # name -> [count, total, max]
 
     # ------------------------------------------------------------ recording
-    def span(self, name: str):
+    def span(self, name: str, device=None):
         """Timed context manager for ``name``; :data:`NULL_SPAN` when
         disabled (no allocation).  Attach attributes inside the body with
-        ``sp.set(key=value)`` — a no-op on the null span."""
+        ``sp.set(key=value)`` — a no-op on the null span.  A CUDA
+        ``device`` also times the span on the card (CUDA events)."""
         if not self.enabled:
             return NULL_SPAN
-        return _LiveSpan(self, name)
+        return _LiveSpan(self, name, device)
 
     def record(self, name: str, t0: float, t1: float) -> None:
         """Record an already-measured interval (caller read the clock).
@@ -238,6 +272,26 @@ class Tracer:
         return {name: {"count": int(c), "total_s": tot,
                        "mean_s": tot / c, "max_s": mx}
                 for name, (c, tot, mx) in sorted(self._agg.items())}
+
+    def breakdown_ms(self, root: str) -> List[Dict[str, Any]]:
+        """Per ``root`` span in the retained window, oldest first: its
+        attrs under ``"attrs"``, its own :attr:`Span.elapsed_ms` under its
+        name, and the summed elapsed_ms of each span name recorded inside
+        it (children complete before their parent, so they precede it)."""
+        out: List[Dict[str, Any]] = []
+        pending: List[Span] = []
+        for sp in self.spans:
+            if sp.name != root:
+                pending.append(sp)
+                continue
+            row: Dict[str, Any] = {"attrs": dict(sp.attrs or {}),
+                                   root: sp.elapsed_ms}
+            for ch in pending:
+                if ch.t0 >= sp.t0 and ch.t1 <= sp.t1:
+                    row[ch.name] = row.get(ch.name, 0.0) + ch.elapsed_ms
+            out.append(row)
+            pending = []
+        return out
 
     def clear(self) -> None:
         self.spans.clear()

@@ -1,9 +1,12 @@
-"""Host-side data pipeline pieces the serving path needs: the chunked
-in-memory source (``dataset``) and the chunked GEMM-form nearest-center
-router (``assign``), numpy on both sides so routing is bit-identical to
-the JAX package's."""
+"""Host-side data pipeline, numpy on both sides so routing and cell plans
+are bit-identical to the JAX package's: the chunked in-memory source and
+its scaled view (``dataset``), the chunked GEMM-form nearest-center router
+and Lloyd sweeps (``assign``), and the streaming cell builder
+(``cell_stream``)."""
 from repro_torch.pipeline.dataset import (  # noqa: F401
     ArraySource,
     ChunkSource,
+    ScaledSource,
     as_source,
+    streaming_mean_std,
 )

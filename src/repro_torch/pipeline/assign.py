@@ -5,9 +5,11 @@
 ``‖x‖² + ‖c‖² − 2x·cᵀ`` GEMM form in numpy.  Peak memory is O(chunk · C),
 never the (n, 1, d) − (1, C, d) broadcast.  Per-row results do not depend
 on the chunking.  Ties resolve to the LOWEST center index (``argmin``), so
-the serving router and the overlap cell builder share one rule.  The
-device backend (the resident-center assignment kernel) belongs to the
-cell-building slice.
+the serving router and the overlap cell builder share one rule.
+``assign_stream`` (numpy backend) and ``lloyd_stream`` serve the cell
+builders.  The device backend (the resident-center assignment kernel, B6)
+waits: cell building runs on the host here, as the reference's builders
+do (``backend="numpy"``).
 """
 from __future__ import annotations
 
@@ -115,3 +117,45 @@ def assign_top2_stream(source, centers: np.ndarray,
         nn1[lo:hi], nn2[lo:hi], d1[lo:hi], d2[lo:hi] = \
             _top2_chunk(chunk, centers, cnorm)
     return nn1, nn2, d1, d2
+
+
+def assign_stream(source, centers: np.ndarray,
+                  chunk_size: int = DEFAULT_CHUNK,
+                  backend: str = "numpy") -> np.ndarray:
+    """Owner id per row over a whole chunk source (numpy backend only)."""
+    if backend != "numpy":
+        raise NotImplementedError(
+            f"assign_stream backend {backend!r}: the device assignment "
+            f"kernel is not ported yet; use backend='numpy'")
+    src = as_source(source)
+    centers = np.asarray(centers, np.float32)
+    out = np.empty(src.n_rows, np.int32)
+    cnorm = center_norms(centers)
+    for lo, chunk in src.iter_chunks(chunk_size):
+        out[lo:lo + chunk.shape[0]] = \
+            _d2_chunk(chunk, centers, cnorm).argmin(1).astype(np.int32)
+    return out
+
+
+def lloyd_stream(source, centers: np.ndarray, iters: int,
+                 chunk_size: int = DEFAULT_CHUNK) -> np.ndarray:
+    """Full-batch Lloyd sweeps over a chunk source, O(chunk·C) memory.
+
+    Center updates are running sums (``np.add.at`` in ascending row order,
+    so the accumulation is chunking-invariant); a center whose cell goes
+    empty keeps its previous position."""
+    src = as_source(source)
+    centers = np.array(centers, np.float32, copy=True)
+    n_centers, d = centers.shape
+    for _ in range(iters):
+        csum = np.zeros((n_centers, d), np.float32)
+        cnt = np.zeros(n_centers, np.int64)
+        cnorm = center_norms(centers)
+        for _, chunk in src.iter_chunks(chunk_size):
+            a = _d2_chunk(chunk, centers, cnorm).argmin(1)
+            np.add.at(csum, a, chunk)
+            cnt += np.bincount(a, minlength=n_centers)
+        nonempty = cnt > 0
+        denom = np.maximum(cnt, 1).astype(np.float32)[:, None]
+        centers = np.where(nonempty[:, None], csum / denom, centers)
+    return centers

@@ -29,9 +29,9 @@ Layout (C = number of cells, P = n_tasks * n_sub, column p = t * n_sub + s
   centers   (C, d)      Voronoi routing centers (empty slots pushed to inf)
 
 A bank built by the JAX package converts with
-``repro_torch.serve.convert.bank_from_reference``.  Saving and loading
-banks, and building one from a trained model, come with the training
-slice.
+``repro_torch.serve.convert.bank_from_reference``; a trained model
+compacts into one through ``SelectResult.to_bank``.  Saving and loading
+banks are not ported yet.
 """
 from __future__ import annotations
 
@@ -44,6 +44,10 @@ import torch
 from repro_torch.distributed.planner import _round_up
 
 Table = Union[np.ndarray, torch.Tensor]
+
+# routing center of an empty slot: farther than any scaled query, so the
+# slot never receives traffic
+_FAR = np.float32(1.0e18)
 
 
 def _route_baseline(sv_cells: np.ndarray, mask_cells: np.ndarray,

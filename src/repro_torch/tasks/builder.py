@@ -13,12 +13,87 @@ scenario's labels:
   expectile  — regression; tau grid, selection PER TAU       (exSVM)
   ls         — least-squares regression, one task            (lsSVM)
 
-Task creation (``make_tasks``) belongs to the training side and is not
-part of this package yet.
+``make_tasks`` builds the tasks of a scenario; static shapes: labels
+(n_tasks, n) f32 with 0 = excluded from the task.
 """
 from __future__ import annotations
 
+import dataclasses
+import itertools
+from typing import Sequence
+
 import numpy as np
+
+
+@dataclasses.dataclass
+class TaskSet:
+    kind: str
+    labels: np.ndarray       # (n_tasks, n) f32: +-1 labels or regression target
+    task_mask: np.ndarray    # (n_tasks, n) f32: 1 = sample participates
+    classes: np.ndarray      # (n_classes,) original class values (classification)
+    pairs: np.ndarray        # (n_tasks, 2) int — AvA class-index pairs (or -1)
+    taus: np.ndarray         # (n_taus,) for quantile/expectile else [0.5]
+    weights: np.ndarray      # (n_weights,) hinge weight grid else [1.0]
+
+    @property
+    def n_tasks(self) -> int:
+        return self.labels.shape[0]
+
+
+def make_tasks(
+    y: np.ndarray,
+    scenario: str = "binary",
+    taus: Sequence[float] = (0.05, 0.5, 0.95),
+    weights: Sequence[float] = (1.0,),
+) -> TaskSet:
+    y = np.asarray(y)
+    n = y.shape[0]
+    ones = np.ones((1, n), np.float32)
+
+    if scenario in ("binary", "weighted"):
+        labels = np.asarray(y, np.float32)[None, :]
+        if not set(np.unique(labels)) <= {-1.0, 1.0}:
+            raise ValueError("binary labels must be +-1")
+        return TaskSet(scenario, labels, ones.copy(), np.array([-1.0, 1.0]),
+                       -np.ones((1, 2), np.int32), np.array([0.5], np.float32),
+                       np.asarray(weights, np.float32))
+
+    if scenario == "ova":
+        classes = np.unique(y)
+        labels = np.stack([np.where(y == c, 1.0, -1.0)
+                           for c in classes]).astype(np.float32)
+        mask = np.ones_like(labels, np.float32)
+        return TaskSet(scenario, labels, mask, classes,
+                       -np.ones((len(classes), 2), np.int32),
+                       np.array([0.5], np.float32), np.array([1.0], np.float32))
+
+    if scenario == "ava":
+        classes = np.unique(y)
+        pairs = list(itertools.combinations(range(len(classes)), 2))
+        labels, masks = [], []
+        for a, b in pairs:
+            la = np.where(y == classes[a], 1.0,
+                          np.where(y == classes[b], -1.0, 0.0))
+            labels.append(la)
+            masks.append((la != 0.0).astype(np.float32))
+        return TaskSet(scenario, np.asarray(labels, np.float32),
+                       np.asarray(masks, np.float32), classes,
+                       np.asarray(pairs, np.int32), np.array([0.5], np.float32),
+                       np.array([1.0], np.float32))
+
+    if scenario in ("quantile", "expectile"):
+        labels = np.asarray(y, np.float32)[None, :]
+        return TaskSet(scenario, labels, ones.copy(), np.array([]),
+                       -np.ones((1, 2), np.int32), np.asarray(taus, np.float32),
+                       np.array([1.0], np.float32))
+
+    if scenario == "ls":
+        labels = np.asarray(y, np.float32)[None, :]
+        return TaskSet(scenario, labels, ones.copy(), np.array([]),
+                       -np.ones((1, 2), np.int32), np.array([0.5], np.float32),
+                       np.array([1.0], np.float32))
+
+    raise ValueError(f"unknown scenario {scenario!r}")
 
 
 def combine_ova(decisions: np.ndarray, classes: np.ndarray) -> np.ndarray:

@@ -1,0 +1,5 @@
+"""The estimator entry point (``svm_trainer.LiquidSVM``) and the bridge
+from the JAX package's selections (``convert``)."""
+from repro_torch.train.svm_trainer import LiquidSVM, SVMTrainerConfig
+
+__all__ = ["LiquidSVM", "SVMTrainerConfig"]

@@ -126,3 +126,110 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         wide = torch.ones(1, 8, 60000, device=cuda)
         sp_ops.svm_predict_cells(wide, wide, torch.ones(1, 8, 2, device=cuda),
                                  torch.ones(1, 2, device=cuda))
+
+
+# ------------------------------------------------ training slice: B1-sym, B4, B5
+from repro_torch.kernels.cd_solver import ops as cd_ops  # noqa: E402
+from repro_torch.kernels.cd_solver import ref as cd_ref  # noqa: E402
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 127, 129, 1824])
+@pytest.mark.parametrize("d", [1, 54, 300])
+def test_sq_dists_sym_kernel_is_symmetric_and_matches_plain(cuda, k, d):
+    gen = torch.Generator().manual_seed(k * 7 + d)
+    b = 3 if k < 1000 else 2
+    x = _rand(gen, b, k, d, scale=2.0).to(cuda)
+    before = km_ops.launches["sq_dists_sym"]
+    got = km_ops.sq_dists(x, x, symmetric=True)
+    want = km_ref.sq_dists_ref(x, x, symmetric=True)
+    torch.cuda.synchronize()
+    assert km_ops.launches["sq_dists_sym"] == before + 1
+    assert got.shape == (b, k, k)
+    # bitwise symmetric, diagonal tiles included
+    assert torch.equal(got.view(torch.int32),
+                       got.transpose(1, 2).contiguous().view(torch.int32))
+    scale = float(2 * (x * x).sum(-1).max())
+    assert float((got - want).abs().max()) <= 64 * EPS * scale
+    one = km_ops.sq_dists(x[0], x[0], symmetric=True)     # unbatched
+    assert torch.equal(one, got[0])
+
+
+def _cd_problem(gen, s, f, n, p, pad):
+    """A wave of hinge-like box QPs on PSD Grams, symmetric bitwise as the
+    kernel requires; the last ``pad`` coordinates of each slot are padding
+    (lo == hi == 0)."""
+    x = torch.randn(s, n, 5, generator=gen)
+    k = torch.exp(-km_ref.sq_dists_ref(x, x, symmetric=True) / 4.0)
+    y = torch.sign(torch.randn(s, 1, n, 1, generator=gen)).expand(s, f, n, p)
+    cost = torch.rand(s, f, 1, p, generator=gen) * 3.0 + 0.1
+    lo = torch.clamp(y * cost, max=0.0).contiguous()
+    hi = torch.clamp(y * cost, min=0.0).contiguous()
+    if pad:
+        lo[:, :, n - pad:] = 0.0
+        hi[:, :, n - pad:] = 0.0
+    c = torch.clamp(torch.randn(s, f, n, p, generator=gen), min=lo, max=hi)
+    g = cd_ops.slot_matmul(k, c) - y
+    return k, c, g.contiguous(), lo, hi
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,f,n,p,pad", [(2, 3, 37, 1, 0), (3, 2, 129, 70, 9),
+                                         (1, 1, 300, 130, 0),
+                                         (2, 5, 201, 70, 17)])
+def test_cd_wave_epoch_bitwise_equals_plain_sweep(cuda, s, f, n, p, pad):
+    gen = torch.Generator().manual_seed(s * 1000 + n + p)
+    k, c, g, lo, hi = (t.to(cuda) for t in _cd_problem(gen, s, f, n, p, pad))
+    before = cd_ops.launches["cd_wave_epoch"]
+    kc, kg = c, g
+    pc, pg = c, g
+    for _ in range(2):
+        kc, kg = cd_ops.cd_wave_epoch(k, kc, kg, lo, hi)
+        pc, pg = cd_ref.cd_wave_epoch_ref(k, pc, pg, lo, hi)
+    torch.cuda.synchronize()
+    assert cd_ops.launches["cd_wave_epoch"] == before + 2
+    assert torch.equal(kc, pc) and torch.equal(kg, pg)
+    if pad:
+        assert not kc[:, :, n - pad:].any()
+    # B5: each slot's first problem alone (the one-cell entry point) equals
+    # its slot of the wave
+    for si in range(s):
+        b5_before = cd_ops.launches["cd_epoch"]
+        oc, og = c[si, 0], g[si, 0]
+        for _ in range(2):
+            oc, og = cd_ops.cd_epoch(k[si], oc, og, lo[si, 0], hi[si, 0])
+        torch.cuda.synchronize()
+        assert cd_ops.launches["cd_epoch"] == b5_before + 2
+        assert torch.equal(oc, kc[si, 0]) and torch.equal(og, kg[si, 0])
+
+
+@pytest.mark.gpu
+def test_cd_polish_runs_on_the_card_and_descends(cuda):
+    gen = torch.Generator().manual_seed(3)
+    k, c, g, lo, hi = (t.to(cuda) for t in _cd_problem(gen, 2, 3, 90, 7, 5))
+    y = cd_ops.slot_matmul(k, c) - g
+    before = cd_ops.launches["cd_wave_epoch"]
+    out = cd_ops.cd_polish(k, y, lo, hi, c, epochs=3)
+    torch.cuda.synchronize()
+    assert cd_ops.launches["cd_wave_epoch"] == before + 3
+
+    def obj(cc):
+        return (0.5 * (cc * cd_ops.slot_matmul(k, cc)).sum((-2, -1))
+                - (cc * y).sum((-2, -1)))
+    assert bool((obj(out) <= obj(c) + 1e-4).all())
+
+
+@pytest.mark.gpu
+def test_tracer_spans_carry_device_time(cuda):
+    from repro_torch.obs import Tracer
+    tr = Tracer(enabled=True)
+    a = torch.randn(1024, 1024, device=cuda)
+    with tr.span("outer", cuda) as sp:
+        sp.set(wave=0)
+        with tr.span("inner", cuda):
+            a @ a
+    rows = tr.breakdown_ms("outer")
+    assert rows[0]["attrs"] == {"wave": 0}
+    inner = [s for s in tr.spans if s.name == "inner"][0]
+    assert inner.events is not None
+    assert 0.0 < rows[0]["inner"] <= rows[0]["outer"]

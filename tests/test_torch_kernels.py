@@ -18,6 +18,12 @@ at these shapes (C=3, m=20, k=72, d=7, P=6, seed 0):
   * B3 ``svm_predict_cells``: the port differs by 1.9e-6 (Gaussian) and
     1.4e-6 (Laplacian) on decisions up to ~6; the reference's own gap is
     4.8e-7 and 9.5e-7.  Tolerance: 1e-5 times the largest decision.
+  * B1 symmetric: the reference's Pallas kernel (interpret mode) mirrors
+    one triangle, its oracle averages D and D^T; the port's plain version
+    averages as the oracle does.  Tolerance: B1's 8 ulps of the largest D².
+  * B4/B5: the reference's Pallas CD kernels no longer run on this jax
+    (ROADMAP C1); their parity with the jnp oracles is in
+    ``tests/test_torch_train.py::TestCD``.  Here: dispatch and checks.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ from repro.kernels.kernel_matrix import ref as jk_ref  # noqa: E402
 from repro.kernels.svm_predict import ops as js_ops  # noqa: E402
 from repro.kernels.svm_predict import ref as js_ref  # noqa: E402
 from repro_torch.kernels import runtime  # noqa: E402
+from repro_torch.kernels.cd_solver import ops as tc_ops  # noqa: E402
 from repro_torch.kernels.kernel_matrix import ops as tk_ops  # noqa: E402
 from repro_torch.kernels.svm_predict import ops as ts_ops  # noqa: E402
 
@@ -176,6 +183,68 @@ class TestSvmPredictCells:
             ts_ops.svm_predict_cells(*args, kind="poly")
 
 
+class TestSqDistsSymmetric:
+    @pytest.mark.parametrize("c", range(C))
+    def test_matches_pallas_and_oracle(self, inputs, c):
+        x = inputs["sv"][c]
+        before = dict(tk_ops.launches)
+        got = _np(tk_ops.sq_dists(_t(x), _t(x), symmetric=True))
+        assert tk_ops.launches == before        # the CPU runs no kernel
+        tol = 8 * EPS * float(4 * (x * x).sum(-1).max())
+        for force in (True, False):
+            want = np.asarray(jk_ops.sq_dists(jnp.asarray(x), jnp.asarray(x),
+                                              symmetric=True,
+                                              force_pallas=force))
+            assert np.abs(got - want).max() <= tol
+        assert np.array_equal(got, got.T)
+
+    def test_rejects_different_points(self, inputs):
+        x = _t(inputs["sv"][0])
+        with pytest.raises(ValueError):
+            tk_ops.sq_dists(x, x[:5], symmetric=True)
+
+
+class TestCDWrappers:
+    def _problem(self, s=2, f=3, n=12, p=4):
+        rng = np.random.default_rng(5)
+        x = rng.normal(size=(s, n, 2)).astype(np.float32)
+        k = np.exp(-((x[:, :, None] - x[:, None]) ** 2).sum(-1))
+        lo = -rng.uniform(0, 1, size=(s, f, n, p)).astype(np.float32)
+        hi = rng.uniform(0, 1, size=(s, f, n, p)).astype(np.float32)
+        c = np.zeros((s, f, n, p), np.float32)
+        g = -rng.normal(size=(s, f, n, p)).astype(np.float32)
+        return [_t(a.astype(np.float32)) for a in (k, c, g, lo, hi)]
+
+    def test_cpu_runs_the_plain_sweep_and_counts_nothing(self):
+        from repro_torch.kernels.cd_solver import ref as tc_ref
+        k, c, g, lo, hi = self._problem()
+        before = dict(tc_ops.launches)
+        got = tc_ops.cd_wave_epoch(k, c, g, lo, hi)
+        want = tc_ref.cd_wave_epoch_ref(k, c, g, lo, hi)
+        assert tc_ops.launches == before
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        one = tc_ops.cd_epoch(k[1], c[1, 2], g[1, 2], lo[1, 2], hi[1, 2])
+        assert torch.equal(one[0], got[0][1, 2])
+        assert torch.equal(one[1], got[1][1, 2])
+
+    def test_rejects_mismatched_operands(self):
+        k, c, g, lo, hi = self._problem()
+        with pytest.raises(ValueError):
+            tc_ops.cd_wave_epoch(k[:, :5], c, g, lo, hi)
+        with pytest.raises(ValueError):
+            tc_ops.cd_wave_epoch(k, c, g[:, :2], lo, hi)
+        with pytest.raises(TypeError):
+            tc_ops.cd_wave_epoch(k.double(), c, g, lo, hi)
+
+    @pytest.mark.parametrize("n,p,bc", [(1824, 70, 16), (100, 3, 3),
+                                        (4000, 70, 14), (14000, 1, 1)])
+    def test_block_columns_fit_shared_memory(self, n, p, bc):
+        assert tc_ops.block_cols(n, p) == bc
+        assert 4 * (bc * n + bc) <= 227 * 1024
+        with pytest.raises(ValueError):
+            tc_ops.block_cols(60000, 4)
+
+
 class TestNoSilentCpuFallback:
     def test_no_gpu_raises_for_default_and_cuda_device(self, monkeypatch):
         from repro_torch.serve import ModelBank, SVMEngine
@@ -209,6 +278,12 @@ class TestNoSilentCpuFallback:
         with pytest.raises(ValueError):
             ts_ops.svm_predict_cells(x, x, co,
                                      torch.empty((2, 2), device="meta"))
+        with pytest.raises(ValueError):
+            tk_ops.sq_dists(x, x, symmetric=True)
+        k = torch.empty((2, 4, 4), device="meta")
+        c = torch.empty((2, 1, 4, 3), device="meta")
+        with pytest.raises(ValueError):
+            tc_ops.cd_wave_epoch(k, c, c, c, c)
 
 
 def test_import_leaves_no_jax_and_no_reference_modules():
