@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch/CUDA port: serving and training paths.
+"""Chip smoke test of the PyTorch/CUDA port: serving, training and LM paths.
 
     python3 chip_smoke.py
 
@@ -33,10 +33,23 @@ kernels from ``src/repro_torch/csrc/`` into ``build/kernels/`` and then:
      stage times, FISTA iterations and test error through
      ``decision_function`` and through the bank served by ``SVMEngine``;
      drives ``cd_epochs`` (B5's entry point) on one fitted cell;
-  6. times each kernel at the main path's shapes beside its plain version,
+  6. the LM path at stablelm-1.6b's full width (seed-initialised, bf16):
+     holds flash attention (B9) and fused decode attention (B10) against
+     their plain versions (every mask kind, GQA, head_dim 64 and 256, bf16
+     and int8 caches, partial and wrapped ring caches, windows); embeds a
+     three-domain token corpus (3 x 1024 sequences of 256 tokens) through
+     write-through caches, one block also through the plain attention,
+     then replays the shards; trains the SVM head on the embeddings with
+     ``SVM(source, None)`` (labels from the source), tests it on the
+     held-out sequences and serves them through ``EmbedServe``; generates
+     64 tokens for 8 prompts of 256 with a bf16 and an int8 cache, and at
+     the smoke configs in f32 checks the tokens through the kernels equal
+     the plain path's; each run's launches are counted on their own;
+  7. times each kernel at the main path's shapes beside its plain version,
      its bound from bytes and operations, and a one-call PyTorch yardstick
-     where one exists; prints one JSON line per phase, the kernel table,
-     and last ``{"ok": true, "device": {...}}``.
+     where one exists (B9 and B10 also at one long context each); prints
+     one JSON line per phase, the kernel table, and last
+     ``{"ok": true, "device": {...}}``.
 
 Any mismatch or exception ends the run with a non-zero exit code.  Without
 a card, or without the rest of the repository beside it, it exits non-zero
@@ -79,9 +92,32 @@ FISTA_PROFILE_ITERS = 20
 # validation samples may change sides (see small_fit_parity)
 FLIP_SHARE = 0.01
 
+# LM slice: stablelm-1.6b at full width (hf:stabilityai/stablelm-2-1_6b: 24
+# layers, d_model 2048, 32 heads of 64, d_ff 5632, vocab 100352, bf16),
+# seed-initialised (no weights are downloaded); a three-domain token corpus
+# made with numpy, 1024 sequences of 256 tokens per class (768 to train,
+# 256 held out); the SVM head with the settings of examples/lm_svm_head.py
+LM_ARCH, LM_SEQ, LM_BATCH = "stablelm-1.6b", 256, 32
+LM_CLASSES, LM_TRAIN_PER_CLASS, LM_HELD_PER_CLASS = 3, 768, 256
+LM_DOMAIN, LM_ZIPF, LM_SHARED = 4096, 1.1, 0.5
+LM_SVM_CFG = dict(scenario="ova", cell_method="voronoi", cell_size=800,
+                  n_folds=3, max_iters=400)
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 8, 256, 64
+# one long context each for the kernel table: B9 (B, T = S), B10 (B, S)
+LONG_B9, LONG_B10 = (1, 4096), (16, 32768)
+# kernels vs the plain path through the bf16 backbone, relative to the
+# largest |value|: B9 and the plain attention agree to f32 rounding before
+# each layer rounds its output to bf16, so a value next to a rounding
+# boundary may land one bf16 ulp (2^-8 relative) away, and the 24 layers
+# that follow carry such flips (PERF.md, LM slice)
+LM_EMBED_TOL = 3e-2
+LM_LOGIT_TOL = 3e-2
+
 # the card's published peaks (H100 SXM data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
+SLEEP_CYCLES = 20_000_000   # ~10 ms at the H100's ~1.98 GHz boost clock
 
 KERNELS = {  # name -> (wrapper source, TPU kernel it replaces)
     "sq_dists": ("src/repro_torch/csrc/kernel_matrix.cu",
@@ -96,6 +132,12 @@ KERNELS = {  # name -> (wrapper source, TPU kernel it replaces)
                       "src/repro/kernels/cd_solver/cd_solver.py:160"),
     "cd_epoch": ("src/repro_torch/csrc/cd_solver.cu",
                  "src/repro/kernels/cd_solver/cd_solver.py:115"),
+    "flash_attention": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:89"),
+    "decode_attention": (
+        "src/repro_torch/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention/decode_attention.py:78"),
 }
 
 
@@ -637,12 +679,527 @@ def fista_profile(torch, prob):
                                    iters=10)})
 
 
+# ------------------------------------------------------------ LM slice
+def attn_tol(want) -> float:
+    """Kernel vs plain attention on one card: f32 sums of the same products
+    in another order, 2e-5 on values ~1; in bf16 both sides then round the
+    output once, which may land one bf16 ulp (2^-7 relative) apart."""
+    import torch
+    if want.dtype == torch.bfloat16:
+        return 2.0 ** -7 * max(1.0, float(want.float().abs().max()))
+    return 2e-5 * max(1.0, float(want.abs().max()))
+
+
+def lm_kernel_checks(torch, dev, cfg):
+    """B9 and B10 against their plain versions on the card: every mask
+    kind, GQA groups 1 and 2, head_dim 64 and 256, T != S, ragged T, bf16
+    and f32; B10 with bf16 and int8 caches, a partial cache, a wrapped
+    ring (cache_pos >= S) and a window.  The first case of each is the LM
+    path's own shape; its error goes into the kernel table."""
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    gen = torch.Generator().manual_seed(SEED)
+    bf16, f32 = torch.bfloat16, torch.float32
+    errs = {}
+    for i, (kind, win, b, t, s, h, hk, d, dt) in enumerate((
+            ("causal", 0, LM_BATCH, LM_SEQ, LM_SEQ, cfg.n_heads,
+             cfg.n_kv_heads, cfg.head_dim, bf16),
+            ("causal", 0, 2, 100, 300, 8, 4, 64, f32),
+            ("window", 128, 1, 333, 333, 8, 4, 256, bf16),
+            ("window", 64, 2, 200, 450, 4, 4, 64, f32),
+            ("bidir", 0, 2, 77, 77, 4, 2, 256, f32),
+            ("bidir", 0, 2, 40, 90, 4, 4, 64, bf16))):
+        q = torch.randn(b, t, h, d, generator=gen).to(dev, dt)
+        k = torch.randn(b, s, hk, d, generator=gen).to(dev, dt)
+        v = torch.randn(b, s, hk, d, generator=gen).to(dev, dt)
+        got = fa_ops.flash_attention(q, k, v, kind, win)
+        want = fa_ref.flash_attention_ref(q, k, v, kind, win)
+        torch.cuda.synchronize()
+        e = check(f"flash_attention[{kind},w={win},B={b},T={t},S={s},H={h},"
+                  f"Hk={hk},D={d},{str(dt)[6:]}]",
+                  float((got.float() - want.float()).abs().max()),
+                  attn_tol(want))
+        if i == 0:
+            errs["flash_attention"] = e
+    for i, (b, s, hk, g, d, quant, pos, win) in enumerate((
+            (GEN_BATCH, GEN_PROMPT + GEN_NEW, cfg.n_kv_heads, 1,
+             cfg.head_dim, False, GEN_PROMPT + GEN_NEW - 1, 0),
+            (GEN_BATCH, GEN_PROMPT + GEN_NEW, cfg.n_kv_heads, 1,
+             cfg.head_dim, True, GEN_PROMPT + GEN_NEW - 1, 0),
+            (4, 300, 8, 2, 256, False, 120, 0),
+            (4, 300, 8, 2, 256, True, 700, 0),
+            (2, 400, 4, 2, 256, False, 900, 128),
+            (2, 257, 4, 1, 64, True, 200, 64))):
+        q = torch.randn(b, hk, g, d, generator=gen).to(dev, bf16)
+        k = torch.randn(b, s, hk, d, generator=gen)
+        v = torch.randn(b, s, hk, d, generator=gen)
+        ks = vs = None
+        if quant:
+            ks = k.abs().amax(-1, keepdim=True).div(127.0).clamp(min=1e-10)
+            vs = v.abs().amax(-1, keepdim=True).div(127.0).clamp(min=1e-10)
+            k = torch.round(k / ks).clamp(-127, 127).to(torch.int8)
+            v = torch.round(v / vs).clamp(-127, 127).to(torch.int8)
+            ks, vs = ks.to(dev), vs.to(dev)
+        k, v = k.to(dev, torch.int8 if quant else bf16), \
+            v.to(dev, torch.int8 if quant else bf16)
+        got = dec_ops.decode_attention_fused(q, k, v, pos, d ** -0.5, ks, vs,
+                                             window=win)
+        want = dec_ref.decode_attention_ref(q, k, v, pos, d ** -0.5, ks, vs,
+                                            win)
+        torch.cuda.synchronize()
+        e = check(f"decode_attention[B={b},S={s},Hk={hk},G={g},D={d},"
+                  f"{'int8' if quant else 'bf16'},pos={pos},w={win}]",
+                  float((got.float() - want.float()).abs().max()),
+                  attn_tol(want))
+        if i == 0:
+            errs["decode_attention"] = e
+    return errs
+
+
+def lm_corpus(vocab: int, seed: int = SEED):
+    """Three token domains: every token of a class-c sequence is drawn,
+    Zipf-weighted over LM_DOMAIN ids, from class c's own slice of the
+    vocabulary, or with probability LM_SHARED from a slice all classes
+    share.  Returns train tokens, labels, held-out tokens, labels
+    (classes 0, 1, 2; rows shuffled)."""
+    rng = np.random.default_rng(seed)
+    w = 1.0 / np.arange(1, LM_DOMAIN + 1) ** LM_ZIPF
+    w /= w.sum()
+    perm = rng.permutation(vocab)
+    shared = perm[:LM_DOMAIN]
+    n = LM_TRAIN_PER_CLASS + LM_HELD_PER_CLASS
+    tok, lab = [], []
+    for c in range(LM_CLASSES):
+        own = perm[(c + 1) * LM_DOMAIN:(c + 2) * LM_DOMAIN]
+        pick_own = own[rng.choice(LM_DOMAIN, size=(n, LM_SEQ), p=w)]
+        pick_shared = shared[rng.choice(LM_DOMAIN, size=(n, LM_SEQ), p=w)]
+        tok.append(np.where(rng.random((n, LM_SEQ)) < LM_SHARED, pick_shared,
+                            pick_own))
+        lab.append(np.full(n, c, np.float32))
+    tok, lab = np.stack(tok), np.stack(lab)
+    cut = LM_TRAIN_PER_CLASS
+    x_tr, y_tr = tok[:, :cut].reshape(-1, LM_SEQ), lab[:, :cut].reshape(-1)
+    x_ho, y_ho = tok[:, cut:].reshape(-1, LM_SEQ), lab[:, cut:].reshape(-1)
+    p_tr, p_ho = rng.permutation(len(y_tr)), rng.permutation(len(y_ho))
+    return (x_tr[p_tr].astype(np.int32), y_tr[p_tr],
+            x_ho[p_ho].astype(np.int32), y_ho[p_ho])
+
+
+def lm_embed(torch, dev, cfg, corpus, tables, obs):
+    """Embedding at full width: the seed-initialised backbone on the card,
+    one block through B9 against the plain attention, the corpus through
+    write-through caches (24 B9 launches a block, no B10), a second pass
+    that replays the shards (no launches, the same bits), and rows
+    bitwise the same under two chunk sizes and in a ragged tail block."""
+    import dataclasses
+    import shutil
+    from repro_torch.embed import EmbeddingExtractor, EmbeddingSource
+    x_tr, y_tr, x_ho, _ = corpus
+    t0 = time.perf_counter()
+    ex = EmbeddingExtractor(cfg, batch_size=LM_BATCH, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    digest = ex.digest()
+    digest_s = time.perf_counter() - t0
+
+    blk = x_tr[:LM_BATCH]
+    zero_counts(tables)
+    e_kern = ex(blk)
+    require_launches("embed block", read_counts(tables),
+                     {"flash_attention": cfg.n_layers})
+    plain = EmbeddingExtractor(dataclasses.replace(cfg, attn_impl="ref"),
+                               ex.params, batch_size=LM_BATCH, device=dev)
+    zero_counts(tables)
+    e_plain = plain(blk)
+    require_launches("embed block, plain attention", read_counts(tables), {})
+    scale = float(np.abs(e_plain).max())
+    diff = np.abs(e_kern.astype(np.float64) - e_plain)
+    check("lm_embed[B9 vs plain attention, one block]", float(diff.max()),
+          LM_EMBED_TOL * scale, max_abs_value=scale,
+          mean_abs_err=float(diff.mean()))
+    del plain
+
+    root = ROOT / "build" / "chip_smoke_embed"
+    shutil.rmtree(root, ignore_errors=True)
+    obs.tracer.clear()
+    obs.tracer.enabled = True
+    zero_counts(tables)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    src_tr = EmbeddingSource(x_tr, ex, cache=str(root / "train"),
+                             labels=y_tr)
+    emb_tr = src_tr.materialize()
+    src_ho = EmbeddingSource(x_ho, ex, cache=str(root / "held"))
+    emb_ho = src_ho.materialize()
+    cold_s = time.perf_counter() - t0
+    obs.tracer.enabled = False
+    cold = read_counts(tables)
+    n_blocks = src_tr.n_blocks + src_ho.n_blocks
+    require_launches("embed cold pass", cold,
+                     {"flash_attention": cfg.n_layers * n_blocks})
+    fwd = [sp.elapsed_ms for sp in obs.tracer.spans
+           if sp.name == "embed.forward"]
+    obs.tracer.clear()
+    if not (src_tr.cache_complete() and src_ho.cache_complete()):
+        raise Mismatch("embed: the caches did not seal after the cold pass")
+    if not (np.isfinite(emb_tr).all() and np.isfinite(emb_ho).all()):
+        raise Mismatch("embed: non-finite embeddings")
+
+    zero_counts(tables)
+    t0 = time.perf_counter()
+    warm_tr = EmbeddingSource(x_tr, ex, cache=str(root / "train"),
+                              labels=y_tr)
+    warm_ho = EmbeddingSource(x_ho, ex, cache=str(root / "held"))
+    replay = (warm_tr.materialize(), warm_ho.materialize())
+    warm_s = time.perf_counter() - t0
+    warm = read_counts(tables)
+    require_launches("embed replay", warm, {})
+    if not (warm_tr.cache_complete() and np.array_equal(replay[0], emb_tr)
+            and np.array_equal(replay[1], emb_ho)):
+        raise Mismatch("embed: the replayed shards differ from the cold pass")
+
+    # 150 rows: 4 full blocks and a 22-row tail padded with zero sequences
+    sub_a = EmbeddingSource(x_tr[:150], ex)
+    rows_a = np.concatenate([c for _, c in sub_a.iter_chunks(48)])
+    sub_b = EmbeddingSource(x_tr[:150], ex)
+    rows_b = np.concatenate([c for _, c in sub_b.iter_chunks(100)])
+    invariant = bool(np.array_equal(rows_a, rows_b)
+                     and np.array_equal(rows_a, emb_tr[:150]))
+    n_seq = len(x_tr) + len(x_ho)
+    emit({"phase": "lm_embed", "arch": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "params": cfg.param_count(),
+          "dtype": str(cfg.dtype), "seq_len": LM_SEQ, "batch": LM_BATCH,
+          "sequences": n_seq, "blocks": n_blocks, "init_s": init_s,
+          "params_digest": digest, "digest_s": digest_s,
+          "cold_s": cold_s, "sequences_per_s": n_seq / cold_s,
+          "tokens_per_s": n_seq * LM_SEQ / cold_s,
+          "forward_device_ms_per_block": float(np.mean(fwd)),
+          "forward_device_share": float(np.sum(fwd)) / (cold_s * 1e3),
+          "replay_s": warm_s, "launches_cold": cold,
+          "launches_replay": warm, "rows_bitwise_invariant": invariant,
+          "ok": invariant})
+    if not invariant:
+        raise Mismatch("embed: rows differ between chunk sizes or blocks")
+    return ex, src_tr, src_ho, cold
+
+
+def lm_svm_head(torch, dev, ex, src_tr, src_ho, corpus, tables, refs):
+    """The SVM head on the cached embeddings: SVM(y=None) takes the labels
+    from the source; held-out error against chance; the bank served
+    through EmbedServe on the held-out tokens (the backbone runs again)."""
+    from repro_torch.api.session import SVM
+    from repro_torch.serve import EmbedServe, SVMEngine
+    from repro_torch.train.svm_trainer import SVMTrainerConfig
+    _, _, x_ho, y_ho = corpus
+    cfg = SVMTrainerConfig(**LM_SVM_CFG)
+    zero_counts(tables)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess = SVM(src_tr, None, cfg, device=dev)
+    sel = sess.train().select()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_counts = read_counts(tables)
+    if fit_counts["flash_attention"] or fit_counts["decode_attention"]:
+        raise Mismatch(f"SVM fit ran the backbone: {fit_counts}")
+    res = sel.test(src_ho, y_ho)
+    emb_ho = src_ho.materialize()
+    dec_df = sel.decision_function(emb_ho)
+    bank = sel.to_bank()
+    srv = EmbedServe(SVMEngine(bank, device=dev), ex)
+    zero_counts(tables)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = srv.run_tokens(x_ho[i:i + LM_BATCH]
+                            for i in range(0, len(x_ho), LM_BATCH))
+    serve_s = time.perf_counter() - t0
+    srv_counts = read_counts(tables)
+    n_blocks = -(-len(x_ho) // LM_BATCH)
+    if (srv_counts["flash_attention"] != ex.cfg.n_layers * n_blocks
+            or srv_counts["decode_attention"]
+            or not srv_counts["svm_predict_cells"]):
+        raise Mismatch(f"EmbedServe launched {srv_counts}; it runs B9 "
+                       f"{ex.cfg.n_layers} times a block and B3")
+    if sorted(served) != list(range(len(x_ho))):
+        raise Mismatch("EmbedServe: not every request was served")
+    dec_srv = np.stack([served[i] for i in range(len(x_ho))])
+    gap = 0.0
+    for rid in range(len(x_ho)):
+        b = srv.breakdown(rid)
+        parts = (b["embed_ms"] + b["queue_ms"] + b["pack_ms"]
+                 + b["dispatch_ms"] + b["device_ms"] + b["collect_ms"])
+        gap = max(gap, abs(parts - b["total_ms"]))
+    want, bnd = plain_decisions(bank, emb_ho, False, dev, **refs)
+    check_bound("lm[decision_function] vs plain", dec_df, want, bnd)
+    check_bound("lm[EmbedServe] vs plain", dec_srv, want, bnd)
+    check_bound("lm[EmbedServe] vs decision_function", dec_srv, dec_df,
+                2 * bnd)
+    chance = 1.0 - 1.0 / LM_CLASSES
+    st = srv.stats()
+    emit({"phase": "lm_svm_head", "n_train": src_tr.n_rows,
+          "n_heldout": len(y_ho), "d": src_tr.dim,
+          "cells": sel.plan.n_cells, "k_max": sel.plan.k_max,
+          "fit_s": fit_s, "heldout_error": res.error,
+          "chance_error": chance, "serve_s": serve_s,
+          "requests_per_s": len(x_ho) / serve_s,
+          "per_stage_mean_ms": {k: v["mean_ms"]
+                                for k, v in st["per_stage"].items()},
+          "breakdown_max_gap_ms": gap, "launches_fit": fit_counts,
+          "launches_serve": srv_counts,
+          "ok": bool(res.error < chance and gap <= 1e-6)})
+    if not res.error < chance:
+        raise Mismatch(f"held-out error {res.error} not below chance "
+                       f"{chance}")
+    if gap > 1e-6:
+        raise Mismatch(f"EmbedServe breakdowns miss total_ms by {gap} ms")
+    return fit_counts, srv_counts
+
+
+def lm_generate(torch, dev, cfg, params, prompt, tables):
+    """Generation at full width, bf16 then int8 cache: launches (B9 once a
+    layer in the prefill, B10 once a layer per decode step, B9 never while
+    decoding), first-step logits against the plain path, ms per decode
+    step and tokens/s."""
+    import dataclasses
+    from repro_torch.serve import engine
+    from repro_torch.serve.kv_cache import pad_cache
+    runs = {}
+    for kv in ("bf16", "int8"):
+        c = dataclasses.replace(cfg, kv_cache_dtype=kv)
+        plain = dataclasses.replace(c, attn_impl="ref")
+        zero_counts(tables)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = engine.generate(c, params, prompt, GEN_NEW)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        counts = read_counts(tables)
+        require_launches(f"generate[{kv}]", counts, {
+            "flash_attention": c.n_layers,
+            "decode_attention": c.n_layers * (GEN_NEW - 1)})
+        if (toks.shape != (GEN_BATCH, GEN_PROMPT + GEN_NEW)
+                or not torch.equal(toks[:, :GEN_PROMPT], prompt.int())
+                or int(toks.min()) < 0 or int(toks.max()) >= c.vocab):
+            raise Mismatch(f"generate[{kv}]: bad tokens {tuple(toks.shape)}")
+        t0 = time.perf_counter()
+        logits, cache = engine.prefill_step(c, params, prompt)
+        cache = pad_cache(c, cache, GEN_PROMPT + GEN_NEW)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        first = logits.argmax(-1)[:, None].to(torch.int32)
+        step1, _ = engine.serve_step(c, params, first, cache, GEN_PROMPT)
+        logits_p, cache_p = engine.prefill_step(plain, params, prompt)
+        cache_p = pad_cache(plain, cache_p, GEN_PROMPT + GEN_NEW)
+        step1_p, _ = engine.serve_step(plain, params, first, cache_p,
+                                       GEN_PROMPT)
+        toks_p = engine.generate(plain, params, prompt, GEN_NEW)
+        torch.cuda.synchronize()
+        scale = float(logits_p.abs().max())
+        e_pre = float((logits - logits_p).abs().max())
+        e_step = float((step1 - step1_p).abs().max())
+        check(f"generate[{kv}] prefill logits vs plain", e_pre,
+              LM_LOGIT_TOL * scale, max_abs_logit=scale)
+        check(f"generate[{kv}] first decode-step logits vs plain", e_step,
+              LM_LOGIT_TOL * float(step1_p.abs().max()))
+        new = slice(GEN_PROMPT, None)
+        runs[kv] = {
+            "seconds": gen_s, "prefill_s": prefill_s,
+            "decode_ms_per_step": (gen_s - prefill_s) * 1e3 / (GEN_NEW - 1),
+            "tokens_per_s": GEN_BATCH * GEN_NEW / gen_s,
+            "decode_tokens_per_s": GEN_BATCH * (GEN_NEW - 1)
+            / (gen_s - prefill_s),
+            "greedy_agreement_with_plain": float(
+                (toks[:, new] == toks_p[:, new]).float().mean()),
+            "first_token_agreement": float(
+                (toks[:, GEN_PROMPT] == toks_p[:, GEN_PROMPT]).float().mean()),
+            "logits_err_prefill": e_pre, "logits_err_step1": e_step,
+            "launches": counts}
+    emit({"phase": "lm_generate", "arch": cfg.name, "batch": GEN_BATCH,
+          "prompt": GEN_PROMPT, "new_tokens": GEN_NEW,
+          "bf16_reduced_precision_reduction":
+              torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+          **runs})
+    return {name: sum(r["launches"][name] for r in runs.values())
+            for name in runs["bf16"]["launches"]}
+
+
+def lm_decode_profile(torch, dev, cfg, params, prompt, steps: int = 4):
+    """Where a decode step's time goes (bf16 cache): ``torch.profiler``
+    over ``steps`` steps after two warm ones; the device's busy share of
+    the window, its kernels by time, and the host's operators by their
+    own time.  The profiler slows the host, so the share is a lower
+    bound."""
+    from repro_torch.serve import engine
+    from repro_torch.serve.kv_cache import pad_cache
+    logits, cache = engine.prefill_step(cfg, params, prompt)
+    cache = pad_cache(cfg, cache, GEN_PROMPT + GEN_NEW)
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    pos = GEN_PROMPT
+    for _ in range(2):
+        logits, cache = engine.serve_step(cfg, params, tok, cache, pos)
+        pos += 1
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = engine.serve_step(cfg, params, tok, cache, pos)
+            pos += 1
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, cache = engine.serve_step(cfg, params, tok, cache, pos)
+        pos += 1
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    ev = prof.key_averages()
+    kernels = [e for e in ev
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(dev_us(e) for e in kernels) / 1e3
+    host = sorted((e for e in ev
+                   if e.device_type != torch.autograd.DeviceType.CUDA),
+                  key=lambda e: -e.self_cpu_time_total)[:10]
+    emit({"phase": "lm_decode_profile", "steps": steps,
+          "wall_ms_per_step": wall_ms / steps,
+          "unprofiled_wall_ms_per_step": plain_wall_ms / steps,
+          "device_ms_per_step": dev_ms / steps,
+          "device_busy_share": dev_ms / wall_ms,
+          "top_kernels_ms_per_step": {
+              e.key[:60]: dev_us(e) / 1e3 / steps
+              for e in sorted(kernels, key=lambda e: -dev_us(e))[:8]},
+          "top_host_ops_ms_per_step": {
+              e.key[:60]: e.self_cpu_time_total / 1e3 / steps for e in host},
+          "host_op_calls_per_step": sum(
+              e.count for e in ev
+              if e.device_type != torch.autograd.DeviceType.CUDA
+              and e.key.startswith("aten::")) / steps})
+
+
+def lm_smoke_tokens(torch, dev, tables):
+    """At the smoke configs in f32: greedy tokens through B9/B10 equal the
+    plain path's, with a bf16 (here: f32) and an int8 cache."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as model_mod
+    from repro_torch.serve import engine
+    out = {}
+    for arch in ("stablelm-1.6b", "gemma3-4b"):
+        for kv in ("bf16", "int8"):
+            cfg = dataclasses.replace(get_arch(arch).smoke,
+                                      dtype=torch.float32, kv_cache_dtype=kv)
+            params = model_mod.init_params(
+                cfg, torch.Generator(device=dev).manual_seed(SEED))
+            prompt = torch.randint(
+                0, cfg.vocab, (4, 24),
+                generator=torch.Generator().manual_seed(SEED)).to(dev)
+            zero_counts(tables)
+            got = engine.generate(cfg, params, prompt, 16)
+            require_launches(f"smoke generate[{arch},{kv}]",
+                             read_counts(tables),
+                             {"flash_attention": cfg.n_layers,
+                              "decode_attention": cfg.n_layers * 15})
+            want = engine.generate(dataclasses.replace(cfg, attn_impl="ref"),
+                                   params, prompt, 16)
+            same = bool(torch.equal(got, want))
+            out[f"{arch},{kv}"] = same
+            if not same:
+                raise Mismatch(f"smoke generate[{arch},{kv}]: tokens through "
+                               f"the kernels differ from the plain path's")
+    emit({"phase": "lm_smoke_tokens", "identical": out, "ok": True})
+
+
+def attn_bound(torch, b, t, s, h, hk, d, kind, window, esize):
+    """B9's least time: q, k, v read and o written once, or 4 D operations
+    per visible (row, column) pair and head at the bf16 tensor-core peak."""
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+    pairs = int(attention_mask(t, s, kind, window).sum())
+    return bound(esize * (2 * b * t * h * d + 2 * b * s * hk * d),
+                 4 * d * pairs * b * h, BF16_FLOP_PER_S)
+
+
+def lm_timing_cases(torch, dev, cfg):
+    """B9 and B10 at the LM path's shapes and at one long context each:
+    (label, kernel, plain, library call or None, (bound ms, by))."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bf16 = torch.bfloat16
+    cases = []
+    h, d = cfg.n_heads, cfg.head_dim
+    for label, (b, t) in (("flash_attention", (LM_BATCH, LM_SEQ)),
+                          ("flash_attention[B=%d,T=S=%d]" % LONG_B9,
+                           LONG_B9)):
+        q, k, v = (torch.randn(b, t, h, d, generator=gen, device=dev,
+                               dtype=bf16) for _ in range(3))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        cases.append((
+            label,
+            lambda q=q, k=k, v=v: fa_ops.flash_attention(q, k, v, "causal"),
+            lambda q=q, k=k, v=v: fa_ref.flash_attention_ref(q, k, v,
+                                                             "causal"),
+            lambda q=qt, k=kt, v=vt: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True),
+            attn_bound(torch, b, t, t, h, h, d, "causal", 0, 2)))
+    hk = cfg.n_kv_heads
+    for label, (b, s, quant) in (
+            ("decode_attention", (GEN_BATCH, GEN_PROMPT + GEN_NEW, False)),
+            ("decode_attention[int8]", (GEN_BATCH, GEN_PROMPT + GEN_NEW,
+                                        True)),
+            ("decode_attention[B=%d,S=%d]" % LONG_B10, LONG_B10 + (False,)),
+            ("decode_attention[B=%d,S=%d,int8]" % LONG_B10,
+             LONG_B10 + (True,))):
+        g = h // hk
+        q = torch.randn(b, hk, g, d, generator=gen, device=dev, dtype=bf16)
+        k = torch.randn(b, s, hk, d, generator=gen, device=dev, dtype=bf16)
+        v = torch.randn(b, s, hk, d, generator=gen, device=dev, dtype=bf16)
+        ks = vs = None
+        lib = None
+        if quant:
+            from repro_torch.models.attention import quantize_kv
+            (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        else:
+            kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+            lib = (lambda q=q, k=kt, v=vt: F.scaled_dot_product_attention(
+                q, k, v, enable_gqa=g > 1))
+        pos = s - 1
+        cache_bytes = 2 * b * s * hk * d * k.element_size() + (
+            2 * b * s * hk * 4 if quant else 0)
+        cases.append((
+            label,
+            lambda q=q, k=k, v=v, ks=ks, vs=vs, pos=pos, d=d:
+                dec_ops.decode_attention_fused(q, k, v, pos, d ** -0.5, ks,
+                                               vs),
+            lambda q=q, k=k, v=v, ks=ks, vs=vs, pos=pos, d=d:
+                dec_ref.decode_attention_ref(q, k, v, pos, d ** -0.5, ks, vs),
+            lib,
+            bound(cache_bytes + 2 * q.numel() * 2, 0)))
+    return cases
+
+
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device ms per call: the calls are enqueued while the card runs a
+    ~10 ms sleep kernel, so the events time the card's work and not the
+    host's launch overhead (a call whose host side takes longer than the
+    sleep still shows part of it)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -651,9 +1208,9 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple:
+def bound(n_bytes: float, n_ops: float, peak: float = None) -> tuple:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_FLOP_PER_S * 1e3
+    t_ops = n_ops / (FP32_FLOP_PER_S if peak is None else peak) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -687,7 +1244,11 @@ def main() -> int:
     from repro_torch.pipeline.cell_stream import build_cells_stream
     from repro_torch.pipeline.dataset import ArraySource
     from repro_torch.train.svm_trainer import LiquidSVM, SVMTrainerConfig
-    tables = (km_ops.launches, sp_ops.launches, cd_ops.launches)
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    tables = (km_ops.launches, sp_ops.launches, cd_ops.launches,
+              fa_ops.launches, dec_ops.launches)
 
     # fp32 products in the plain versions run in full fp32, never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -712,6 +1273,8 @@ def main() -> int:
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "matmul_precision": torch.get_float32_matmul_precision(),
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "matmul_bf16_reduced_precision_reduction":
+              torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
     emit({"phase": "build", "seconds": build_s,
           "per_source_s": {k: v["seconds"] for k, v in logs.items()},
@@ -935,7 +1498,28 @@ def main() -> int:
                 + sum(n[name] for n in train_paths.values())
                 for name in fit_counts}
 
-    # ------------------------------------------------- 6. kernel times
+    # ------------------------------------------------------ 6. LM slice
+    lm_cfg = get_arch(LM_ARCH).config
+    errs.update(lm_kernel_checks(torch, dev, lm_cfg))
+    corpus = lm_corpus(lm_cfg.vocab)
+    ex, src_tr, src_ho, embed_counts = lm_embed(torch, dev, lm_cfg, corpus,
+                                                tables, obs)
+    fit_counts_lm, serve_counts_lm = lm_svm_head(torch, dev, ex, src_tr,
+                                                 src_ho, corpus, tables, refs)
+    prompt = torch.as_tensor(corpus[2][:GEN_BATCH, :GEN_PROMPT]).to(dev)
+    gen_counts = lm_generate(torch, dev, lm_cfg, ex.params, prompt, tables)
+    lm_decode_profile(torch, dev, lm_cfg, ex.params, prompt)
+    lm_smoke_tokens(torch, dev, tables)
+    lm_paths = {"embed": embed_counts, "svm_fit": fit_counts_lm,
+                "embed_serve": serve_counts_lm, "generate": gen_counts}
+    emit({"phase": "lm_launches", "per_path": lm_paths})
+    launches = {name: launches.get(name, 0)
+                + sum(n[name] for n in lm_paths.values())
+                for name in embed_counts}
+    del ex, src_tr, src_ho
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------- 7. kernel times
     f32 = 4
     neg = (-(d2_ref[:, None] / torch.clamp(ga_w * ga_w, min=1e-12)
              [:, :, None, None])).contiguous()
@@ -991,6 +1575,18 @@ def main() -> int:
             bound(f32 * (n_t * n_t + 6 * f_t * n_t * p_t),
                   cd_ops_count // s_t)),
     })
+    lm_rows = []
+    for label, kern, plain, lib, b in lm_timing_cases(torch, dev, lm_cfg):
+        long_ctx = "B=" in label
+        reps = dict(iters=3, warmup=1) if long_ctx else {}
+        if label in KERNELS:           # the LM path's shape: the table row
+            timing[label] = (kern, plain, lib, b)
+            continue
+        lm_rows.append({"name": label, "ms": cuda_ms(torch, kern),
+                        "plain_ms": cuda_ms(torch, plain, **reps),
+                        "bound_ms": b[0], "bound_by": b[1],
+                        "library_ms": (None if lib is None
+                                       else cuda_ms(torch, lib))})
     slow = {"cd_wave_epoch", "cd_epoch"}   # the plain sweeps take ~0.1-1 s
     for name, (kern, plain, lib, (b_ms, b_by)) in timing.items():
         reps = dict(iters=3, warmup=1) if name in slow else {}
@@ -1001,9 +1597,17 @@ def main() -> int:
             "plain_ms": cuda_ms(torch, plain, **reps), "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": None if lib is None else cuda_ms(torch, lib)})
+    emit({"phase": "lm_kernel_times", "rows": lm_rows,
+          "library": "torch.nn.functional.scaled_dot_product_attention",
+          "card": smi.splitlines()[0]})
     emit({"phase": "kernel_times", "shapes": shapes,
           "train_shapes": {"slots": s_t, "folds": f_t, "k": n_t, "d": DIM,
                            "P": p_t},
+          "lm_shapes": {"flash_attention": [LM_BATCH, LM_SEQ, lm_cfg.n_heads,
+                                            lm_cfg.head_dim],
+                        "decode_attention": [GEN_BATCH, GEN_PROMPT + GEN_NEW,
+                                             lm_cfg.n_kv_heads, 1,
+                                             lm_cfg.head_dim]},
           "card": smi.splitlines()[0]})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -271,10 +271,12 @@ class SelectResult:
 
 class SVM:
     """A staged session over one training set (an (n, d) array or a
-    ChunkSource).  ``device=None`` trains on the current card and raises
-    without one; ``device="cpu"`` runs the plain PyTorch path."""
+    ChunkSource).  ``y=None`` takes the labels from a source that carries
+    them (``repro_torch.embed.LabeledSource``, or an ``EmbeddingSource``
+    built with ``labels=``).  ``device=None`` trains on the current card
+    and raises without one; ``device="cpu"`` runs the plain PyTorch path."""
 
-    def __init__(self, x, y: np.ndarray,
+    def __init__(self, x, y: Optional[np.ndarray] = None,
                  config: Optional[SVMTrainerConfig] = None,
                  device: Device = None):
         self.config = config or SVMTrainerConfig()
@@ -290,6 +292,16 @@ class SVM:
             raise NotImplementedError("per-wave checkpoints (ckpt_dir) are "
                                       "not ported yet")
         cfg = self.config
+        y = self._y
+        if y is None:
+            if not hasattr(self._x, "labels_vector"):
+                raise ValueError(
+                    "SVM(y=None) needs a label-carrying x source "
+                    "(repro_torch.embed.LabeledSource, or an EmbeddingSource "
+                    "built with labels=...) — plain feature sources "
+                    "require an explicit y")
+            # labels stream from the source: O(n) scalars, chunk by chunk
+            y = self._x.labels_vector(cfg.chunk_size)
         raw_src: ChunkSource = as_source(self._x)
         if cfg.scale:
             scaler = Scaler.fit_stream(raw_src, cfg.chunk_size)
@@ -305,7 +317,7 @@ class SVM:
 
         scenario = ("weighted" if cfg.scenario in ("weighted", "npsvm")
                     else cfg.scenario)
-        tasks = make_tasks(self._y, scenario, taus=cfg.taus,
+        tasks = make_tasks(y, scenario, taus=cfg.taus,
                            weights=cfg.weights)
         plan = build_cells_stream(xs_src, cell_size=cfg.cell_size,
                                   method=cfg.cell_method, seed=cfg.seed,

@@ -1,0 +1,54 @@
+"""Architecture registry: ``<arch-id>`` resolution for the LM path.
+
+Each entry maps an architecture id to its config module (CONFIG
+full-size, SMOKE reduced, SHAPES runnable cells).  Only the dense
+attention architectures are ported; the JAX package's other ids need
+mixers the port does not have yet, and ``get_arch`` names what is missing.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Dict, Tuple
+
+from repro_torch.configs.common import ShapeSpec
+from repro_torch.models.model import ModelConfig
+
+_MODULES: Dict[str, str] = {
+    "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
+    "gemma3-4b": "repro_torch.configs.gemma3_4b",
+}
+
+# the JAX package's other architectures and what each needs first
+_NOT_PORTED: Dict[str, str] = {
+    "rwkv6-1.6b": "the rwkv6 mixer and channel mix",
+    "stablelm-12b": "head_dim 160, which the attention kernels do not take",
+    "command-r-plus-104b": "FSDP parameter sharding over several cards",
+    "internvl2-76b": "the embed front end (input_kind='embed')",
+    "hubert-xlarge": "the embed front end and bidirectional encode",
+    "qwen3-moe-235b-a22b": "the MoE mixer",
+    "llama4-maverick-400b-a17b": "the MoE mixer",
+    "jamba-v0.1-52b": "the mamba and MoE mixers",
+}
+
+ARCH_IDS: Tuple[str, ...] = tuple(_MODULES)
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    arch_id: str
+    config: ModelConfig
+    smoke: ModelConfig
+    shapes: Tuple[ShapeSpec, ...]
+
+
+def get_arch(arch_id: str) -> ArchSpec:
+    if arch_id in _NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported to repro_torch yet: it needs "
+            f"{_NOT_PORTED[arch_id]}; ported: {list(_MODULES)}")
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {list(_MODULES)}")
+    mod = importlib.import_module(_MODULES[arch_id])
+    return ArchSpec(arch_id=arch_id, config=mod.CONFIG, smoke=mod.SMOKE,
+                    shapes=mod.SHAPES)

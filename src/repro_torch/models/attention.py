@@ -1,0 +1,193 @@
+"""GQA attention block: prefill (flash) and decode (cache) paths.
+
+Executors, chosen by ``impl``:
+
+  * ``blocked`` and ``pallas`` — ``kernels.flash_attention.ops``, which
+    dispatches by the tensor's device: the hand-written kernel (B9) on a
+    CUDA tensor, its plain PyTorch version on a CPU tensor;
+  * ``ref`` — the plain materialised softmax, on any device.
+
+Decode attends one new token against the full KV cache.  With
+``impl != "ref"`` it goes to ``kernels.decode_attention.ops``, which on a
+CUDA tensor launches the fused decode kernel (B10, the cache streamed in
+its stored dtype) and on a CPU tensor runs its plain version; ``ref``
+runs the plain ``decode_attention`` below.
+
+The cache is updated IN PLACE: the new token's k/v (int8 plus its scale
+for a quantised cache) are written into the cache tensors at the ring
+position, and the returned cache is the same dict.  The JAX package
+returns a new cache; in place saves a copy of every layer's cache per
+decoded token.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.models import layers
+from repro_torch.models.layers import ParamSpec, Template
+
+Tensor = torch.Tensor
+
+NEG_INF = -1e30
+
+
+def attention_template(d: int, n_heads: int, n_kv: int, head_dim: int,
+                       dtype: torch.dtype, qk_norm: bool = False) -> Template:
+    t: Template = {
+        "wq": ParamSpec((d, n_heads * head_dim), dtype, "fan_in"),
+        "wk": ParamSpec((d, n_kv * head_dim), dtype, "fan_in"),
+        "wv": ParamSpec((d, n_kv * head_dim), dtype, "fan_in"),
+        "wo": ParamSpec((n_heads * head_dim, d), dtype, "fan_in"),
+    }
+    if qk_norm:
+        t["q_norm"] = ParamSpec((head_dim,), torch.float32, "ones")
+        t["k_norm"] = ParamSpec((head_dim,), torch.float32, "ones")
+    return t
+
+
+# --------------------------------------------------------------------------
+# executors
+# --------------------------------------------------------------------------
+
+def run_attention(q: Tensor, k: Tensor, v: Tensor, mask_kind: str,
+                  window: int, scale: float, impl: str = "blocked") -> Tensor:
+    """q (B, T, H, D); k, v (B, S, Hk, D) -> (B, T, H, D)."""
+    if impl == "ref":
+        from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+        return flash_attention_ref(q, k, v, mask_kind, window, scale)
+    if impl not in ("blocked", "pallas"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           mask_kind=mask_kind, window=window)
+
+
+# --------------------------------------------------------------------------
+# the block
+# --------------------------------------------------------------------------
+
+def _qk_norm(x: Tensor, w: Tensor) -> Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + 1e-6) * w).to(x.dtype)
+
+
+def quantize_kv(x: Tensor) -> Tuple[Tensor, Tensor]:
+    """Per-(token, head) symmetric int8: scale = max|x| / 127 (floored at
+    1e-10), values rounded half to even and clipped to +-127."""
+    xf = x.float()
+    sc = torch.clamp(torch.amax(torch.abs(xf), dim=-1, keepdim=True) / 127.0,
+                     min=1e-10)
+    q8 = torch.clamp(torch.round(xf / sc), -127, 127).to(torch.int8)
+    return q8, sc
+
+
+def attention_block(
+    p: Dict[str, Tensor],
+    x: Tensor,                     # (B, T, d)
+    positions: Tensor,             # (B, T)
+    *,
+    n_heads: int,
+    n_kv: int,
+    head_dim: int,
+    mask_kind: str = "causal",     # causal | window | bidir
+    window: int = 0,
+    rope_theta: float = 10000.0,
+    rotary_frac: float = 1.0,
+    dtype: torch.dtype = torch.bfloat16,
+    impl: str = "blocked",
+    cache: Optional[Dict[str, Tensor]] = None,   # (B, S, Hk, D) leaves
+    cache_pos: Optional[int] = None,             # write position
+) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Returns (out (B, T, d), cache).
+
+    Decode: pass cache + cache_pos with T == 1; the new token is written
+    at ``cache_pos mod S`` (in place) and attention runs over the full
+    cache.  Prefill: cache is None and the returned {"k", "v"} (the
+    rotated keys and the values) become the cache.
+    """
+    b, t, _ = x.shape
+    q = layers.linear(x, p["wq"], dtype).reshape(b, t, n_heads, head_dim)
+    k = layers.linear(x, p["wk"], dtype).reshape(b, t, n_kv, head_dim)
+    v = layers.linear(x, p["wv"], dtype).reshape(b, t, n_kv, head_dim)
+    if "q_norm" in p:
+        q = _qk_norm(q, p["q_norm"])
+        k = _qk_norm(k, p["k_norm"])
+    q = layers.apply_rope(q, positions, rope_theta, rotary_frac)
+    k = layers.apply_rope(k, positions, rope_theta, rotary_frac)
+
+    scale = float(head_dim ** -0.5)
+
+    if cache is None:
+        out = run_attention(q, k, v, mask_kind, window, scale, impl)
+        new_cache = {"k": k, "v": v}
+    else:
+        s = cache["k"].shape[1]
+        pos = int(cache_pos) % s          # ring-buffer write position
+        new_cache = cache
+        quantized = "k_scale" in cache
+        for name, new in (("k", k), ("v", v)):
+            if quantized:
+                q8, sc = quantize_kv(new)
+                cache[name][:, pos:pos + t] = q8
+                cache[name + "_scale"][:, pos:pos + t] = sc
+            else:
+                cache[name][:, pos:pos + t] = new.to(cache[name].dtype)
+        dec_window = window if mask_kind == "window" else 0
+        if impl != "ref":
+            out = fused_decode(q, cache, scale, window=dec_window,
+                               cache_pos=int(cache_pos))
+        else:
+            k_eff, v_eff = cache["k"], cache["v"]
+            if quantized:
+                k_eff = k_eff.float() * cache["k_scale"]
+                v_eff = v_eff.float() * cache["v_scale"]
+            out = decode_attention(q, k_eff, v_eff, scale, window=dec_window,
+                                   cache_pos=int(cache_pos))
+
+    out = out.reshape(b, t, n_heads * head_dim)
+    return layers.linear(out, p["wo"], dtype), new_cache
+
+
+def fused_decode(q: Tensor, cache: Dict[str, Tensor], scale: float,
+                 window: int, cache_pos: int) -> Tensor:
+    """One-token attention through the fused decode kernel (or, for a CPU
+    tensor, its plain version).  q (B, 1, H, D); cache leaves
+    (B, S, Hk, D) [+ scales].  Returns (B, 1, H, D)."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention_fused
+    b, t, h, d = q.shape
+    hk = cache["k"].shape[2]
+    qh = q.reshape(b, hk, h // hk, d)
+    out = decode_attention_fused(
+        qh, cache["k"], cache["v"], cache_pos, scale,
+        k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+        window=window)
+    return out.reshape(b, t, h, d)
+
+
+def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
+                     scale: float, window: int = 0,
+                     cache_pos: Optional[int] = None) -> Tensor:
+    """One-token attention over the full cache, materialised in f32.
+    q (B, 1, H, D); caches (B, S, Hk, D)."""
+    b, t, h, d = q.shape
+    s, hk = k_cache.shape[1], k_cache.shape[2]
+    g = h // hk
+    qf = q.float().reshape(b, t, hk, g, d)
+    logits = torch.einsum("bthgd,bshd->bthgs", qf, k_cache.float()) * scale
+    if cache_pos is not None:
+        idx = torch.arange(s, device=q.device)
+        # never-written ring slots (pos < S, idx > pos) must not attend
+        valid = (idx <= cache_pos) | (cache_pos >= s)
+        if window > 0:
+            valid &= torch.remainder(cache_pos - idx, s) < window
+        logits = torch.where(valid, logits,
+                             torch.tensor(NEG_INF, device=q.device))
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    out = torch.einsum("bthgs,bshd->bthgd", p / torch.clamp(l, min=1e-30),
+                       v_cache.float())
+    return out.reshape(b, t, h, d).to(q.dtype)

@@ -1,0 +1,308 @@
+"""LM assembly: one composable stack for the dense attention architectures.
+
+An architecture is a ``ModelConfig`` whose ``period_pattern`` lists the
+(mixer, mlp) kind of each layer inside one repeating period:
+
+    mixer: attn | attn_local | attn_bidir   (mamba, rwkv: not ported)
+    mlp:   dense                            (moe, rwkv_cm: not ported)
+
+``n_layers = n_periods * len(period) + tail``.  As in the JAX package the
+parameters of the full periods are stacked over a leading ``n_periods``
+axis (``params["stack"]["pos<i>"]``) and the tail layers have their own
+(``params["tail<j>"]``), so the trees carry across one to one; here the
+periods run as a Python loop that indexes layer p of each stacked leaf.
+
+Entry points:
+    prefill     (B, T) tokens -> last logits + cache
+    decode_step (B, 1) token + cache -> logits + cache (cache updated in
+                place, see ``models.attention``)
+The training entry points (``loss_fn``, ``chunked_ce``, with the config
+fields only they read: ``remat``, ``ce_chunk``, ``attn_chunk``) and the
+embed front end (``input_kind="embed"``) are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.models import attention, layers
+from repro_torch.models.layers import ParamSpec, Template
+
+Tensor = torch.Tensor
+
+_ATTN = ("attn", "attn_local", "attn_bidir")
+_MASK = {"attn": "causal", "attn_local": "window", "attn_bidir": "bidir"}
+
+
+# --------------------------------------------------------------------------
+# config
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    period_pattern: Tuple[Tuple[str, str], ...] = (("attn", "dense"),)
+    # attention
+    window: int = 0
+    rope_theta: float = 10000.0
+    rotary_frac: float = 1.0
+    qk_norm: bool = False
+    attn_impl: str = "blocked"     # blocked | pallas (kernel on CUDA) | ref
+    kv_cache_dtype: str = "bf16"   # bf16 (the compute dtype) | int8
+    # frontend
+    input_kind: str = "tokens"     # tokens (embed: not ported)
+    # numerics / structure
+    norm: str = "rmsnorm"
+    act: str = "silu"
+    tie_embeddings: bool = False
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def period(self) -> int:
+        return len(self.period_pattern)
+
+    @property
+    def n_periods(self) -> int:
+        return self.n_layers // self.period
+
+    @property
+    def tail(self) -> int:
+        return self.n_layers - self.n_periods * self.period
+
+    def param_count(self) -> int:
+        return layers.param_count(build_template(self))
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    for m, f in cfg.period_pattern:
+        if m not in _ATTN or f != "dense":
+            raise NotImplementedError(
+                f"{cfg.name}: layer kind ({m}, {f}) is not ported (only "
+                f"dense attention layers: MoE, mamba and rwkv wait)")
+    if cfg.input_kind != "tokens":
+        raise NotImplementedError(f"{cfg.name}: input_kind="
+                                  f"{cfg.input_kind!r} is not ported")
+
+
+# --------------------------------------------------------------------------
+# templates
+# --------------------------------------------------------------------------
+
+def _layer_template(cfg: ModelConfig) -> Template:
+    return {
+        "norm1": layers.norm_template(cfg.norm, cfg.d_model),
+        "mixer": attention.attention_template(
+            cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.dtype, qk_norm=cfg.qk_norm),
+        "norm2": layers.norm_template(cfg.norm, cfg.d_model),
+        "mlp": layers.glu_mlp_template(cfg.d_model, cfg.d_ff, cfg.dtype),
+    }
+
+
+def _stack_template(t: Template, n: int) -> Template:
+    """Prepend a period axis to every leaf; remember the true fan-in."""
+    def one(ps: ParamSpec) -> ParamSpec:
+        fan = (int(np.prod(ps.shape[:-1])) if len(ps.shape) >= 2
+               else ps.shape[0])
+        return ParamSpec((n,) + ps.shape, ps.dtype, ps.init, ps.scale,
+                         fan=fan)
+    return layers.tree_map(one, t)
+
+
+def build_template(cfg: ModelConfig) -> Template:
+    _check_supported(cfg)
+    t: Template = {"embed": {"tok": ParamSpec((cfg.vocab, cfg.d_model),
+                                              cfg.dtype, "normal", 0.02)}}
+    if cfg.n_periods > 0:
+        t["stack"] = {f"pos{i}": _stack_template(_layer_template(cfg),
+                                                 cfg.n_periods)
+                      for i in range(cfg.period)}
+    for j in range(cfg.tail):
+        t[f"tail{j}"] = _layer_template(cfg)
+    t["final_norm"] = layers.norm_template(cfg.norm, cfg.d_model)
+    if not cfg.tie_embeddings:
+        t["lm_head"] = {"w": ParamSpec((cfg.d_model, cfg.vocab), cfg.dtype,
+                                       "fan_in")}
+    return t
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device: Optional[torch.device] = None) -> Dict[str, Any]:
+    """Seed-initialised parameters (the frozen random-features backbone)."""
+    return layers.init_params(build_template(cfg), generator, device)
+
+
+# --------------------------------------------------------------------------
+# caches (decode state)
+# --------------------------------------------------------------------------
+
+class TensorSpec(NamedTuple):
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def _layer_cache(cfg: ModelConfig, batch: int, seq: int) -> Dict[str, TensorSpec]:
+    kv_shape = (batch, seq, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        sc_shape = (batch, seq, cfg.n_kv_heads, 1)
+        return {"k": TensorSpec(kv_shape, torch.int8),
+                "v": TensorSpec(kv_shape, torch.int8),
+                "k_scale": TensorSpec(sc_shape, torch.float32),
+                "v_scale": TensorSpec(sc_shape, torch.float32)}
+    return {"k": TensorSpec(kv_shape, cfg.dtype),
+            "v": TensorSpec(kv_shape, cfg.dtype)}
+
+
+def cache_struct(cfg: ModelConfig, batch: int, seq: int) -> Dict[str, Any]:
+    """TensorSpec tree describing the decode cache."""
+    _check_supported(cfg)
+    out: Dict[str, Any] = {}
+    if cfg.n_periods > 0:
+        out["stack"] = {
+            f"pos{i}": {k: TensorSpec((cfg.n_periods,) + s.shape, s.dtype)
+                        for k, s in _layer_cache(cfg, batch, seq).items()}
+            for i in range(cfg.period)}
+    for j in range(cfg.tail):
+        out[f"tail{j}"] = _layer_cache(cfg, batch, seq)
+    return out
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq: int,
+               device: Optional[torch.device] = None) -> Dict[str, Any]:
+    return layers.tree_map(
+        lambda s: torch.zeros(s.shape, dtype=s.dtype, device=device),
+        cache_struct(cfg, batch, seq))
+
+
+# --------------------------------------------------------------------------
+# forward
+# --------------------------------------------------------------------------
+
+def _layer(cfg: ModelConfig, mixer: str, p, h: Tensor, positions: Tensor,
+           cache, pos) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Pre-norm residual layer.  Returns (h, layer cache)."""
+    mixed, new_cache = attention.attention_block(
+        p["mixer"], layers.apply_norm(cfg.norm, h, p["norm1"]), positions,
+        n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
+        mask_kind=_MASK[mixer], window=cfg.window,
+        rope_theta=cfg.rope_theta, rotary_frac=cfg.rotary_frac,
+        dtype=cfg.dtype, impl=cfg.attn_impl, cache=cache, cache_pos=pos)
+    h = h + mixed
+    out = layers.glu_mlp(p["mlp"], layers.apply_norm(cfg.norm, h, p["norm2"]),
+                         cfg.act, cfg.dtype)
+    return h + out, new_cache
+
+
+def _embed_in(cfg: ModelConfig, params, x: Tensor) -> Tensor:
+    h = params["embed"]["tok"][x.long()].to(cfg.dtype)
+    if cfg.tie_embeddings:
+        # gemma-style: sqrt(d) rounded to the dtype, the product rounded
+        # once (exact in f32 before that rounding: both factors are bf16)
+        h = h * float(torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype))
+    return h
+
+
+def _index(tree, p: int):
+    """Layer p of a stacked (leading n_periods axis) parameter/cache tree."""
+    return {k: _index(v, p) if isinstance(v, dict) else v[p]
+            for k, v in tree.items()}
+
+
+def backbone(cfg: ModelConfig, params, x: Tensor, positions: Tensor,
+             cache: Optional[Dict] = None, pos: Optional[int] = None,
+             collect_cache: bool = False
+             ) -> Tuple[Tensor, Optional[Dict]]:
+    """-> (hidden (B, T, d), cache).
+
+    cache=None + collect_cache=True is the prefill path: each layer's
+    full-sequence k/v are collected and stacked like the parameters.
+    With a cache (decode) the cache is updated in place and returned.
+    """
+    _check_supported(cfg)
+    h = _embed_in(cfg, params, x)
+    decoding = cache is not None
+    collect = decoding or collect_cache
+    new_cache: Optional[Dict] = {} if collect else None
+
+    if cfg.n_periods > 0:
+        per_pos: List[List[Dict[str, Tensor]]] = [[] for _ in range(cfg.period)]
+        for p in range(cfg.n_periods):
+            for i, (m, _) in enumerate(cfg.period_pattern):
+                lc = (_index(cache["stack"][f"pos{i}"], p) if decoding
+                      else None)
+                h, nc = _layer(cfg, m, _index(params["stack"][f"pos{i}"], p),
+                               h, positions, lc, pos)
+                if collect_cache and not decoding:
+                    per_pos[i].append(nc)
+        if decoding:
+            new_cache["stack"] = cache["stack"]
+        elif collect:
+            new_cache["stack"] = {
+                f"pos{i}": {k: torch.stack([c[k] for c in per_pos[i]])
+                            for k in per_pos[i][0]}
+                for i in range(cfg.period)}
+
+    for j in range(cfg.tail):
+        m, _ = cfg.period_pattern[j]
+        cc = cache[f"tail{j}"] if decoding else None
+        h, nc = _layer(cfg, m, params[f"tail{j}"], h, positions, cc, pos)
+        if collect:
+            new_cache[f"tail{j}"] = nc
+
+    h = layers.apply_norm(cfg.norm, h, params["final_norm"])
+    return h, new_cache
+
+
+def _head_matrix(cfg: ModelConfig, params) -> Tensor:
+    if cfg.tie_embeddings:
+        return params["embed"]["tok"].T
+    return params["lm_head"]["w"]
+
+
+def logits_fn(cfg: ModelConfig, params, h: Tensor) -> Tensor:
+    """Unchunked logits — only for small shapes / last-position decode."""
+    return layers.linear(h, _head_matrix(cfg, params), cfg.dtype).float()
+
+
+def _positions(b: int, t: int, start: int, device) -> Tensor:
+    return (torch.arange(t, dtype=torch.int32, device=device)
+            + start)[None].expand(b, t)
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params, x: Tensor) -> Tuple[Tensor, Dict[str, Any]]:
+    """Prefill pass: returns (last-position logits (B, vocab) f32, cache).
+
+    The returned attention caches have length T (the prompt); the serve
+    layer pads them to the generation budget before decode_step."""
+    b, t = x.shape[0], x.shape[1]
+    h, new_cache = backbone(cfg, params, x, _positions(b, t, 0, x.device),
+                            collect_cache=True)
+    logits = layers.linear(h[:, -1:], _head_matrix(cfg, params),
+                           cfg.dtype).float()[:, 0]
+    return logits, new_cache
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params, token: Tensor,
+                cache: Dict[str, Any], pos: int
+                ) -> Tuple[Tensor, Dict[str, Any]]:
+    """token (B, 1); pos the position of the token (its cache slot is
+    pos mod S).  Returns (logits (B, vocab) f32, the updated cache)."""
+    b = token.shape[0]
+    h, new_cache = backbone(cfg, params, token,
+                            _positions(b, 1, int(pos), token.device),
+                            cache=cache, pos=int(pos))
+    logits = layers.linear(h[:, -1], _head_matrix(cfg, params),
+                           cfg.dtype).float()
+    return logits, new_cache

@@ -7,17 +7,28 @@ every row exactly once.  Chunks never exceed ``chunk_size`` rows but MAY
 be shorter, so per-row results must never depend on which chunk a row
 landed in.  ``gather(ids)`` returns the rows of ``ids`` in the given order.
 
-Here: the in-memory source, the lazy scaled view (``ScaledSource``) and
-the one-pass mean/std (``streaming_mean_std``), numpy as in the reference.
-The file-backed sources (memmap, sharded npz) wait for the staged API.
+Here: the in-memory source, the sharded npz source (``ShardedNpzSource``,
+which the embedding cache replays through), the lazy scaled view
+(``ScaledSource``) and the one-pass mean/std (``streaming_mean_std``),
+numpy as in the reference.  The memmap source waits for the staged API.
+File-backed sources raise :class:`DataSourceError`, naming the file and
+the affected row range, when the bytes on disk are truncated or corrupt.
 """
 from __future__ import annotations
 
-from typing import Iterator, Tuple
+import os
+import zipfile
+import zlib
+from typing import Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 DEFAULT_CHUNK = 65536
+
+
+class DataSourceError(RuntimeError):
+    """A file-backed source is unreadable: truncated/corrupt shard or
+    header.  The message names the offending file and row range."""
 
 
 class ChunkSource:
@@ -70,6 +81,98 @@ class ArraySource(ChunkSource):
 
     def gather(self, ids: np.ndarray) -> np.ndarray:
         return self._x[np.asarray(ids, np.int64)]
+
+
+def _npz_member_shape(path: str, key: str):
+    """Read one member's shape from an npz WITHOUT its payload."""
+    try:
+        with zipfile.ZipFile(path) as zf, zf.open(key + ".npy") as f:
+            version = np.lib.format.read_magic(f)
+            if version == (1, 0):
+                shape, _, _ = np.lib.format.read_array_header_1_0(f)
+            else:
+                shape, _, _ = np.lib.format.read_array_header_2_0(f)
+    except KeyError as e:
+        raise DataSourceError(
+            f"{path}: npz shard has no member {key!r} ({e})") from e
+    except (zipfile.BadZipFile, OSError, ValueError) as e:
+        raise DataSourceError(
+            f"{path}: unreadable npz shard header ({e}) — "
+            f"truncated or corrupt file?") from e
+    return shape
+
+
+class ShardedNpzSource(ChunkSource):
+    """An ordered sequence of ``.npz`` shards, each holding ``key`` (n_i, d).
+
+    Row order is shard order; only headers are touched at construction, and
+    at most one decompressed shard is resident during iteration/gather.
+    """
+
+    def __init__(self, paths: Sequence[Union[str, os.PathLike]],
+                 key: str = "x"):
+        if not paths:
+            raise ValueError("ShardedNpzSource needs at least one shard")
+        self._paths = [os.fspath(p) for p in paths]
+        self._key = key
+        shapes = [_npz_member_shape(p, key) for p in self._paths]
+        if any(len(s) != 2 for s in shapes):
+            raise DataSourceError(f"npz shards must hold 2-D {key!r}: "
+                                  f"{shapes}")
+        dims = {s[1] for s in shapes}
+        if len(dims) != 1:
+            raise DataSourceError(f"shards disagree on dim: {sorted(dims)}")
+        self._dim = int(dims.pop())
+        self._starts = np.concatenate(
+            [[0], np.cumsum([s[0] for s in shapes])]).astype(np.int64)
+        self._cache: Optional[Tuple[int, np.ndarray]] = None  # last shard
+
+    @property
+    def n_rows(self) -> int:
+        return int(self._starts[-1])
+
+    @property
+    def dim(self) -> int:
+        return self._dim
+
+    def _load(self, i: int) -> np.ndarray:
+        if self._cache is not None and self._cache[0] == i:
+            return self._cache[1]
+        lo, hi = int(self._starts[i]), int(self._starts[i + 1])
+        try:
+            with np.load(self._paths[i]) as z:
+                shard = np.asarray(z[self._key], np.float32)
+        except KeyError as e:
+            raise DataSourceError(
+                f"{self._paths[i]}: npz shard has no member "
+                f"{self._key!r} ({e})") from e
+        except (zipfile.BadZipFile, zlib.error, OSError, ValueError) as e:
+            raise DataSourceError(
+                f"{self._paths[i]}: corrupt npz shard covering rows "
+                f"[{lo}, {hi}) ({e})") from e
+        if shard.shape[0] != hi - lo:
+            raise DataSourceError(
+                f"{self._paths[i]}: shard payload holds {shard.shape[0]} "
+                f"rows but its header promised {hi - lo} "
+                f"(rows [{lo}, {hi}))")
+        self._cache = (i, shard)
+        return shard
+
+    def iter_chunks(self, chunk_size: int = DEFAULT_CHUNK):
+        for i in range(len(self._paths)):
+            shard = self._load(i)
+            base = int(self._starts[i])
+            for lo in range(0, shard.shape[0], chunk_size):
+                yield base + lo, shard[lo:lo + chunk_size]
+
+    def gather(self, ids: np.ndarray) -> np.ndarray:
+        ids = np.asarray(ids, np.int64)
+        out = np.empty((ids.shape[0], self._dim), np.float32)
+        shard_of = np.searchsorted(self._starts, ids, side="right") - 1
+        for i in np.unique(shard_of):
+            sel = shard_of == i
+            out[sel] = self._load(int(i))[ids[sel] - self._starts[i]]
+        return out
 
 
 class ScaledSource(ChunkSource):

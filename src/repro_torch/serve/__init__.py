@@ -1,8 +1,11 @@
 """Serving layer: the cell-routed SVM serving subsystem (``model_bank`` +
-``svm_engine``) and the bridge from the JAX package's banks (``convert``)."""
+``svm_engine``), the bridge from the JAX package's banks (``convert``),
+the co-located embedding front (``embed_engine.EmbedServe``) and LM
+generation (``engine``, ``kv_cache``)."""
 from repro_torch.serve.convert import bank_from_reference
+from repro_torch.serve.embed_engine import EmbedServe
 from repro_torch.serve.model_bank import ModelBank
 from repro_torch.serve.svm_engine import OverloadError, SVMEngine, blend_weights
 
-__all__ = ["ModelBank", "OverloadError", "SVMEngine", "bank_from_reference",
-           "blend_weights"]
+__all__ = ["EmbedServe", "ModelBank", "OverloadError", "SVMEngine",
+           "bank_from_reference", "blend_weights"]

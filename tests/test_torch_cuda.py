@@ -11,7 +11,11 @@ rows not a multiple of the 8-row tile, SV counts not a multiple of the
 128/256-row tiles, feature widths not a multiple of the 16/32-wide shared
 chunks, every column-count instantiation of the predict kernel (P = 1..64)
 and banks wider than one 64-column block (P = 66, 130), and an empty SV
-table.  This file imports no jax.
+table; for the attention kernels T = 1, T and S off the 64-row tile, GQA
+groups up to 8, head_dim 16 to 256, windows wider than T, S = 1, wrapped
+ring caches and int8 caches; B1 and B3 at the SVM head's d = 2048; and
+greedy generation at the smoke configs through the kernels against the
+plain path.  This file imports no jax.
 """
 from __future__ import annotations
 
@@ -233,3 +237,147 @@ def test_tracer_spans_carry_device_time(cuda):
     inner = [s for s in tr.spans if s.name == "inner"][0]
     assert inner.events is not None
     assert 0.0 < rows[0]["inner"] <= rows[0]["outer"]
+
+
+# --------------------------------------------- LM slice: B9, B10, d = 2048
+from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
+from repro_torch.kernels.decode_attention import ref as dec_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+
+
+def _attn_tol(want: torch.Tensor) -> float:
+    """f32: sums of <= S products in another order, 2e-5 on values ~1.
+    bf16: the same, then one bf16 rounding of the output on each side,
+    which may land one ulp (2^-7 relative) apart."""
+    if want.dtype == torch.bfloat16:
+        return 2.0 ** -7 * max(1.0, float(want.float().abs().max()))
+    return 2e-5 * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mask_kind,window,b,t,s,h,hk,d", [
+    ("causal", 0, 2, 1, 77, 4, 4, 64),        # T = 1 against a long S
+    ("causal", 0, 1, 100, 100, 2, 2, 64),     # T not a multiple of 64
+    ("causal", 0, 2, 70, 130, 8, 1, 128),     # GQA g = 8, T != S
+    ("window", 300, 1, 90, 90, 4, 2, 256),    # window wider than T
+    ("window", 40, 1, 200, 200, 2, 1, 256),   # tiles skipped left of band
+    ("bidir", 0, 2, 33, 65, 4, 2, 16),        # smoke head_dim
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, mask_kind, window, b, t,
+                                              s, h, hk, d, dtype):
+    gen = torch.Generator().manual_seed(t * 31 + s + d)
+    q, k, v = (_rand(gen, b, n, hh, d).to(cuda, dtype)
+               for n, hh in ((t, h), (s, hk), (s, hk)))
+    before = fa_ops.launches["flash_attention"]
+    got = fa_ops.flash_attention(q, k, v, mask_kind, window)
+    want = fa_ref.flash_attention_ref(q, k, v, mask_kind, window)
+    torch.cuda.synchronize()
+    assert fa_ops.launches["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert float((got.float() - want.float()).abs().max()) <= _attn_tol(want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,pos,window,g,d,quant", [
+    (1, 0, 0, 1, 64, False),                  # S = 1
+    (333, 332, 0, 2, 64, True),               # int8, S off any tile, pos S-1
+    (333, 666, 0, 1, 64, True),               # ring wrapped: pos = 2S
+    (300, 120, 0, 8, 16, False),              # partial cache, G = 8
+    (257, 500, 64, 2, 256, True),             # window by ring age
+    (96, 95, 0, 4, 128, False),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_matches_plain(cuda, s, pos, window, g, d,
+                                               quant, dtype):
+    gen = torch.Generator().manual_seed(s * 7 + g + d)
+    b, hk = 3, 2
+    q = _rand(gen, b, hk, g, d).to(cuda, dtype)
+    k = _rand(gen, b, s, hk, d)
+    v = _rand(gen, b, s, hk, d)
+    ks = vs = None
+    if quant:
+        ks = k.abs().amax(-1, keepdim=True).div(127.0).clamp(min=1e-10)
+        vs = v.abs().amax(-1, keepdim=True).div(127.0).clamp(min=1e-10)
+        k = torch.round(k / ks).clamp(-127, 127).to(torch.int8)
+        v = torch.round(v / vs).clamp(-127, 127).to(torch.int8)
+        ks, vs = ks.to(cuda), vs.to(cuda)
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    k, v = k.to(cuda), v.to(cuda)
+    before = dec_ops.launches["decode_attention"]
+    got = dec_ops.decode_attention_fused(q, k, v, pos, d ** -0.5, ks, vs,
+                                         window=window)
+    want = dec_ref.decode_attention_ref(q, k, v, pos, d ** -0.5, ks, vs,
+                                        window)
+    torch.cuda.synchronize()
+    assert dec_ops.launches["decode_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert float((got.float() - want.float()).abs().max()) <= _attn_tol(want)
+
+
+@pytest.mark.gpu
+def test_attention_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.ones(1, 4, 2, 32, device=cuda)
+    with pytest.raises(ValueError):                   # head_dim 32
+        fa_ops.flash_attention(x, x, x)
+    q = torch.ones(1, 2, 3, 64, device=cuda)          # G = 3
+    c = torch.ones(1, 8, 2, 64, device=cuda)
+    with pytest.raises(ValueError):
+        dec_ops.decode_attention_fused(q, c, c, 3, 0.125)
+    with pytest.raises(ValueError):                   # int8 without scales
+        dec_ops.decode_attention_fused(q[:, :, :1], c.to(torch.int8),
+                                       c.to(torch.int8), 3, 0.125)
+
+
+@pytest.mark.gpu
+def test_sq_dists_and_predict_at_embedding_width(cuda):
+    """The SVM head's features are d_model = 2048 wide (stablelm-1.6b)."""
+    gen = torch.Generator().manual_seed(2048)
+    x = _rand(gen, 2, 40, 2048).to(cuda)
+    z = _rand(gen, 2, 300, 2048).to(cuda)
+    got = km_ops.sq_dists(x, z)
+    want = km_ref.sq_dists_ref(x, z)
+    scale = float((x * x).sum(-1).max() + (z * z).sum(-1).max())
+    assert float((got - want).abs().max()) <= 64 * EPS * scale
+    co = _rand(gen, 2, 300, 7).to(cuda)
+    ga = (torch.rand(2, 7, generator=gen) * 3.0 + 0.5).to(cuda) * 2048 ** 0.5
+    for kind in ("gauss_rbf", "laplacian"):
+        xs = x[:, :13].contiguous()
+        got = sp_ops.svm_predict_cells(xs, z, co, ga, kind=kind)
+        want = sp_ref.svm_predict_cells_ref(xs, z, co, ga, kind=kind)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= 1e-4 * max(
+            1.0, float(want.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "gemma3-4b"])
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_generate_through_kernels_equals_plain_path(cuda, arch, kv):
+    """Smoke configs in f32: greedy tokens through B9/B10 equal the plain
+    path's (attn_impl="ref") token for token."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as model_mod
+    from repro_torch.serve import engine
+    cfg = dataclasses.replace(get_arch(arch).smoke, dtype=torch.float32,
+                              kv_cache_dtype=kv)
+    params = model_mod.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0))
+    prompt = torch.randint(0, cfg.vocab, (3, 9),
+                           generator=torch.Generator().manual_seed(1)
+                           ).to(cuda)
+    n0 = (fa_ops.launches["flash_attention"],
+          dec_ops.launches["decode_attention"])
+    got = engine.generate(cfg, params, prompt, 12)
+    n1 = (fa_ops.launches["flash_attention"],
+          dec_ops.launches["decode_attention"])
+    want = engine.generate(dataclasses.replace(cfg, attn_impl="ref"), params,
+                           prompt, 12)
+    assert (fa_ops.launches["flash_attention"],
+            dec_ops.launches["decode_attention"]) == n1
+    assert n1[0] - n0[0] == cfg.n_layers
+    assert n1[1] - n0[1] == cfg.n_layers * 11
+    assert torch.equal(got, want)
