@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch/CUDA port: serving, training and LM paths.
+"""Chip smoke test of the PyTorch/CUDA port: serving, training, LM and
+cell-construction paths.
 
     python3 chip_smoke.py
 
@@ -45,7 +46,20 @@ kernels from ``src/repro_torch/csrc/`` into ``build/kernels/`` and then:
      64 tokens for 8 prompts of 256 with a bf16 and an int8 cache, and at
      the smoke configs in f32 checks the tokens through the kernels equal
      the plain path's; each run's launches are counted on their own;
-  7. times each kernel at the main path's shapes beside its plain version,
+  7. cell construction at UCI Covertype's full size (covtype_like rows,
+     580,986 x 54, written to a memmap under ``build/chip_smoke_cells/``,
+     removed at the start and the end of the phase): holds the
+     nearest-center kernel (B6) against its plain version at the chunk
+     shape (65,536 x 291 centers), at a HIGGS-width table (5500 x 28,
+     larger than shared memory), with duplicated centers and off every
+     tile, the one-shot Gram (B7) and the one-cell predict (B8); runs the
+     spatial builder's pass 0 (3 Lloyd sweeps of 291 centers and the
+     owners) through ``MemmapSource`` with the B6 backend (exactly 36
+     launches) and with numpy, every owner flip within its D² bound;
+     minibatch k-means on the card twice (bitwise equal); one cell
+     through ``kernel_matrix`` (B7), a kernel ridge solve and
+     ``svm_predict`` (B8) with its test error;
+  8. times each kernel at the main path's shapes beside its plain version,
      its bound from bytes and operations, and a one-call PyTorch yardstick
      where one exists (B9 and B10 also at one long context each); prints
      one JSON line per phase, the kernel table, and last
@@ -58,6 +72,7 @@ before printing any result.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -113,6 +128,21 @@ LONG_B9, LONG_B10 = (1, 4096), (16, 32768)
 LM_EMBED_TOL = 3e-2
 LM_LOGIT_TOL = 3e-2
 
+# cell-construction slice: UCI Covertype at full size (581,012 rows of 54
+# features, 7 classes; covtype_like rounds n down to 580,986), the spatial
+# builder's pass 0 with liquidSVM's cell size 2000 -> 291 centers and the
+# builder's default 3 Lloyd sweeps, chunks of 65,536 rows (9 per pass);
+# minibatch k-means with the reference's defaults (20 steps of 4096)
+CELLS_N, CELL_SIZE, LLOYD_ITERS, CHUNK = 581012, 2000, 3, 65536
+MBK_ITERS, MBK_BATCH = 20, 4096
+CELLS_DIR = ROOT / "build" / "chip_smoke_cells"
+# B6 also at a HIGGS-width table (11 M rows in cells of 2000 -> 5500
+# centers of d 28: 616 KB, more than a block's shared memory)
+HIGGS_C, HIGGS_D = 5500, 28
+# one cell through the kernel layer's entry points: B7 on 2048 training
+# rows, kernel ridge over the 7 one-vs-all columns, B8 on 8192 test rows
+ONE_CELL_N, ONE_CELL_TEST, ONE_CELL_LAMBDA = 2048, 8192, 1e-3
+
 # the card's published peaks (H100 SXM data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -138,6 +168,12 @@ KERNELS = {  # name -> (wrapper source, TPU kernel it replaces)
     "decode_attention": (
         "src/repro_torch/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/decode_attention.py:78"),
+    "assign": ("src/repro_torch/csrc/assign.cu",
+               "src/repro/pipeline/assign.py:237"),
+    "gram": ("src/repro_torch/csrc/kernel_matrix.cu",
+             "src/repro/kernels/kernel_matrix/kernel_matrix.py:62"),
+    "svm_predict": ("src/repro_torch/csrc/svm_predict.cu",
+                    "src/repro/kernels/svm_predict/svm_predict.py:63"),
 }
 
 
@@ -1189,6 +1225,357 @@ def lm_timing_cases(torch, dev, cfg):
     return cases
 
 
+def assign_flips(label: str, x: np.ndarray, c: np.ndarray, got, want
+                 ) -> int:
+    """Rows whose owner differs between two assignments must be near-ties:
+    if each side computes D² within dd2 of the true value (B1's 64 ulps
+    of the largest |x|^2 + |c|^2, the GEMM form's error over d terms),
+    the one center is at most 2 dd2 farther than the other in exact (f64)
+    distances.  Raises past that; returns (flip count, largest gap)."""
+    eps = float(np.finfo(np.float32).eps)
+    got, want = np.asarray(got), np.asarray(want)
+    flips = np.nonzero(got != want)[0]
+    dd2 = 64 * eps * float((x * x).sum(1).max() + (c * c).sum(1).max())
+    gap = 0.0
+    if flips.size:
+        xf = x[flips].astype(np.float64)
+        c64 = c.astype(np.float64)
+        gap = float(np.abs(((xf - c64[got[flips]]) ** 2).sum(1)
+                           - ((xf - c64[want[flips]]) ** 2).sum(1)).max())
+    emit({"phase": "check", "name": label, "flips": int(flips.size),
+          "rows": int(got.size), "max_flip_gap": gap, "bound": 2 * dd2,
+          "ok": bool(gap <= 2 * dd2)})
+    if not gap <= 2 * dd2:
+        raise Mismatch(f"{label}: a flipped owner is {gap} farther than "
+                       f"the other's center, bound {2 * dd2}")
+    return int(flips.size), gap
+
+
+def gram_bound(torch, x, z, gamma: float, kind: str, dd2: float):
+    """Elementwise bound on |kernel_matrix - its plain version| when the
+    two D² differ by at most ``dd2``: K (expm1(dd2 / gamma^2)) for the
+    Gaussian, K expm1(min(sqrt(dd2), dd2 / 2r) / gamma) for the Laplacian
+    (r = sqrt(D²)), as ``predict_bound`` reasons, plus 8 ulps of 1 for
+    exp's rounding."""
+    from repro_torch.kernels.kernel_matrix.ref import (gram_from_d2_ref,
+                                                       sq_dists_ref)
+    eps = float(np.finfo(np.float32).eps)
+    d2 = sq_dists_ref(x, z)
+    kk = gram_from_d2_ref(d2, gamma, kind)
+    if kind == "gauss_rbf":
+        rel = float(np.expm1(dd2 / max(gamma * gamma, 1e-12)))
+    else:
+        root = torch.sqrt(d2 + 1e-12)
+        rel = torch.expm1(torch.clamp(dd2 / (2.0 * root), max=dd2 ** 0.5)
+                          / max(gamma, 1e-12))
+    return kk * rel + 8 * eps
+
+
+def cell_kernel_checks(torch, dev, x: np.ndarray):
+    """B6, B7 and B8 against their plain versions on the card at the cell
+    slice's shapes; returns (errors, timing cases, extra timing cases)."""
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.assign import ops as as_ops
+    from repro_torch.kernels.assign import ref as as_ref
+    from repro_torch.kernels.kernel_matrix import ops as km_ops
+    from repro_torch.kernels.kernel_matrix import ref as km_ref
+    from repro_torch.kernels.svm_predict import ops as sp_ops
+    from repro_torch.kernels.svm_predict import ref as sp_ref
+    eps = float(np.finfo(np.float32).eps)
+    f32 = 4
+    n = x.shape[0]
+    rng = np.random.default_rng(SEED)
+    n_cells = -(-n // CELL_SIZE)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def assign_case(label, xd, cd):
+        got = as_ops.assign(xd, cd)
+        want = as_ref.assign_ref(xd, cd)
+        torch.cuda.synchronize()
+        xh, ch = xd.cpu().numpy(), cd.cpu().numpy()
+        _, gap = assign_flips(f"assign[{label}] vs plain", xh, ch,
+                              got.cpu().numpy(), want.cpu().numpy())
+        return gap, got
+
+    def assign_bound(m, c, d):
+        return bound(f32 * (m * d + c * d + m),
+                     m * c * (2 * d + 3) + (m + c) * 2 * d)
+
+    # B6 at Covertype's chunk shape: the first chunk, the builder's sample
+    chunk = torch.as_tensor(x[:CHUNK]).to(dev)
+    cen = torch.as_tensor(x[rng.choice(n, n_cells, replace=False)]).to(dev)
+    # max_abs_err of B6: the largest D² gap of a flipped owner (0: none)
+    errs = {"assign": assign_case(f"{CHUNK}x{n_cells}x{DIM}", chunk, cen)[0]}
+    # B6 at HIGGS width: the table does not fit in shared memory
+    xh = torch.randn(CHUNK, HIGGS_D, generator=gen, device=dev)
+    ch = (xh[torch.randperm(CHUNK, generator=gen, device=dev)[:HIGGS_C]]
+          + 0.1 * torch.randn(HIGGS_C, HIGGS_D, generator=gen, device=dev))
+    assign_case(f"{CHUNK}x{HIGGS_C}x{HIGGS_D}", xh, ch)
+    # duplicated centers (3 copies of 97): the lowest index must win,
+    # also for the rows that ARE centers
+    base = cen[:97]
+    nb = base.shape[0]
+    dup = torch.cat([base, base.flip(0), base]).contiguous()
+    rows = torch.cat([base, chunk]).contiguous()
+    _, got = assign_case("duplicated centers", rows, dup)
+    ok = (int(got.max()) < nb and torch.equal(
+        got[:nb].cpu(), torch.arange(nb, dtype=torch.int32)))
+    emit({"phase": "check", "name": "assign[duplicates: lowest index]",
+          "ok": bool(ok)})
+    if not ok:
+        raise Mismatch("assign: a duplicated center's later copy won")
+    # C and d off every tile
+    odd = torch.as_tensor(x[:1000, :19]).to(dev)
+    assign_case("1000x67x19", odd, odd[torch.randperm(
+        1000, generator=gen, device=dev)[:67]].contiguous())
+
+    # B7: (2048, 54) x (2048, 54), Gaussian and Laplacian
+    xa = torch.as_tensor(x[:ONE_CELL_N]).to(dev)
+    xb = torch.as_tensor(x[ONE_CELL_N:2 * ONE_CELL_N]).to(dev)
+    gamma = float(torch.sqrt(torch.median(km_ref.sq_dists_ref(xa, xb))))
+    dd2 = 64 * eps * float((xa * xa).sum(1).max() + (xb * xb).sum(1).max())
+    for kind in ("gauss_rbf", "laplacian"):
+        got = km_ops.kernel_matrix(xa, xb, gamma, kind=kind)
+        want = km_ref.kernel_matrix_ref(xa, xb, gamma, kind)
+        e = check_bound(f"gram[{kind}]", got.cpu(), want.cpu(),
+                        gram_bound(torch, xa, xb, gamma, kind, dd2).cpu(),
+                        shape=list(got.shape), gamma=gamma)
+        errs.setdefault("gram", e)
+    # B8: x_test (8192, 54), sv (2048, 54), coefs (2048, 7) and 1-D
+    xt = torch.as_tensor(x[2 * ONE_CELL_N:2 * ONE_CELL_N
+                           + ONE_CELL_TEST]).to(dev)
+    co = torch.randn(ONE_CELL_N, N_CLASSES, generator=gen, device=dev)
+    ga = torch.full((1, N_CLASSES), gamma, device=dev)
+    dd2p = 64 * eps * float((xt * xt).sum(1).max() + (xa * xa).sum(1).max())
+    for label, cols in (("P=7", co), ("1-D", co[:, 0].contiguous())):
+        got = sp_ops.svm_predict(xt, xa, cols, gamma)
+        want = sp_ref.svm_predict_ref(xt, xa, cols, gamma)
+        c2 = cols if cols.dim() == 2 else cols[:, None]
+        bnd = predict_bound(torch, km_ref.sq_dists_ref, xt[None], xa[None],
+                            c2[None], ga[:, :c2.shape[1]], "gauss_rbf",
+                            dd2p)[0]
+        e = check_bound(f"svm_predict[{label}]", got.reshape(want.shape)
+                        .cpu(), want.cpu(), bnd.cpu(),
+                        shape=list(got.shape))
+        errs.setdefault("svm_predict", e)
+
+    timing = {
+        "assign": (lambda: as_ops.assign(chunk, cen),
+                   lambda: as_ref.assign_ref(chunk, cen), None,
+                   assign_bound(CHUNK, n_cells, DIM)),
+        "gram": (lambda: km_ops.kernel_matrix(xa, xb, gamma),
+                 lambda: km_ref.kernel_matrix_ref(xa, xb, gamma),
+                 None,
+                 bound(f32 * (2 * ONE_CELL_N * DIM + ONE_CELL_N ** 2),
+                       ONE_CELL_N ** 2 * (2 * DIM + 3 + 4)
+                       + 2 * ONE_CELL_N * 2 * DIM)),
+        "svm_predict": (
+            lambda: sp_ops.svm_predict(xt, xa, co, gamma),
+            lambda: sp_ref.svm_predict_ref(xt, xa, co, gamma), None,
+            bound(f32 * (ONE_CELL_TEST * DIM + ONE_CELL_N * DIM
+                         + ONE_CELL_N * N_CLASSES
+                         + ONE_CELL_TEST * N_CLASSES),
+                  ONE_CELL_TEST * ONE_CELL_N * (2 * DIM + 3 + 4)
+                  + 2 * ONE_CELL_TEST * ONE_CELL_N * N_CLASSES
+                  + (ONE_CELL_TEST + ONE_CELL_N) * 2 * DIM)),
+    }
+    extra = [(f"assign[{CHUNK}x{HIGGS_C}x{HIGGS_D}]",
+              lambda: as_ops.assign(xh, ch), lambda: as_ref.assign_ref(xh, ch),
+              None, assign_bound(CHUNK, HIGGS_C, HIGGS_D))]
+    return errs, timing, extra
+
+
+def cell_construction(torch, dev, x: np.ndarray, tables):
+    """Pass 0 of the spatial cell builder at Covertype's full size, from a
+    memmap on disk, with the B6 backend and with numpy; then minibatch
+    k-means on the card twice.  Returns the B6 run's launch counts."""
+    from repro_torch.kernels.assign import ops as as_ops
+    from repro_torch.pipeline import MemmapSource
+    from repro_torch.pipeline import assign as pl_assign
+    shutil.rmtree(CELLS_DIR, ignore_errors=True)
+    CELLS_DIR.mkdir(parents=True)
+    path = CELLS_DIR / "x.npy"
+    t0 = time.perf_counter()
+    mm = np.lib.format.open_memmap(path, mode="w+", dtype=np.float32,
+                                   shape=x.shape)
+    mm[:] = x
+    mm.flush()
+    del mm
+    write_s = time.perf_counter() - t0
+    src = MemmapSource(path)
+    n = src.n_rows
+    n_cells = -(-n // CELL_SIZE)
+    n_chunks = -(-n // CHUNK)
+    init = src.gather(np.random.default_rng(SEED).choice(n, n_cells,
+                                                         replace=False))
+
+    zero_counts(tables)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cen_k = pl_assign.lloyd_stream(src, init, LLOYD_ITERS, CHUNK,
+                                   backend="kernel", device=dev)
+    own_k = pl_assign.assign_stream(src, cen_k, CHUNK, backend="kernel",
+                                    device=dev)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    counts = read_counts(tables)
+    require_launches("cells[kernel]", counts,
+                     {"assign": n_chunks * (LLOYD_ITERS + 1)})
+
+    t0 = time.perf_counter()
+    cen_n = pl_assign.lloyd_stream(src, init, LLOYD_ITERS, CHUNK)
+    own_n = pl_assign.assign_stream(src, cen_n, CHUNK)
+    numpy_s = time.perf_counter() - t0
+
+    # owners of B6 and numpy at the same (numpy's) centers
+    own_kn = pl_assign.assign_stream(src, cen_n, CHUNK, backend="kernel",
+                                     device=dev)
+    flips, _ = assign_flips("cells[B6 vs numpy owners]", x, cen_n, own_kn,
+                            own_n)
+    centers_equal = bool(np.array_equal(cen_k, cen_n))
+    sweep_flips = []
+    if not centers_equal:     # explained only by a flip during the sweeps
+        for i in range(LLOYD_ITERS):
+            c_i = pl_assign.lloyd_stream(src, init, i, CHUNK)
+            sweep_flips.append(assign_flips(
+                f"cells[B6 vs numpy, sweep {i}]", x, c_i,
+                pl_assign.assign_stream(src, c_i, CHUNK, backend="kernel",
+                                        device=dev),
+                pl_assign.assign_stream(src, c_i, CHUNK))[0])
+        if not any(sweep_flips):
+            raise Mismatch("cells: swept centers differ from numpy's with "
+                           "no owner flipped during the sweeps")
+    cnt_k = np.bincount(own_k, minlength=n_cells)
+    cnt_n = np.bincount(own_n, minlength=n_cells)
+
+    # where one B6 sweep's time goes (host clock, the card synchronised)
+    chunk_d = pl_assign._upload(x[:CHUNK], dev)
+    cen_d = pl_assign._upload(cen_k, dev)
+    b6_ms = cuda_ms(torch, lambda: as_ops.assign(chunk_d, cen_d))
+    parts = dict(read=0.0, upload=0.0, assign=0.0, add_at=0.0)
+    csum = np.zeros_like(cen_k)
+    t = time.perf_counter()
+    for _, ch in src.iter_chunks(CHUNK):
+        t1 = time.perf_counter()
+        parts["read"] += t1 - t
+        cd = pl_assign._upload(ch, dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        parts["upload"] += t2 - t1
+        a = as_ops.assign(cd, cen_d).cpu().numpy()
+        t3 = time.perf_counter()
+        parts["assign"] += t3 - t2
+        np.add.at(csum, a, ch)
+        np.bincount(a, minlength=n_cells)
+        t = time.perf_counter()
+        parts["add_at"] += t - t3
+
+    # minibatch k-means on the card, twice: bitwise equal, and a lower
+    # inertia than its initial sample
+    zero_counts(tables)
+    t0 = time.perf_counter()
+    mbk = [pl_assign.minibatch_kmeans(src, n_cells, iters=MBK_ITERS,
+                                      batch_size=MBK_BATCH, seed=SEED,
+                                      device=dev) for _ in range(2)]
+    mbk_s = (time.perf_counter() - t0) / 2
+    require_launches("minibatch_kmeans", read_counts(tables), {})
+    if not np.array_equal(mbk[0], mbk[1]):
+        raise Mismatch("minibatch_kmeans: two runs on the card differ")
+    mbk_init = src.gather(np.random.default_rng(SEED).choice(
+        n, n_cells, replace=False))
+
+    def inertia(c):
+        cd = pl_assign._upload(c, dev)
+        total = 0.0
+        for _, ch in src.iter_chunks(CHUNK):
+            xd = pl_assign._upload(ch, dev)
+            d2 = ((xd * xd).sum(1)[:, None] + (cd * cd).sum(1)[None, :]
+                  - 2.0 * (xd @ cd.T))
+            total += float(torch.clamp(d2, min=0.0).min(1).values.double()
+                           .sum())
+        return total / n
+    inert = {"mbk": inertia(mbk[0]), "mbk_init": inertia(mbk_init),
+             "lloyd": inertia(cen_k), "lloyd_init": inertia(init)}
+    if not (np.isfinite(mbk[0]).all() and inert["mbk"] < inert["mbk_init"]):
+        raise Mismatch(f"minibatch_kmeans: inertia {inert['mbk']} not below "
+                       f"the initial sample's {inert['mbk_init']}")
+    emit({"phase": "cells", "n": n, "d": x.shape[1], "cells": n_cells,
+          "chunks": n_chunks, "lloyd_iters": LLOYD_ITERS,
+          "launches": counts["assign"], "owner_flips_vs_numpy": flips,
+          "centers_bitwise_equal_numpy": centers_equal,
+          "sweep_flips": sweep_flips,
+          "cell_counts_equal": bool(np.array_equal(cnt_k, cnt_n)),
+          "cells_whose_count_differs": int((cnt_k != cnt_n).sum()),
+          "cell_counts": cnt_k.tolist(),
+          "cell_size_min_max": [int(cnt_k.min()), int(cnt_k.max())],
+          "empty_cells": int((cnt_k == 0).sum()),
+          "write_s": write_s, "kernel_s": kernel_s, "numpy_s": numpy_s,
+          "b6_ms_per_chunk": b6_ms,
+          "b6_device_ms": b6_ms * counts["assign"],
+          "device_busy_share": b6_ms * counts["assign"] / (kernel_s * 1e3),
+          "one_sweep_host_s": parts, "mbk_s": mbk_s,
+          "inertia": inert, "mbk_bitwise_repeat": True})
+    shutil.rmtree(CELLS_DIR, ignore_errors=True)
+    return counts
+
+
+def one_cell_model(torch, dev, x: np.ndarray, y: np.ndarray, tables):
+    """One cell through the kernel layer's entry points, as a user calls
+    them: the Gram of 2048 training rows (B7), kernel ridge over the 7
+    one-vs-all columns (a dense solve), decisions on 8192 test rows (B8,
+    and 1-D coefficients for one column).  Returns the launch counts."""
+    from repro_torch.kernels.kernel_matrix import ops as km_ops
+    from repro_torch.kernels.kernel_matrix import ref as km_ref
+    from repro_torch.kernels.svm_predict import ops as sp_ops
+    from repro_torch.kernels.svm_predict import ref as sp_ref
+    eps = float(np.finfo(np.float32).eps)
+    n = ONE_CELL_N
+    xtr = torch.as_tensor(x[:n]).to(dev)
+    ytr = y[:n]
+    xte = torch.as_tensor(x[n:n + ONE_CELL_TEST]).to(dev)
+    yte = y[n:n + ONE_CELL_TEST]
+    targets = torch.as_tensor(np.where(ytr[:, None] == np.arange(N_CLASSES),
+                                       1.0, -1.0).astype(np.float32)).to(dev)
+    gamma = float(torch.sqrt(torch.median(km_ref.sq_dists_ref(xtr, xtr))))
+    zero_counts(tables)
+    k = km_ops.kernel_matrix(xtr, xtr, gamma)
+    eye = torch.eye(n, device=dev)
+    coefs = torch.linalg.solve(k + n * ONE_CELL_LAMBDA * eye, targets)
+    f = sp_ops.svm_predict(xte, xtr, coefs, gamma)
+    f0 = sp_ops.svm_predict(xte, xtr, coefs[:, 0].contiguous(), gamma)
+    torch.cuda.synchronize()
+    counts = read_counts(tables)
+    require_launches("one_cell", counts, {"gram": 1, "svm_predict": 2})
+    if not torch.equal(f0, f[:, 0]):
+        raise Mismatch("svm_predict: 1-D coefs differ from the 2-D call's "
+                       "first column")
+    dd2 = 64 * eps * 2 * float((xtr * xtr).sum(1).max())
+    check_bound("one_cell[gram] vs plain", k.cpu(),
+                km_ref.kernel_matrix_ref(xtr, xtr, gamma).cpu(),
+                gram_bound(torch, xtr, xtr, gamma, "gauss_rbf", dd2).cpu())
+    want = sp_ref.svm_predict_ref(xte, xtr, coefs, gamma)
+    dd2p = 64 * eps * float((xte * xte).sum(1).max()
+                            + (xtr * xtr).sum(1).max())
+    bnd = predict_bound(torch, km_ref.sq_dists_ref, xte[None], xtr[None],
+                        coefs[None], torch.full((1, N_CLASSES), gamma,
+                                                device=dev),
+                        "gauss_rbf", dd2p)[0]
+    check_bound("one_cell[svm_predict] vs plain", f.cpu(), want.cpu(),
+                bnd.cpu())
+    fh = f.cpu().numpy()
+    if fh.shape != (ONE_CELL_TEST, N_CLASSES) or not np.isfinite(fh).all():
+        raise Mismatch(f"one_cell: decisions {fh.shape} or non-finite")
+    err = float((fh.argmax(1) != yte).mean())
+    majority = float((yte != np.bincount(ytr).argmax()).mean())
+    emit({"phase": "one_cell", "n_train": n, "n_test": ONE_CELL_TEST,
+          "gamma": gamma, "lambda": ONE_CELL_LAMBDA, "test_error": err,
+          "majority_error": majority, "launches": counts})
+    if not err < majority:
+        raise Mismatch(f"one_cell: test error {err} not below the majority "
+                       f"baseline {majority}")
+    return counts
+
+
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     """Device ms per call: the calls are enqueued while the card runs a
     ~10 ms sleep kernel, so the events time the card's work and not the
@@ -1247,8 +1634,9 @@ def main() -> int:
     from repro_torch.configs import get_arch
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.assign import ops as as_ops
     tables = (km_ops.launches, sp_ops.launches, cd_ops.launches,
-              fa_ops.launches, dec_ops.launches)
+              fa_ops.launches, dec_ops.launches, as_ops.launches)
 
     # fp32 products in the plain versions run in full fp32, never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1519,7 +1907,24 @@ def main() -> int:
     del ex, src_tr, src_ho
     torch.cuda.empty_cache()
 
-    # ------------------------------------------------- 7. kernel times
+    # ------------------------------------------- 7. cell construction
+    t0 = time.perf_counter()
+    x_cells, y_cells = covtype_like(n=CELLS_N, d=DIM, n_classes=N_CLASSES,
+                                    seed=SEED)
+    emit({"phase": "cells_data", "rows": x_cells.shape[0],
+          "d": x_cells.shape[1], "seconds": time.perf_counter() - t0})
+    errs_c, cell_timing, cell_extra = cell_kernel_checks(torch, dev, x_cells)
+    errs.update(errs_c)
+    cell_paths = {"cells": cell_construction(torch, dev, x_cells, tables),
+                  "one_cell": one_cell_model(torch, dev, x_cells, y_cells,
+                                             tables)}
+    emit({"phase": "cell_launches", "per_path": cell_paths})
+    launches = {name: launches.get(name, 0)
+                + sum(n[name] for n in cell_paths.values())
+                for name in cell_paths["cells"]}
+    del x_cells, y_cells
+
+    # ------------------------------------------------- 8. kernel times
     f32 = 4
     neg = (-(d2_ref[:, None] / torch.clamp(ga_w * ga_w, min=1e-12)
              [:, :, None, None])).contiguous()
@@ -1587,6 +1992,11 @@ def main() -> int:
                         "bound_ms": b[0], "bound_by": b[1],
                         "library_ms": (None if lib is None
                                        else cuda_ms(torch, lib))})
+    timing.update(cell_timing)
+    cell_rows = [{"name": label, "ms": cuda_ms(torch, kern),
+                  "plain_ms": cuda_ms(torch, plain), "bound_ms": b[0],
+                  "bound_by": b[1], "library_ms": None}
+                 for label, kern, plain, _, b in cell_extra]
     slow = {"cd_wave_epoch", "cd_epoch"}   # the plain sweeps take ~0.1-1 s
     for name, (kern, plain, lib, (b_ms, b_by)) in timing.items():
         reps = dict(iters=3, warmup=1) if name in slow else {}
@@ -1600,6 +2010,8 @@ def main() -> int:
     emit({"phase": "lm_kernel_times", "rows": lm_rows,
           "library": "torch.nn.functional.scaled_dot_product_attention",
           "card": smi.splitlines()[0]})
+    emit({"phase": "cell_kernel_times", "rows": cell_rows,
+          "card": smi.splitlines()[0]})
     emit({"phase": "kernel_times", "shapes": shapes,
           "train_shapes": {"slots": s_t, "folds": f_t, "k": n_t, "d": DIM,
                            "P": p_t},
@@ -1608,6 +2020,10 @@ def main() -> int:
                         "decode_attention": [GEN_BATCH, GEN_PROMPT + GEN_NEW,
                                              lm_cfg.n_kv_heads, 1,
                                              lm_cfg.head_dim]},
+          "cell_shapes": {"assign": [CHUNK, -(-CELLS_N // CELL_SIZE), DIM],
+                          "gram": [ONE_CELL_N, ONE_CELL_N, DIM],
+                          "svm_predict": [ONE_CELL_TEST, ONE_CELL_N, DIM,
+                                          N_CLASSES]},
           "card": smi.splitlines()[0]})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,4 +1,5 @@
-// Squared distances (B1) and the per-gamma kernel epilogue (B2) for Hopper.
+// Squared distances (B1), the one-shot Gram (B7) and the per-gamma kernel
+// epilogue (B2) for Hopper.
 //
 // sq_dists_f32 replaces sq_dists_pallas (symmetric=False) in
 // src/repro/kernels/kernel_matrix/kernel_matrix.py: D2 = max(|x|^2 + |z|^2
@@ -16,6 +17,19 @@
 //   written once, coalesced along z.  The cross term is plain fp32 FMAs:
 //   no tensor cores, so no TF32 rounding on top of the GEMM-form
 //   cancellation.
+//
+// gram_f32 replaces gram_pallas (body _gram_kernel, same file): the one-shot
+// Gram K = k_gamma(x, z), (n, d) x (m, d) -> (n, m) f32, Gaussian or
+// Laplacian, in ONE pass: each D2 value is computed as in sq_dists_f32
+// (clamped at 0, as _d2_tile does) and the gamma epilogue of
+// gram_from_d2 is applied in registers before the value is stored, so
+// the D2 matrix is never written to device memory.
+//   Bound on the H100: at (2048, 54) x (2048, 54) the 0.45 GFLOP of fp32
+//   cross terms and the 16.8 MB written take about the same time (~7 us of
+//   FMAs, ~5 us of writes); the expf per value comes on top.
+//   Design: sq_dists_f32's block and tile (8 x rows by 128 z rows, one z
+//   row per thread) instantiated with the epilogue; the same arithmetic in
+//   the same order, so K equals gram_from_d2(sq_dists(x, z)) bitwise.
 //
 // sq_dists_sym_f32 replaces sq_dists_pallas (symmetric=True, the body
 // _sq_dists_sym_kernel and the out map _sym_out_map, same file): the train
@@ -52,9 +66,11 @@ constexpr int SQ_BN = 8;    // x rows per block (register accumulators)
 constexpr int SQ_BM = 128;  // z rows per block, one per thread
 constexpr int SQ_DK = 32;   // feature chunk staged in shared memory
 
+// EPI: 0 stores D2 (B1), 1 the Gaussian and 2 the Laplacian kernel of it (B7)
+template <int EPI>
 __global__ void __launch_bounds__(SQ_BM)
 sq_dists_kernel(const float* __restrict__ x, const float* __restrict__ z,
-                float* __restrict__ out, int n, int m, int d) {
+                float* __restrict__ out, int n, int m, int d, float denom) {
   __shared__ float xs[SQ_BN][SQ_DK];
   __shared__ float zs[SQ_BM][SQ_DK + 1];
   __shared__ float xn[SQ_BN];
@@ -105,7 +121,9 @@ sq_dists_kernel(const float* __restrict__ x, const float* __restrict__ z,
   for (int r = 0; r < SQ_BN; ++r) {
     const int i = i0 + r;
     if (i < n) {
-      out[((size_t)b * n + i) * m + j] = fmaxf(xn[r] + zz - 2.f * cross[r], 0.f);
+      const float v = fmaxf(xn[r] + zz - 2.f * cross[r], 0.f);
+      out[((size_t)b * n + i) * m + j] =
+          EPI == 0 ? v : EPI == 1 ? expf(-v / denom) : expf(-sqrtf(v + 1e-12f) / denom);
     }
   }
 }
@@ -228,8 +246,25 @@ extern "C" {
 int sq_dists_f32(const float* x, const float* z, float* out, int B, int n,
                  int m, int d, void* stream) {
   dim3 grid((m + SQ_BM - 1) / SQ_BM, (n + SQ_BN - 1) / SQ_BN, B);
-  sq_dists_kernel<<<grid, SQ_BM, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, z, out, n, m, d);
+  sq_dists_kernel<0><<<grid, SQ_BM, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, z, out, n, m, d, 0.f);
+  return (int)cudaGetLastError();
+}
+
+// x (n, d), z (m, d), out (n, m); fp32 contiguous.  kind: 0 Gaussian RBF,
+// 1 Laplacian.  Limits checked by the Python wrapper: ceil(n / 8) at most
+// 65535.
+int gram_f32(const float* x, const float* z, float* out, int n, int m, int d,
+             float gamma, int kind, void* stream) {
+  dim3 grid((m + SQ_BM - 1) / SQ_BM, (n + SQ_BN - 1) / SQ_BN, 1);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kind == 0) {
+    sq_dists_kernel<1><<<grid, SQ_BM, 0, s>>>(x, z, out, n, m, d,
+                                              fmaxf(gamma * gamma, 1e-12f));
+  } else {
+    sq_dists_kernel<2><<<grid, SQ_BM, 0, s>>>(x, z, out, n, m, d,
+                                              fmaxf(gamma, 1e-12f));
+  }
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,9 @@
 """Wrappers for the kernel-matrix kernels: checks, dispatch by device.
 
-Two entry points:
+Three entry points:
 
+  * ``kernel_matrix`` — the one-shot Gram K = k_gamma(x, z) (B7): D² and
+                        the gamma epilogue in one launch, D² never stored;
   * ``sq_dists``      — the gamma-independent D² matrix (B1), optionally
                         batched over a leading slot axis; ``symmetric=True``
                         (the train Gram of a wave of cells, z is x) takes
@@ -31,7 +33,7 @@ _SQ_ROWS = 8        # x rows per block of the D² kernel
 _SYM_TILE = 32      # square tile of the symmetric D² kernel
 
 launches: Dict[str, int] = {"sq_dists": 0, "sq_dists_sym": 0,
-                             "gram_from_d2": 0}
+                             "gram_from_d2": 0, "gram": 0}
 
 
 def _lib() -> ctypes.CDLL:
@@ -45,8 +47,43 @@ def _lib() -> ctypes.CDLL:
         lib.gram_from_d2.argtypes = [p, p, p, i, i, ctypes.c_longlong,
                                      i, i, i, p]
         lib.gram_from_d2.restype = i
+        lib.gram_f32.argtypes = [p, p, p, i, i, i, ctypes.c_float, i, p]
+        lib.gram_f32.restype = i
         lib._bound = True
     return lib
+
+
+def kernel_matrix(x: torch.Tensor, z: torch.Tensor, gamma: float,
+                  kind: str = "gauss_rbf") -> torch.Tensor:
+    """K[i, j] = k_gamma(x_i, z_j); (n, d) x (m, d) -> (n, m) f32.
+
+    One pass on the card: each D² value (clamped at 0) goes through the
+    Gaussian or Laplacian epilogue before it is stored.  ``gamma`` is a
+    Python scalar or a 0-d tensor.
+    """
+    if kind not in KINDS:
+        raise ValueError(f"unknown kernel kind {kind!r}")
+    runtime.check_tensor("x", x, (torch.float32,), ndim=2)
+    runtime.check_tensor("z", z, (torch.float32,), ndim=2)
+    if x.shape[1] != z.shape[1] or x.device != z.device:
+        raise ValueError(f"kernel_matrix: x {tuple(x.shape)} on {x.device}, "
+                         f"z {tuple(z.shape)} on {z.device} disagree")
+    g = float(gamma)
+    if x.device.type == "cpu":
+        return ref.kernel_matrix_ref(x, z, g, kind)
+    n, d = x.shape
+    m = z.shape[0]
+    runtime.check_launch("kernel_matrix", (x, z), x.device)
+    if -(-n // _SQ_ROWS) > _GRID_MAX:
+        raise ValueError(f"kernel_matrix: {n} rows exceed the grid")
+    out = torch.empty((n, m), dtype=torch.float32, device=x.device)
+    if out.numel():
+        rc = _lib().gram_f32(runtime.ptr(x), runtime.ptr(z), runtime.ptr(out),
+                             n, m, d, g, KINDS[kind],
+                             runtime.stream_handle(x.device))
+        runtime.raise_on_error("kernel_matrix", rc)
+        launches["gram"] += 1
+    return out
 
 
 def sq_dists(x: torch.Tensor, z: torch.Tensor,

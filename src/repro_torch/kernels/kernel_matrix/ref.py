@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the kernel-matrix kernels.
 
 The CPU tests run these, and ``chip_smoke.py`` holds the CUDA kernels
-against them on the card.  Both functions broadcast over leading axes.
+against them on the card.  The D² and epilogue functions broadcast over
+leading axes.
 """
 from __future__ import annotations
 
@@ -40,3 +41,10 @@ def gram_from_d2_ref(d2: torch.Tensor, gamma: Union[float, torch.Tensor],
     else:
         raise ValueError(kind)
     return k.to(torch.bfloat16) if out_dtype == "bf16" else k
+
+
+def kernel_matrix_ref(x: torch.Tensor, z: torch.Tensor,
+                      gamma: Union[float, torch.Tensor],
+                      kind: str = "gauss_rbf") -> torch.Tensor:
+    """One-shot Gram K = k_gamma(x, z), (n, d) x (m, d) -> (n, m) f32."""
+    return gram_from_d2_ref(sq_dists_ref(x, z), gamma, kind)

@@ -1,4 +1,13 @@
-"""Wrapper for the fused multi-cell predict kernel: checks, dispatch by device.
+"""Wrappers for the fused predict kernel: checks, dispatch by device.
+
+Two entry points:
+
+  * ``svm_predict_cells`` — the serving engine's multi-cell launch (B3):
+                            per-cell SV tables, one gamma per column;
+  * ``svm_predict``       — f = K(x_test, sv) @ coefs for one cell and one
+                            gamma (B8): B3's kernel launched at C = 1 with
+                            every column given the same gamma, counted as
+                            its own entry.
 
 A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA tensor
 goes to the hand-written kernel in ``csrc/svm_predict.cu`` or the call
@@ -25,7 +34,7 @@ _SMEM_STATIC = 20480         # the kernel's static tiles, rounded up
 _SV_TILE = 256
 _DK = 16
 
-launches: Dict[str, int] = {"svm_predict_cells": 0}
+launches: Dict[str, int] = {"svm_predict_cells": 0, "svm_predict": 0}
 
 
 def _lib() -> ctypes.CDLL:
@@ -71,7 +80,54 @@ def svm_predict_cells(xt: torch.Tensor, sv: torch.Tensor, coefs: torch.Tensor,
         if any(t.device != xt.device for t in (sv, coefs, gammas)):
             raise ValueError("svm_predict_cells: operands on several devices")
         return ref.svm_predict_cells_ref(xt, sv, coefs, gammas, kind)
+    out, launched = _launch(xt, sv, coefs, gammas, kind)
+    launches["svm_predict_cells"] += launched
+    return out
 
+
+def svm_predict(x_test: torch.Tensor, sv: torch.Tensor, coefs: torch.Tensor,
+                gamma: float, kind: str = "gauss_rbf") -> torch.Tensor:
+    """f = K(x_test, sv) @ coefs for one cell and one gamma, f32.
+
+    x_test (nt, d), sv (ns, d), coefs (ns, P) -> (nt, P), or coefs (ns,)
+    -> (nt,).  K is never written out: on the card this is B3's kernel at
+    one cell with ``gamma`` in every column; the ragged row and SV edges
+    are masked, nothing is padded.
+    """
+    if kind not in KINDS:
+        raise ValueError(f"unknown kernel kind {kind!r}")
+    runtime.check_tensor("x_test", x_test, (torch.float32,), ndim=2)
+    runtime.check_tensor("sv", sv, (torch.float32,), ndim=2)
+    runtime.check_tensor("coefs", coefs, (torch.float32,))
+    squeeze = coefs.dim() == 1
+    cols = coefs[:, None] if squeeze else coefs
+    if (cols.dim() != 2 or sv.shape[1] != x_test.shape[1]
+            or cols.shape[0] != sv.shape[0]):
+        raise ValueError(f"svm_predict: x_test {tuple(x_test.shape)}, sv "
+                         f"{tuple(sv.shape)}, coefs {tuple(coefs.shape)} "
+                         f"disagree")
+    if any(t.device != x_test.device for t in (sv, coefs)):
+        raise ValueError("svm_predict: operands on several devices")
+    g = float(gamma)
+    if x_test.device.type == "cpu":
+        out = ref.svm_predict_ref(x_test, sv, cols, g, kind)
+    else:
+        gammas = torch.full((1, cols.shape[1]), g, dtype=torch.float32,
+                            device=x_test.device)
+        out, launched = _launch(x_test[None], sv[None],
+                                cols.contiguous()[None], gammas, kind)
+        out = out[0]
+        launches["svm_predict"] += launched
+    return out[:, 0] if squeeze else out
+
+
+def _launch(xt: torch.Tensor, sv: torch.Tensor, coefs: torch.Tensor,
+            gammas: torch.Tensor, kind: str):
+    """B3 on checked (C, m, d), (C, k, d), (C, k, P), (C, P) CUDA operands:
+    (out, 1 if the kernel was launched else 0)."""
+    c_count, m, d = xt.shape
+    k = sv.shape[1]
+    p = coefs.shape[2]
     runtime.check_launch("svm_predict_cells", (xt, sv, coefs, gammas),
                          xt.device)
     dpad = -(-d // _DK) * _DK
@@ -83,13 +139,12 @@ def svm_predict_cells(xt: torch.Tensor, sv: torch.Tensor, coefs: torch.Tensor,
                          f"beyond the kernel's limits")
     out = torch.empty((c_count, m, p), dtype=torch.float32, device=xt.device)
     if not out.numel():
-        return out
+        return out, 0
     if k == 0:
-        return out.zero_()
+        return out.zero_(), 0
     rc = _lib().svm_predict_cells_f32(
         runtime.ptr(xt), runtime.ptr(sv), runtime.ptr(coefs),
         runtime.ptr(gammas), runtime.ptr(out), c_count, m, k, d, p,
         KINDS[kind], runtime.stream_handle(xt.device))
     runtime.raise_on_error("svm_predict_cells", rc)
-    launches["svm_predict_cells"] += 1
-    return out
+    return out, 1

@@ -9,7 +9,19 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.kernel_matrix.ref import gram_from_d2_ref, sq_dists_ref
+from repro_torch.kernels.kernel_matrix.ref import (gram_from_d2_ref,
+                                                  kernel_matrix_ref,
+                                                  sq_dists_ref)
+
+
+def svm_predict_ref(x_test: torch.Tensor, sv: torch.Tensor,
+                    coefs: torch.Tensor, gamma: float,
+                    kind: str = "gauss_rbf") -> torch.Tensor:
+    """f = K(x_test, sv) @ coefs, one gamma: (nt, d), (ns, d), (ns, P) ->
+    (nt, P); 1-D coefs -> (nt, 1)."""
+    if coefs.dim() == 1:
+        coefs = coefs[:, None]
+    return kernel_matrix_ref(x_test, sv, gamma, kind) @ coefs.to(torch.float32)
 
 
 def svm_predict_cells_ref(xt: torch.Tensor, sv: torch.Tensor,

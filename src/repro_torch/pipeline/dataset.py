@@ -7,10 +7,12 @@ every row exactly once.  Chunks never exceed ``chunk_size`` rows but MAY
 be shorter, so per-row results must never depend on which chunk a row
 landed in.  ``gather(ids)`` returns the rows of ``ids`` in the given order.
 
-Here: the in-memory source, the sharded npz source (``ShardedNpzSource``,
+Here: the in-memory source, the on-disk ``.npy`` source
+(``MemmapSource``, which the device half of cell construction streams at
+Covertype's full size), the sharded npz source (``ShardedNpzSource``,
 which the embedding cache replays through), the lazy scaled view
 (``ScaledSource``) and the one-pass mean/std (``streaming_mean_std``),
-numpy as in the reference.  The memmap source waits for the staged API.
+numpy as in the reference.
 File-backed sources raise :class:`DataSourceError`, naming the file and
 the affected row range, when the bytes on disk are truncated or corrupt.
 """
@@ -81,6 +83,43 @@ class ArraySource(ChunkSource):
 
     def gather(self, ids: np.ndarray) -> np.ndarray:
         return self._x[np.asarray(ids, np.int64)]
+
+
+class MemmapSource(ChunkSource):
+    """An on-disk ``.npy`` file read through ``np.load(mmap_mode="r")``.
+
+    Chunks are materialized (and cast to f32) one at a time; the full
+    array never enters host memory.  ``np.lib.format.open_memmap`` is the
+    matching writer.
+    """
+
+    def __init__(self, path: Union[str, os.PathLike]):
+        self._path = os.fspath(path)
+        try:
+            self._mm = np.load(self._path, mmap_mode="r")
+        except (OSError, ValueError) as e:
+            # ValueError covers a torn/garbled .npy header; OSError a
+            # missing/unreadable file or a body shorter than the header
+            # promises (mmap of the full extent fails up front)
+            raise DataSourceError(
+                f"{self._path}: cannot memmap .npy ({e}) — "
+                f"truncated or corrupt file?") from e
+        assert self._mm.ndim == 2, self._mm.shape
+
+    @property
+    def n_rows(self) -> int:
+        return self._mm.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self._mm.shape[1]
+
+    def iter_chunks(self, chunk_size: int = DEFAULT_CHUNK):
+        for lo in range(0, self.n_rows, chunk_size):
+            yield lo, np.asarray(self._mm[lo:lo + chunk_size], np.float32)
+
+    def gather(self, ids: np.ndarray) -> np.ndarray:
+        return np.asarray(self._mm[np.asarray(ids, np.int64)], np.float32)
 
 
 def _npz_member_shape(path: str, key: str):

@@ -13,9 +13,12 @@ chunks, every column-count instantiation of the predict kernel (P = 1..64)
 and banks wider than one 64-column block (P = 66, 130), and an empty SV
 table; for the attention kernels T = 1, T and S off the 64-row tile, GQA
 groups up to 8, head_dim 16 to 256, windows wider than T, S = 1, wrapped
-ring caches and int8 caches; B1 and B3 at the SVM head's d = 2048; and
+ring caches and int8 caches; B1 and B3 at the SVM head's d = 2048;
 greedy generation at the smoke configs through the kernels against the
-plain path.  This file imports no jax.
+plain path; for the nearest-center kernel (B6) a center table larger than
+shared memory, C and d off every tile, duplicated centers, one row and
+one center; for the one-shot Gram (B7) and the one-cell predict (B8) one
+row, SV counts off the tile and P = 1.  This file imports no jax.
 """
 from __future__ import annotations
 
@@ -381,3 +384,183 @@ def test_generate_through_kernels_equals_plain_path(cuda, arch, kv):
     assert n1[0] - n0[0] == cfg.n_layers
     assert n1[1] - n0[1] == cfg.n_layers * 11
     assert torch.equal(got, want)
+
+
+# ------------------------------ cell-construction slice: B6, B7 and B8
+from repro_torch.kernels.assign import ops as as_ops  # noqa: E402
+from repro_torch.kernels.assign import ref as as_ref  # noqa: E402
+from repro_torch.pipeline import assign as pl_assign  # noqa: E402
+
+
+def _assign_flips_within_bound(x, c, got, want):
+    """Rows whose owner differs between the kernel and the plain version
+    must be near-ties: if each computes D² within dd2 of the true value
+    (B1's 64 ulps of the largest |x|^2 + |c|^2), the kernel's center is
+    at most 2 dd2 farther than the plain version's, in exact (f64)
+    distances.  Returns the flip count."""
+    flips = torch.nonzero(got != want).flatten()
+    if flips.numel():
+        xf = x[flips].double()
+        near = ((xf - c[got[flips].long()].double()) ** 2).sum(1)
+        plain = ((xf - c[want[flips].long()].double()) ** 2).sum(1)
+        dd2 = 64 * EPS * float((x * x).sum(1).max() + (c * c).sum(1).max())
+        assert float((near - plain).max()) <= 2 * dd2
+    return int(flips.numel())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c,d", [(1, 1, 1), (1, 300, 54), (4097, 1, 3),
+                                   (777, 67, 19), (2000, 5500, 28),
+                                   (65536, 291, 54), (130, 64, 32)])
+def test_assign_kernel_matches_plain(cuda, n, c, d):
+    """C and d off every tile, one row, one center, and a center table of
+    5500 x 28 (616 KB) larger than a block's shared memory."""
+    gen = torch.Generator().manual_seed(n + c + d)
+    x = _rand(gen, n, d, scale=2.0).to(cuda)
+    cen = x[torch.randint(0, n, (c,), generator=gen).to(cuda)] + _rand(
+        gen, c, d, scale=0.5).to(cuda)
+    before = as_ops.launches["assign"]
+    got = as_ops.assign(x, cen)
+    want = as_ref.assign_ref(x, cen)
+    torch.cuda.synchronize()
+    assert as_ops.launches["assign"] == before + 1
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    assert int(got.min()) >= 0 and int(got.max()) < c
+    flips = _assign_flips_within_bound(x, cen, got, want)
+    assert flips <= max(1, n // 1000)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [5, 54])
+def test_assign_kernel_duplicated_centers_lowest_index_wins(cuda, d):
+    gen = torch.Generator().manual_seed(d)
+    base = _rand(gen, 70, d, scale=3.0)
+    cen = torch.cat([base, base.flip(0), base]).to(cuda)  # 3 copies, 210 rows
+    x = torch.cat([base, base + _rand(gen, 70, d, scale=0.1),
+                   _rand(gen, 500, d, scale=3.0)]).to(cuda)
+    got = as_ops.assign(x, cen)
+    want = as_ref.assign_ref(x, cen)
+    torch.cuda.synchronize()
+    assert int(got.max()) < 70                    # the first copy always wins
+    assert torch.equal(got[:70].cpu(), torch.arange(70, dtype=torch.int32))
+    _assign_flips_within_bound(x, cen, got, want)
+
+
+@pytest.mark.gpu
+def test_assign_stream_and_lloyd_on_the_card(cuda):
+    """The device backends against the host's numpy over a chunk source:
+    owners within the flip bound; one launch per chunk and sweep."""
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(5000, 9)).astype(np.float32)
+    init = x[rng.choice(5000, 40, replace=False)]
+    want = pl_assign.assign_stream(x, init, chunk_size=1024)
+    xt, ct = torch.as_tensor(x).to(cuda), torch.as_tensor(init).to(cuda)
+    for backend in ("torch", "kernel"):
+        before = as_ops.launches["assign"]
+        got = pl_assign.assign_stream(x, init, chunk_size=1024,
+                                      backend=backend)
+        n_launch = as_ops.launches["assign"] - before
+        assert n_launch == (5 if backend == "kernel" else 0)
+        _assign_flips_within_bound(xt, ct, torch.as_tensor(got).to(cuda),
+                                   torch.as_tensor(want).to(cuda))
+    before = as_ops.launches["assign"]
+    swept = pl_assign.lloyd_stream(x, init, 2, chunk_size=1024,
+                                   backend="kernel")
+    assert as_ops.launches["assign"] - before == 2 * 5
+    host = pl_assign.lloyd_stream(x, init, 2, chunk_size=1024)
+    assert swept.shape == host.shape and np.isfinite(swept).all()
+    assert np.abs(swept - host).max() <= 1e-3 * np.abs(host).max()
+
+
+@pytest.mark.gpu
+def test_minibatch_kmeans_on_the_card_is_deterministic(cuda):
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(3000, 7)).astype(np.float32)
+    a = pl_assign.minibatch_kmeans(x, 16, iters=10, batch_size=512, seed=2)
+    b = pl_assign.minibatch_kmeans(x, 16, iters=10, batch_size=512, seed=2)
+    assert np.array_equal(a, b)
+    host = pl_assign.minibatch_kmeans(x, 16, iters=10, batch_size=512,
+                                      seed=2, device="cpu")
+    assert np.abs(a - host).max() <= 1e-3 * np.abs(host).max()
+
+
+def _gram_bound(x, z, gamma, kind):
+    """What a D² error within B1's tolerance (64 ulps of the largest
+    |x|^2 + |z|^2) can do to each kernel value, plus 8 ulps of 1."""
+    dd2 = 64 * EPS * float((x * x).sum(-1).max() + (z * z).sum(-1).max())
+    d2 = km_ref.sq_dists_ref(x, z)
+    kk = km_ref.gram_from_d2_ref(d2, gamma, kind)
+    if kind == "gauss_rbf":
+        rel = np.expm1(dd2 / max(gamma * gamma, 1e-12))
+    else:
+        root = torch.sqrt(d2 + 1e-12)
+        rel = torch.expm1(torch.clamp(dd2 / (2.0 * root), max=dd2 ** 0.5)
+                          / max(gamma, 1e-12))
+    return kk * rel + 8 * EPS
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["gauss_rbf", "laplacian"])
+@pytest.mark.parametrize("n,m,d", [(1, 130, 3), (300, 257, 54),
+                                   (2048, 2048, 54), (9, 1, 1)])
+def test_gram_kernel_matches_plain(cuda, kind, n, m, d):
+    gen = torch.Generator().manual_seed(n + m + d)
+    x = _rand(gen, n, d).to(cuda)
+    z = _rand(gen, m, d).to(cuda)
+    gamma = 0.7 * d ** 0.5
+    before = km_ops.launches["gram"]
+    got = km_ops.kernel_matrix(x, z, gamma, kind=kind)
+    want = km_ref.kernel_matrix_ref(x, z, gamma, kind)
+    torch.cuda.synchronize()
+    assert km_ops.launches["gram"] == before + 1
+    assert got.shape == (n, m)
+    assert bool(((got - want).abs() <= _gram_bound(x, z, gamma, kind)).all())
+    # one pass computes what B1 then B2 compute, value for value
+    two = km_ops.gram_from_d2(km_ops.sq_dists(x, z), gamma, kind=kind)
+    assert torch.equal(got, two)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["gauss_rbf", "laplacian"])
+@pytest.mark.parametrize("nt,ns,d,p", [(1, 130, 3, 1), (300, 257, 54, 7),
+                                       (77, 2048, 54, None), (8, 1, 5, 3),
+                                       (19, 600, 28, 70)])
+def test_svm_predict_kernel_matches_plain(cuda, kind, nt, ns, d, p):
+    """One row, ns off the 256-row SV tile, P = 1, 1-D coefs, and more
+    than one 64-column block."""
+    gen = torch.Generator().manual_seed(nt + ns + d)
+    x = _rand(gen, nt, d).to(cuda)
+    sv = _rand(gen, ns, d).to(cuda)
+    co = _rand(gen, *((ns,) if p is None else (ns, p))).to(cuda)
+    gamma = 0.7 * d ** 0.5
+    before = dict(sp_ops.launches)
+    got = sp_ops.svm_predict(x, sv, co, gamma, kind=kind)
+    want = sp_ref.svm_predict_ref(x, sv, co, gamma, kind)
+    torch.cuda.synchronize()
+    assert sp_ops.launches["svm_predict"] == before["svm_predict"] + 1
+    assert sp_ops.launches["svm_predict_cells"] == before["svm_predict_cells"]
+    if p is None:
+        want = want[:, 0]
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-4 * max(
+        1.0, float(want.abs().max()))
+    if p is not None:      # 1-D coefs give the 2-D call's column, bitwise
+        one = sp_ops.svm_predict(x, sv, co[:, 0].contiguous(), gamma,
+                                 kind=kind)
+        if p <= 8:         # one kernel instantiation for P <= 8
+            assert torch.equal(one, got[:, 0])
+
+
+@pytest.mark.gpu
+def test_cell_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.ones(8, 4, device=cuda)
+    with pytest.raises(ValueError):
+        as_ops.assign(x, x.cpu())
+    with pytest.raises(ValueError):
+        as_ops.assign(x.t().contiguous().t(), x)
+    with pytest.raises(ValueError):
+        as_ops.assign(x, x[:0])
+    with pytest.raises(TypeError):
+        km_ops.kernel_matrix(x, x.double(), 1.0)
+    with pytest.raises(ValueError):
+        sp_ops.svm_predict(x, x, torch.ones(8, 2), 1.0)

@@ -21,6 +21,14 @@ at these shapes (C=3, m=20, k=72, d=7, P=6, seed 0):
   * B1 symmetric: the reference's Pallas kernel (interpret mode) mirrors
     one triangle, its oracle averages D and D^T; the port's plain version
     averages as the oracle does.  Tolerance: B1's 8 ulps of the largest D².
+  * B7 ``kernel_matrix`` (one-shot Gram, d 3 to 54, ragged n and m): the
+    port differs from the Pallas kernel and the oracle by at most 3.5 f32
+    ulps of K <= 1; the reference's own gap is up to 0.06 ulp.
+    Tolerance: 8 ulps of 1.0.
+  * B8 ``svm_predict`` (one cell, one gamma; P = 1, 6 and 1-D coefs): the
+    port differs by at most 5.4e-7 times the largest |decision| (or 1);
+    the reference's own gap is up to 7.7e-7.  Tolerance: B3's 1e-5 times
+    the largest |decision| (or 1).
   * B4/B5: the reference's Pallas CD kernels no longer run on this jax
     (ROADMAP C1); their parity with the jnp oracles is in
     ``tests/test_torch_train.py::TestCD``.  Here: dispatch and checks.
@@ -204,6 +212,101 @@ class TestSqDistsSymmetric:
             tk_ops.sq_dists(x, x[:5], symmetric=True)
 
 
+KM_SHAPES = [(20, 72, 7), (1, 130, 3), (129, 1, 54), (33, 257, 19)]
+
+
+class TestKernelMatrix:
+    @pytest.mark.parametrize("kind", ["gauss_rbf", "laplacian"])
+    @pytest.mark.parametrize("n,m,d", KM_SHAPES)
+    def test_matches_pallas_and_oracle(self, n, m, d, kind):
+        rng = np.random.default_rng(n * 1000 + m)
+        x = rng.normal(size=(n, d)).astype(np.float32)
+        z = rng.normal(size=(m, d)).astype(np.float32)
+        gamma = float(rng.uniform(0.8, 3.0)) * np.sqrt(d / 7)
+        pal = np.asarray(jk_ops.kernel_matrix(jnp.asarray(x), jnp.asarray(z),
+                                              gamma, kind=kind,
+                                              force_pallas=True))
+        orc = np.asarray(jk_ref.kernel_matrix_ref(jnp.asarray(x),
+                                                  jnp.asarray(z), gamma,
+                                                  kind))
+        before = dict(tk_ops.launches)
+        got = tk_ops.kernel_matrix(_t(x), _t(z), gamma, kind=kind)
+        assert tk_ops.launches == before        # the CPU runs no kernel
+        assert got.shape == (n, m) and got.dtype == torch.float32
+        assert np.abs(_np(got) - pal).max() <= 8 * EPS
+        assert np.abs(_np(got) - orc).max() <= 8 * EPS
+
+    @pytest.mark.parametrize("kind", ["gauss_rbf", "laplacian"])
+    def test_equals_epilogue_over_d2(self, inputs, kind):
+        """One pass computes what B1 then B2 compute, value for value."""
+        x, z = _t(inputs["xt"][0]), _t(inputs["sv"][0])
+        got = tk_ops.kernel_matrix(x, z, torch.tensor(1.3), kind=kind)
+        want = tk_ops.gram_from_d2(tk_ops.sq_dists(x, z), 1.3, kind=kind)
+        assert torch.equal(got, want)
+
+    def test_rejects_bad_operands(self, inputs):
+        x = _t(inputs["xt"][0])
+        with pytest.raises(ValueError):
+            tk_ops.kernel_matrix(x, x[:, :3], 1.0)
+        with pytest.raises(ValueError):
+            tk_ops.kernel_matrix(x, x, 1.0, kind="poly")
+        with pytest.raises(ValueError):
+            tk_ops.kernel_matrix(x[None], x[None], 1.0)
+        with pytest.raises(TypeError):
+            tk_ops.kernel_matrix(x.double(), x.double(), 1.0)
+
+
+class TestSvmPredict:
+    @pytest.mark.parametrize("kind", ["gauss_rbf", "laplacian"])
+    @pytest.mark.parametrize("p", [1, 6, None])
+    @pytest.mark.parametrize("nt,ns,d", [(20, 72, 7), (1, 130, 3),
+                                         (129, 1, 54)])
+    def test_matches_pallas_and_oracle(self, nt, ns, d, p, kind):
+        rng = np.random.default_rng(nt * 1000 + ns)
+        x = rng.normal(size=(nt, d)).astype(np.float32)
+        sv = rng.normal(size=(ns, d)).astype(np.float32)
+        co = rng.normal(size=(ns,) if p is None else (ns, p)).astype(
+            np.float32)
+        gamma = 1.7
+        j = [jnp.asarray(a) for a in (x, sv, co)]
+        pal = np.asarray(js_ops.svm_predict(*j, gamma, kind=kind,
+                                            force_pallas=True))
+        orc = np.asarray(js_ops.svm_predict(*j, gamma, kind=kind))
+        before = dict(ts_ops.launches)
+        got = _np(ts_ops.svm_predict(_t(x), _t(sv), _t(co), gamma,
+                                     kind=kind))
+        assert ts_ops.launches == before        # the CPU runs no kernel
+        assert got.shape == pal.shape == ((nt,) if p is None else (nt, p))
+        tol = 1e-5 * max(1.0, float(np.abs(orc).max()))
+        assert np.abs(got - pal).max() <= tol
+        assert np.abs(got - orc).max() <= tol
+
+    def test_one_cell_of_the_multi_cell_entry(self, inputs):
+        """B8 is B3 at one cell with one gamma in every column; 1-D coefs
+        give the first column of the 2-D call."""
+        xt, sv, co = (_t(inputs[n][1]) for n in ("xt", "sv", "co"))
+        got = ts_ops.svm_predict(xt, sv, co, 0.9)
+        cells = ts_ops.svm_predict_cells(xt[None], sv[None], co[None],
+                                         torch.full((1, P), 0.9))[0]
+        np.testing.assert_allclose(_np(got), _np(cells),
+                                   atol=1e-5 * float(cells.abs().max()))
+        one = ts_ops.svm_predict(xt, sv, co[:, 0].contiguous(), 0.9)
+        assert one.shape == (M,)
+        np.testing.assert_allclose(_np(one), _np(got[:, 0]),
+                                   atol=1e-5 * float(got.abs().max()))
+
+    def test_rejects_mismatched_shapes(self, inputs):
+        xt, sv, co = (_t(inputs[n][0]) for n in ("xt", "sv", "co"))
+        with pytest.raises(ValueError):
+            ts_ops.svm_predict(xt, sv[:5], co, 1.0)
+        with pytest.raises(ValueError):
+            ts_ops.svm_predict(xt, sv[:, :3], co, 1.0)
+        with pytest.raises(ValueError):
+            ts_ops.svm_predict(xt, sv, co[None], 1.0)
+        with pytest.raises(ValueError):
+            ts_ops.svm_predict(xt, sv, co, 1.0, kind="poly")
+
+
 class TestCDWrappers:
     def _problem(self, s=2, f=3, n=12, p=4):
         rng = np.random.default_rng(5)
@@ -280,6 +383,10 @@ class TestNoSilentCpuFallback:
                                      torch.empty((2, 2), device="meta"))
         with pytest.raises(ValueError):
             tk_ops.sq_dists(x, x, symmetric=True)
+        with pytest.raises(ValueError):
+            tk_ops.kernel_matrix(x[0], x[0], 1.0)
+        with pytest.raises(ValueError):
+            ts_ops.svm_predict(x[0], x[0], co[0], 1.0)
         k = torch.empty((2, 4, 4), device="meta")
         c = torch.empty((2, 1, 4, 3), device="meta")
         with pytest.raises(ValueError):
