@@ -7,7 +7,9 @@ cell-construction paths.
 Needs one CUDA card and the CUDA toolkit (``nvcc``); builds the port's
 kernels from ``src/repro_torch/csrc/`` into ``build/kernels/`` and then:
 
-  1. prints the card (``nvidia-smi`` name and power limit) and the build;
+  1. prints the card (``nvidia-smi`` name and power limit) and the build,
+     and requires HGMMA (``wgmma``) instructions in the SASS of B9's
+     library (``cuobjdump`` from the CUDA toolkit);
   2. holds each kernel against its plain PyTorch version on the card at
      the serving wave's shapes (B2 also with bf16 in and out and with the
      Laplacian kernel, B3 also Laplacian and at 70 columns, more than one
@@ -61,7 +63,8 @@ kernels from ``src/repro_torch/csrc/`` into ``build/kernels/`` and then:
      ``svm_predict`` (B8) with its test error;
   8. times each kernel at the main path's shapes beside its plain version,
      its bound from bytes and operations, and a one-call PyTorch yardstick
-     where one exists (B9 and B10 also at one long context each); prints
+     where one exists (B9 and B10 also at one long context each, B2 also
+     at the training gamma step: 16 slots of 1824^2, one gamma); prints
      one JSON line per phase, the kernel table, and last
      ``{"ok": true, "device": {...}}``.
 
@@ -718,12 +721,26 @@ def fista_profile(torch, prob):
 # ------------------------------------------------------------ LM slice
 def attn_tol(want) -> float:
     """Kernel vs plain attention on one card: f32 sums of the same products
-    in another order, 2e-5 on values ~1; in bf16 both sides then round the
-    output once, which may land one bf16 ulp (2^-7 relative) apart."""
+    in another order, 2e-5 on values ~1.  In bf16 the kernel also rounds P
+    to bf16 before P V (at most 2^-8 of each p), and both sides round the
+    output once, which may land one bf16 ulp (2^-7 relative) apart: one
+    bound for the whole tensor, scaled by its largest value
+    (``attn_err_bound`` holds each value to its own share)."""
     import torch
     if want.dtype == torch.bfloat16:
         return 2.0 ** -7 * max(1.0, float(want.float().abs().max()))
     return 2e-5 * max(1.0, float(want.abs().max()))
+
+
+def attn_err_bound(fa_ref, q, k, v, kind: str, win: int, want):
+    """Elementwise bound on |bf16 kernel - plain| for one output value o =
+    sum_j p_j v_j / l: the two output roundings, 2^-8 |o| each, and P
+    rounded to bf16, 2^-8 p_j each, which moves o by at most 2^-8 A with
+    A = sum_j p_j |v_j| / l (the plain attention of |v|, in f32); 2^-14 A
+    covers the f32 sums' order and ex2.approx."""
+    a = fa_ref.flash_attention_ref(q.float(), k.float(), v.float().abs(),
+                                   kind, win)
+    return 2.0 ** -7 * want.float().abs() + (2.0 ** -8 + 2.0 ** -14) * a
 
 
 def lm_kernel_checks(torch, dev, cfg):
@@ -753,10 +770,14 @@ def lm_kernel_checks(torch, dev, cfg):
         got = fa_ops.flash_attention(q, k, v, kind, win)
         want = fa_ref.flash_attention_ref(q, k, v, kind, win)
         torch.cuda.synchronize()
-        e = check(f"flash_attention[{kind},w={win},B={b},T={t},S={s},H={h},"
-                  f"Hk={hk},D={d},{str(dt)[6:]}]",
-                  float((got.float() - want.float()).abs().max()),
+        label = (f"flash_attention[{kind},w={win},B={b},T={t},S={s},H={h},"
+                 f"Hk={hk},D={d},{str(dt)[6:]}]")
+        e = check(label, float((got.float() - want.float()).abs().max()),
                   attn_tol(want))
+        if dt == bf16:
+            check_bound(label + "[elementwise]", got.float().cpu(),
+                        want.float().cpu(),
+                        attn_err_bound(fa_ref, q, k, v, kind, win, want).cpu())
         if i == 0:
             errs["flash_attention"] = e
     for i, (b, s, hk, g, d, quant, pos, win) in enumerate((
@@ -1576,6 +1597,25 @@ def one_cell_model(torch, dev, x: np.ndarray, y: np.ndarray, tables):
     return counts
 
 
+def sass_check(logs: dict) -> int:
+    """B9's bf16 kernel must run its products on the tensor cores: the
+    built library's SASS (``cuobjdump`` from the CUDA toolkit) holds
+    HGMMA instructions, the machine code of ``wgmma``."""
+    from repro_torch.kernels import runtime
+    exe = Path(runtime.nvcc()).parent / "cuobjdump"
+    lib = runtime.BUILD_DIR / "libflash_attention.so"
+    sass = subprocess.run([str(exe), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    n = sum(line.count("HGMMA") for line in sass.splitlines())
+    emit({"phase": "sass_check", "library": lib.name, "hgmma": n,
+          "build_s": {k: v["seconds"] for k, v in logs.items()},
+          "ok": n > 0})
+    if n == 0:
+        raise Mismatch("flash_attention: no HGMMA in the SASS of the bf16 "
+                       "kernel")
+    return n
+
+
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     """Device ms per call: the calls are enqueued while the card runs a
     ~10 ms sleep kernel, so the events time the card's work and not the
@@ -1667,6 +1707,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s,
           "per_source_s": {k: v["seconds"] for k, v in logs.items()},
           "ptxas": ptxas})
+    sass_check(logs)
 
     full, obank, queries, q_overlap = make_bank_and_traffic(ModelBank)
     emit({"phase": "bank", "full": full.stats(), "overlap": obank.stats(),
@@ -1845,6 +1886,24 @@ def main() -> int:
           "wave_device_ms": wave_dev_ms, "sv_gather_ms": gather_ms,
           "device_busy_share": wave_dev_ms * n_waves / (secs * 1e3),
           "request_ms_q": st.get("request_ms_q")})
+    # the unfused engine (B1, then B2 once per column) and one sweep of the
+    # last wave over N_SWEEP gammas (B2 once per gamma), timed the same way
+    eng_u = SVMEngine(full, device=dev, fused=False)
+    serve(eng_u, queries)                      # warm the shapes
+    eng_u.sweep_gammas(sweep_g)
+    eng_u = SVMEngine(full, device=dev, fused=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve(eng_u, queries)
+    torch.cuda.synchronize()
+    secs_u = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng_u.sweep_gammas(sweep_g)
+    torch.cuda.synchronize()
+    emit({"phase": "serve_time_unfused", "requests": N_REQ,
+          "seconds": secs_u, "requests_per_s": N_REQ / secs_u,
+          "sweep_gammas": N_SWEEP,
+          "sweep_ms": (time.perf_counter() - t0) * 1e3})
 
     # ------------------------------------------------------- 5. training
     x_tr, y_tr = covtype_like(n=TRAIN_N, d=DIM, n_classes=N_CLASSES,
@@ -2007,12 +2066,36 @@ def main() -> int:
             "plain_ms": cuda_ms(torch, plain, **reps), "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": None if lib is None else cuda_ms(torch, lib)})
+    # B2 at the training gamma step: one gamma per slot over the wave's D²
+    gam_t = torch.sqrt(d2_t.mean((1, 2)))[:, None].contiguous()
+    neg_t = (-(d2_t[:, None] / torch.clamp(gam_t * gam_t, min=1e-12)
+               [:, :, None, None])).contiguous()
+    b2_train = bound(f32 * (2 * d2_t.numel() + s_t), 4 * d2_t.numel())
+    got = km_ops.gram_from_d2(d2_t, gam_t)
+    want = km_ref.gram_from_d2_ref(d2_t[:, None], gam_t[:, :, None, None])
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    emit({"phase": "check", "name": "gram_from_d2[train: %d x %d^2, G 1]"
+          % (s_t, n_t), "max_abs_err": float((got - want).abs().max()),
+          "tol": 0.0, "equal": same, "ok": same})
+    if not same:
+        raise Mismatch("gram_from_d2 at the training gamma step: not "
+                       "bitwise equal to its plain version")
+    del got, want
+    train_rows = [{
+        "name": "gram_from_d2[train: %d x %d^2, G 1]" % (s_t, n_t),
+        "ms": cuda_ms(torch, lambda: km_ops.gram_from_d2(d2_t, gam_t)),
+        "plain_ms": cuda_ms(torch, lambda: km_ref.gram_from_d2_ref(
+            d2_t[:, None], gam_t[:, :, None, None])),
+        "bound_ms": b2_train[0], "bound_by": b2_train[1],
+        "library_ms": cuda_ms(torch, lambda: torch.exp(neg_t))}]
+    del neg_t
     emit({"phase": "lm_kernel_times", "rows": lm_rows,
           "library": "torch.nn.functional.scaled_dot_product_attention",
           "card": smi.splitlines()[0]})
     emit({"phase": "cell_kernel_times", "rows": cell_rows,
           "card": smi.splitlines()[0]})
-    emit({"phase": "kernel_times", "shapes": shapes,
+    emit({"phase": "kernel_times", "shapes": shapes, "rows": train_rows,
           "train_shapes": {"slots": s_t, "folds": f_t, "k": n_t, "d": DIM,
                            "P": p_t},
           "lm_shapes": {"flash_attention": [LM_BATCH, LM_SEQ, lm_cfg.n_heads,

@@ -4,26 +4,71 @@
 // in src/repro/kernels/flash_attention/flash_attention.py: online-softmax
 // attention, causal / sliding-window / bidirectional, q rows offset by
 // S - T so the last query row attends to the last kv row, f32 softmax and
-// accumulation, output in q's type.
+// accumulation, output in q's type.  Two kernels, chosen by the type:
+//
+// bf16 (flash_fwd_tc_kernel): the LM path's kernel, on the tensor cores.
 //   Bound on the H100: at the LM path's prefill shapes (T = S = 256,
-//   head_dim 64) the operations per byte are ~128 / 2 = 64 (each q, k, v
-//   element is used by ~T/2 pairs), far below the bf16 tensor-core ridge
-//   (~295 per byte), so the floor is the q, k, v, o traffic; this first
-//   version runs its two products as fp32 FMAs on the CUDA cores (67
-//   TFLOP/s peak), which makes the FMAs, not the bytes, its limit.
-//   Design, and where it differs from the TPU grid:
-//   * The TPU grid walks the kv axis sequentially with m, l and the
-//     accumulator in VMEM scratch.  Here one block owns (batch, query head,
-//     64 query rows) and loops over 64-row kv tiles itself, keeping m, l
-//     and the accumulator in registers; blocks share nothing, no atomics.
-//   * The public layouts q (B, T, H, D) and k, v (B, S, Hk, D) are read as
-//     they are: no transpose, no repeat of kv heads (query head h reads kv
-//     head h / (H / Hk)), no padding of D to 128 lanes; D is 16 (the smoke
-//     configs), 64 (stablelm), 128 or 256 (gemma3).  T and S need not
-//     be multiples of the tile: rows past T are neither read nor stored,
-//     kv rows past S are zero-filled and masked.
-//   * Tiles wholly hidden by the causal or window mask are never loaded:
-//     the kv loop runs only over the columns some row of the block sees.
+//   head_dim 64) each q, k, v element is used by ~T/2 pairs, ~64
+//   operations per byte, below the bf16 tensor-core ridge (~295 per
+//   byte): the floor is the q, k, v, o traffic.  At T = S = 4096 it is
+//   ~1000 operations per byte: the tensor cores' rate.
+//   Design:
+//   * One warpgroup (128 threads) owns (batch, query head, 64 query rows)
+//     and loops over kv tiles of BK rows; blocks share nothing, no
+//     atomics.  The grid runs the heads fastest: blocks that run together
+//     read the same kv rows of neighbouring heads (adjacent in the (B, S,
+//     Hk, D) layout; at B = 1 this ran markedly faster than q tiles
+//     first); the q tiles go last-first, so the blocks with the most kv
+//     tiles start first.
+//   * S = Q K^T is wgmma m64nBKk16 (bf16 x bf16 -> f32) with both operands
+//     in shared memory: Q stays resident for the whole kv loop, K tiles
+//     come from a ring.  O += P V is a second wgmma, m64nDk16, with A = P
+//     from registers and B = V from shared memory read MN-major (no
+//     transpose in memory).  O is accumulated in f32 registers.
+//   * P is rounded to bf16 in registers before P V, as the TPU kernel's
+//     jax.lax.dot(p, v) does on the MXU at jax's default precision (one
+//     bf16 pass): at most 2^-8 relative per p (bf16's unit roundoff); l sums
+//     the f32 p.
+//   * Online softmax in f32 on the accumulator fragment's own layout: a
+//     thread holds two rows, each row's max and sum are xor-shuffles over
+//     the 4 threads that share it.  Logits are scaled into the log2
+//     domain and exponentiated by ex2.approx (one special-function op
+//     where expf takes ~10 instructions): the softmax, not the tensor
+//     cores, sets this kernel's pace.  A tile that every row of the block
+//     sees whole is not masked.  The reference's constants: masked logits
+//     -1e30, l clamped at 1e-30, IEEE division by l; a row that has seen
+//     no visible column yet keeps p = 0.
+//   * q, k, v reach shared memory by TMA (cp.async.bulk.tensor.3d, tensor
+//     maps built per call through cudaGetDriverEntryPoint, so nothing
+//     links libcuda) in 64-column panels with the 128-byte swizzle that
+//     the wgmma descriptors name (D = 16: one 16-column panel, 32-byte
+//     swizzle).  The maps view q as (B, T, H * D) and k, v as (B, S,
+//     Hk * D) with a box of (1, rows, 64): the public layouts are read in
+//     place, query head h reads kv head h / (H / Hk), and rows past T or
+//     S are zero-filled by TMA (S is a dimension of its own, so batch b's
+//     tail is never batch b + 1's head).  K and V share a ring of 2
+//     stages with one mbarrier each; the tile two ahead is loaded while
+//     this one is computed, and several blocks share an SM.
+//   * Tiles wholly hidden by the causal or window mask are never loaded.
+//   * The output goes through shared memory (the Q region, 16-byte chunks
+//     XOR-swizzled by row) and is stored in 16-byte rows; rows past T are
+//     never stored.
+//   Per head_dim (nvcc -Xptxas -v: no spills at any D): BK 64 at D <= 128
+//   (shared 8 / 16 KB of Q + 2 x 2 x 8 / 16 KB, 92 / 129 registers: 5 / 2
+//   blocks an SM; D = 16: 68 registers) and BK 32 at D = 256 (32 + 2 x 2 x
+//   16 KB = 96 KB, 170 registers, 2 blocks an SM; O alone is 128 f32
+//   registers a thread).  Tried and slower on the card (PERF.md):
+//   BK 32 or 3 stages at D = 64, 2 warpgroups sharing the ring, and
+//   issuing the next tile's S before this tile's softmax.
+//
+// f32 (flash_fwd_kernel): the f32 smoke configs' kernel, fp32 FMAs on the
+//   CUDA cores, where the products must not round to bf16 or TF32.
+//   * One block owns (batch, query head, 64 query rows) and loops over
+//     64-row kv tiles itself, keeping m, l and the accumulator in
+//     registers; the public layouts are read as they are; T and S need
+//     not be multiples of the tile: rows past T are neither read nor
+//     stored, kv rows past S are zero-filled and masked; tiles wholly
+//     hidden by the mask are never loaded.
 //   * Each of the 256 threads holds a 4 x 4 block of the 64 x 64 score
 //     tile (rows ty + 16 i, columns tx + 16 j); the row max and sum are
 //     xor-shuffles over the 16 threads of a row.  Shared rows are padded
@@ -31,8 +76,8 @@
 //     conflicts.  Shared memory holds q, k, v in f32 plus the
 //     probabilities: 212 KB at D = 256, one block per SM there.
 //   Masking uses the reference's constants (masked logits -1e30, l
-//   clamped at 1e-30); expf and IEEE division, no fast math.  Untried:
-//   bf16 tensor-core products (wgmma) with TMA-fed tiles.
+//   clamped at 1e-30); expf and IEEE division, no fast math.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,6 +85,7 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+constexpr float SEEN = -1e20f;  // a running max above this came from a visible logit
 constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // kv rows per tile
 constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 scores each
@@ -49,17 +95,6 @@ template <typename T> struct VecN { static constexpr int N = 16 / sizeof(T); };
 
 __device__ __forceinline__ void load_vec(const float* src, float* dst) {
   *reinterpret_cast<float4*>(dst) = __ldg(reinterpret_cast<const float4*>(src));
-}
-
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* src, float* dst) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(src));
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(h2[j]);
-    dst[2 * j] = f.x;
-    dst[2 * j + 1] = f.y;
-  }
 }
 
 // W (1, 2 or 4) consecutive shared floats
@@ -80,12 +115,6 @@ template <int W>
 __device__ __forceinline__ void store_w(float* dst, const float* v) {
 #pragma unroll
   for (int e = 0; e < W; ++e) dst[e] = v[e];
-}
-
-template <int W>
-__device__ __forceinline__ void store_w(__nv_bfloat16* dst, const float* v) {
-#pragma unroll
-  for (int e = 0; e < W; ++e) dst[e] = __float2bfloat16_rn(v[e]);
 }
 
 // 64 rows [row0, row0 + 64) of one head into a (64, D + PAD) f32 tile;
@@ -260,14 +289,25 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
+// The shared-memory opt-in holds for the current device: set it once for
+// each device a launch function meets (bit d of *done), not at every call.
+template <typename K>
+cudaError_t smem_opt_in(K kernel, int bytes, unsigned long long* done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < 64 && ((*done >> dev) & 1ull))) return e;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess && dev < 64) *done |= 1ull << dev;
+  return e;
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Tq,
                    int S, int H, int Hk, int mask_kind, int window, float scale,
                    cudaStream_t stream) {
   const size_t smem = sizeof(float) * (3 * 64 * (D + PAD) + BQ * (BK + PAD));
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+  static unsigned long long opted_in = 0;
+  const cudaError_t e = smem_opt_in(flash_fwd_kernel<T, D>, (int)smem, &opted_in);
   if (e != cudaSuccess) return e;
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
@@ -289,11 +329,487 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void*
   }
 }
 
+// ------------------------------------------------------------------ bf16
+// the tensor-core kernel's tiling per head_dim
+template <int D>
+struct TcCfg {
+  static constexpr int BQ = 64;                    // query rows: one warpgroup
+  static constexpr int BK = D == 256 ? 32 : 64;    // kv rows per tile
+  static constexpr int PW = D < 64 ? D : 64;       // panel width (columns)
+  static constexpr int ROWB = PW * 2;              // bytes of a panel row
+  static constexpr int NS = 2;                     // ring stages
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;      // one K or one V tile
+  static constexpr int LAYOUT = PW == 64 ? 1 : 3;  // descriptor swizzle: 128 B, 32 B
+  static constexpr int SMEM = Q_BYTES + NS * 2 * KV_BYTES + 8 * (NS + 1) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// spins until the phase with the given parity has completed; a copy that
+// never lands (a fault) traps after ~10 s instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  do {
+    if (clock64() - t0 > 20000000000LL) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle layout (1: 128 B, 3: 32 B)
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              int layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving register reads or writes across the
+// asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// D (64 x N f32, N / 2 registers a thread) [+]= A (64 x 16) B (16 x N).
+// ss: A and B K-major in shared memory (scale_d 0 overwrites D);
+// rs: A from registers (the m16n8k16 A fragment of each warp's 16 rows),
+// B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (N == 32) wgmma_ss_n32(d, da, db, scale_d);
+  else wgmma_ss_n64(d, da, db, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
+  if constexpr (N == 16) wgmma_rs_n16(d, a, db);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  else wgmma_rs_n256(d, a, db);
+}
+
+// 2^x on the special-function unit (relative error ~2^-22, far below the
+// bf16 rounding of P that follows)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+template <int D>
+__device__ __forceinline__ void issue_kv(const CUtensorMap* kmap, const CUtensorMap* vmap,
+                                         uint32_t kdst, uint32_t bar, int hk, int c0, int b) {
+  using C = TcCfg<D>;
+  mbar_expect_tx(bar, 2 * C::KV_BYTES);
+#pragma unroll
+  for (int p = 0; p < D / C::PW; ++p) {
+    tma_load_3d(kdst + p * C::BK * C::ROWB, kmap, bar, hk * D + p * C::PW, c0, b);
+    tma_load_3d(kdst + C::KV_BYTES + p * C::BK * C::ROWB, vmap, bar, hk * D + p * C::PW, c0, b);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(128, 1)
+flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
+                    int Tq, int S, int H, int Hk, int mask_kind, int window, float scale) {
+  using C = TcCfg<D>;
+  constexpr int BK = C::BK;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms are 1024-byte aligned
+  uint8_t* gbase = smem_raw + (base - raw);
+  const uint32_t q_s = base;
+  const uint32_t kv_s = base + C::Q_BYTES;  // stage s: K at + 2 s KV_BYTES, V after it
+  const uint32_t bars = kv_s + C::NS * 2 * C::KV_BYTES;  // q, then one per stage
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.z, h = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::BQ;
+  const int hk = h / (H / Hk);
+  const int off = S - Tq;  // real row coordinate of query t is t + off
+
+  // the kv columns some row of this block can see
+  int lo = 0, hi = S - 1;
+  if (mask_kind != 2) {
+    hi = min(hi, min(q0 + C::BQ, Tq) - 1 + off);
+    if (mask_kind == 1) lo = max(0, q0 + off - window + 1);
+  }
+  const int c_first = (lo / BK) * BK;
+  const int n_tiles = hi >= c_first ? (hi - c_first) / BK + 1 : 0;
+
+  if (tid == 0) {  // the first copies are in flight before the block syncs
+#pragma unroll
+    for (int i = 0; i <= C::NS; ++i) mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(bars, C::Q_BYTES);
+#pragma unroll
+    for (int p = 0; p < D / C::PW; ++p)
+      tma_load_3d(q_s + p * C::BQ * C::ROWB, &qmap, bars, h * D + p * C::PW, q0, b);
+    for (int j = 0; j < C::NS && j < n_tiles; ++j)
+      issue_kv<D>(&kmap, &vmap, kv_s + j * 2 * C::KV_BYTES, bars + 8 * (j + 1), hk,
+                  c_first + j * BK, b);
+  }
+  __syncthreads();  // the barriers are initialised
+
+  // fragment coordinates: this thread's rows r_loc and r_loc + 8 of the
+  // tile; value e of a 64 x N fragment sits in column 8 (e / 4) + cq + e % 2
+  // of row r_loc + 8 ((e / 2) % 2)
+  const int r_loc = warp * 16 + (lane >> 2);
+  const int cq = (lane & 3) * 2;
+  const int row0 = q0 + r_loc + off, row1 = row0 + 8;
+  // the columns rows row0 and row1 see: [lo, hi]
+  const int lo0 = mask_kind == 1 ? row0 - window + 1 : 0;
+  const int lo1 = mask_kind == 1 ? row1 - window + 1 : 0;
+  const int hi0 = mask_kind == 2 ? S - 1 : min(row0, S - 1);
+  const int hi1 = mask_kind == 2 ? S - 1 : min(row1, S - 1);
+  const int r_first = q0 + off, r_last = q0 + C::BQ - 1 + off;
+  const float scale_log2 = scale * 1.4426950408889634f;  // e^(x s) = 2^(x s log2 e)
+  float acc[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+
+  mbar_wait(bars, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int stage = j % C::NS;
+    const int c0 = c_first + j * BK;
+    mbar_wait(bars + 8 * (stage + 1), (j / C::NS) & 1);
+    const uint32_t ks = kv_s + stage * 2 * C::KV_BYTES, vs = ks + C::KV_BYTES;
+
+    // S = Q K^T over D in steps of 16
+    float s[BK / 2];
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) s[e] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int p = kk * 16 / C::PW, byte = (kk * 16 % C::PW) * 2;
+      const uint64_t da = gmma_desc(q_s + p * C::BQ * C::ROWB + byte, 16, 8 * C::ROWB, C::LAYOUT);
+      const uint64_t db = gmma_desc(ks + p * BK * C::ROWB + byte, 16, 8 * C::ROWB, C::LAYOUT);
+      wgmma_ss<BK>(s, da, db, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // online softmax in the log2 domain: the row max over the raw logits
+    // (masked ones -1e30), then p = 2^(s * scale log2 e - m) in one FFMA
+    // and one ex2; a tile that every row of the block sees whole skips
+    // the mask
+    const bool whole = c0 + BK <= S && (mask_kind == 2 || (c0 + BK - 1 <= r_first &&
+                                                          (mask_kind != 1 || r_last - c0 < window)));
+    if (!whole) {
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        const int col = c0 + 8 * (e / 4) + cq + (e & 1);
+        const bool vis = (e & 2) ? (col >= lo1 && col <= hi1) : (col >= lo0 && col <= hi0);
+        s[e] = vis ? s[e] : NEG_INF;
+      }
+    }
+    float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      if (e & 2) mx1 = fmaxf(mx1, s[e]);
+      else mx0 = fmaxf(mx0, s[e]);
+    }
+#pragma unroll
+    for (int w = 1; w <= 2; w <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, w));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, w));
+    }
+    const float mn0 = fmaxf(m0, mx0 * scale_log2), mn1 = fmaxf(m1, mx1 * scale_log2);
+    const float a0 = exp2_approx(m0 - mn0), a1 = exp2_approx(m1 - mn1);
+    // a row that has seen no visible logit yet keeps p = 0 (its max is the
+    // masked value, which fmaf would not cancel exactly)
+    const float nb0 = mn0 > SEEN ? -mn0 : 0.f, nb1 = mn1 > SEEN ? -mn1 : 0.f;
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      const float pe = exp2_approx(fmaf(s[e], scale_log2, (e & 2) ? nb1 : nb0));
+      s[e] = pe;
+      if (e & 2) rs1 += pe;
+      else rs0 += pe;
+    }
+    uint32_t pa[BK / 4];  // P in bf16 as the A fragments of BK / 16 k-steps
+#pragma unroll
+    for (int i = 0; i < BK / 4; ++i) pa[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+#pragma unroll
+    for (int w = 1; w <= 2; w <<= 1) {
+      rs0 += __shfl_xor_sync(0xffffffffu, rs0, w);
+      rs1 += __shfl_xor_sync(0xffffffffu, rs1, w);
+    }
+    l0 = l0 * a0 + rs0;
+    l1 = l1 * a1 + rs1;
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) acc[e] *= (e & 2) ? a1 : a0;
+
+    // O += P V over the tile's kv rows in steps of 16
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t db = gmma_desc(vs + kk * 16 * C::ROWB, BK * C::ROWB, 8 * C::ROWB, C::LAYOUT);
+      wgmma_rs<D>(acc, pa + 4 * kk, db);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    fence_regs(pa);
+
+    __syncthreads();  // every warp is done with this stage
+    if (tid == 0 && j + C::NS < n_tiles)
+      issue_kv<D>(&kmap, &vmap, ks, bars + 8 * (stage + 1), hk, c0 + C::NS * BK, b);
+  }
+
+  // O / l through shared memory (the Q region): 16-byte chunk c of row r
+  // at r * 2D + 16 (c ^ (r % CH)), then 16-byte rows to device memory
+  constexpr int NCH = D / 8;  // 16-byte chunks a row
+  constexpr int CH = NCH < 8 ? NCH : 8;
+  __syncthreads();
+  const float il0 = fmaxf(l0, 1e-30f), il1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int e = 0; e < D / 2; e += 2) {
+    const int r = r_loc + ((e & 2) ? 8 : 0);
+    const float l = (e & 2) ? il1 : il0;
+    const int c = e / 4;
+    *reinterpret_cast<uint32_t*>(gbase + r * 2 * D + 16 * (c ^ (r % CH)) + 2 * cq) =
+        pack_bf16(acc[e] / l, acc[e + 1] / l);
+  }
+  __syncthreads();
+  for (int i = tid; i < C::BQ * NCH; i += 128) {
+    const int r = i / NCH, c = i % NCH, t = q0 + r;
+    if (t < Tq)
+      *reinterpret_cast<uint4*>(o + (((size_t)b * Tq + t) * H + h) * D + 8 * c) =
+          *reinterpret_cast<const uint4*>(gbase + r * 2 * D + 16 * (c ^ (r % CH)));
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// a bf16 (B, rows, width) tensor, boxes of (1, box_rows, box_w)
+bool make_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int B, int rows, int width,
+              int box_w, int box_rows, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)width * 2, (cuuint64_t)rows * width * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)box_w, (cuuint32_t)box_rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+             box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int B, int Tq, int S,
+                      int H, int Hk, int mask_kind, int window, float scale,
+                      cudaStream_t stream) {
+  using C = TcCfg<D>;
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const CUtensorMapSwizzle swz =
+      C::PW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
+  CUtensorMap qm, km, vm;
+  if (!make_map(enc, &qm, q, B, Tq, H * D, C::PW, C::BQ, swz) ||
+      !make_map(enc, &km, k, B, S, Hk * D, C::PW, C::BK, swz) ||
+      !make_map(enc, &vm, v, B, S, Hk * D, C::PW, C::BK, swz))
+    return cudaErrorInvalidValue;
+  static unsigned long long opted_in = 0;
+  const cudaError_t e = smem_opt_in(flash_fwd_tc_kernel<D>, C::SMEM, &opted_in);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(H, (Tq + C::BQ - 1) / C::BQ, B);
+  flash_fwd_tc_kernel<D><<<grid, 128, C::SMEM, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), Tq, S, H, Hk, mask_kind, window, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_tc(int D, const void* q, const void* k, const void* v, void* o, int B,
+                        int Tq, int S, int H, int Hk, int mask_kind, int window, float scale,
+                        cudaStream_t st) {
+  switch (D) {
+    case 16: return launch_tc<16>(q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
+    case 64: return launch_tc<64>(q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
+    case 128: return launch_tc<128>(q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
+    case 256: return launch_tc<256>(q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// q (B, T, H, D), k and v (B, S, Hk, D), o (B, T, H, D), all contiguous and
-// of one type (dtype 0: f32, 1: bf16); mask_kind 0 causal, 1 window,
-// 2 bidirectional.  Returns cudaGetLastError() after the launch.
+// q (B, T, H, D), k and v (B, S, Hk, D), o (B, T, H, D), all contiguous,
+// 16-byte aligned and of one type (dtype 0: f32, 1: bf16); mask_kind 0
+// causal, 1 window, 2 bidirectional.  Returns cudaGetLastError() after the
+// launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int B, int Tq, int S, int H, int Hk, int D, int dtype,
                                    int mask_kind, int window, float scale, void* stream) {
@@ -302,7 +818,6 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   const cudaError_t e =
       dtype == 0
           ? dispatch_d<float>(D, q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st)
-          : dispatch_d<__nv_bfloat16>(D, q, k, v, o, B, Tq, S, H, Hk, mask_kind, window,
-                                      scale, st);
+          : dispatch_tc(D, q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
   return (int)e;
 }

@@ -50,15 +50,28 @@
 // gram_from_d2 replaces gram_from_d2_pallas (same file): the elementwise
 // epilogue exp(-d2 / max(g^2, 1e-12)) (Gaussian) or
 // exp(-sqrt(d2 + 1e-12) / max(g, 1e-12)) (Laplacian), f32 or bf16 in and
-// out, one gamma per (batch, column).
-//   Bound: one read and G writes per element and a few flops: device
-//   memory bandwidth.
-//   Design: a grid-stride loop with neighbouring threads on neighbouring
-//   elements; the divisor is formed once per block.  expf/sqrtf and IEEE
-//   division (no fast-math) keep the result within an ulp or two of the
-//   plain PyTorch version.  bf16 is written with round-to-nearest-even.
+// out, G gammas per batch row: (B, N) -> (B, G, N).
+//   Bound: each D2 element read once and written G times, a few operations
+//   each: device memory bandwidth.
+//   Design: the D2 matrix is cut into aligned 16-byte chunks of the flat
+//   (B * N) index (V elements: 4 for f32 in and out, 8 when either side is
+//   bf16); a grid of as many 256-thread blocks as the card holds at once
+//   strides over them.  A thread reads its chunk once and writes it out
+//   for each of the G gammas of its batch row, so D2 is read once, not G
+//   times.  Stores are 16-byte vectors, marked streaming (evict first),
+//   where every output row keeps the chunk's alignment (G == 1, or N a
+//   multiple of V); a chunk that straddles two batch rows (N not a
+//   multiple of V), the ragged end, or an operand whose base is not
+//   16-byte aligned takes the element path.  One kernel per (in, out)
+//   type: the kind and the alignment are runtime arguments, branched on
+//   once per chunk.
+//   The per-element expression is the plain version's: expf/sqrtf and IEEE
+//   division (no fast-math, no reciprocal), so the result equals it and
+//   the one-shot Gram (gram_f32) bitwise.  bf16 is written with
+//   round-to-nearest-even.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <stdint.h>
 
 namespace {
 
@@ -207,34 +220,140 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, long long i, float v) 
   p[i] = __float2bfloat16_rn(v);
 }
 
+// V consecutive elements, 16-byte aligned, to / from floats
+template <int V>
+__device__ __forceinline__ void load_vec(const float* p, float* v) {
+#pragma unroll
+  for (int j = 0; j < V; j += 4) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p + j));
+    v[j] = a.x; v[j + 1] = a.y; v[j + 2] = a.z; v[j + 3] = a.w;
+  }
+}
+template <int V>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* v) {
+  static_assert(V == 8, "bf16 chunks are 8 elements");
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    v[2 * j] = f.x; v[2 * j + 1] = f.y;
+  }
+}
+// stores marked streaming (evict first): the output is not read back here
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float* v) {
+#pragma unroll
+  for (int j = 0; j < V; j += 4)
+    __stcs(reinterpret_cast<float4*>(p + j), make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]));
+}
+template <int V>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
+  static_assert(V == 8, "bf16 chunks are 8 elements");
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) h[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+  __stcs(reinterpret_cast<uint4*>(p), u);
+}
+
+// kind 0 Gaussian, 1 Laplacian: the expression of the plain version
+__device__ __forceinline__ float denom_of(float g, int kind) {
+  return kind == 0 ? fmaxf(g * g, 1e-12f) : fmaxf(g, 1e-12f);
+}
+__device__ __forceinline__ float epilogue(float v, float denom, int kind) {
+  return kind == 0 ? expf(-v / denom) : expf(-sqrtf(v + 1e-12f) / denom);
+}
+
+constexpr int GRAM_THREADS = 256;
+
+// vec: d2 and out start on 16-byte boundaries (16-byte loads); vec_out:
+// every output row keeps the chunk's alignment as well (16-byte stores)
 template <typename Tin, typename Tout>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(GRAM_THREADS)
 gram_from_d2_kernel(const Tin* __restrict__ d2, const float* __restrict__ gammas,
-                    Tout* __restrict__ out, int G, long long N, int kind) {
-  const int bg = blockIdx.y;  // b * G + g
-  const Tin* src = d2 + (size_t)(bg / G) * N;
-  Tout* dst = out + (size_t)bg * N;
-  const float g = gammas[bg];
-  const float denom = kind == 0 ? fmaxf(g * g, 1e-12f) : fmaxf(g, 1e-12f);
+                    Tout* __restrict__ out, int G, long long N, long long total, int kind,
+                    bool vec, bool vec_out) {
+  constexpr int V = 16 / (sizeof(Tin) < sizeof(Tout) ? sizeof(Tin) : sizeof(Tout));
+  const bool narrow = total < (1LL << 31);  // 32-bit row division
+  const long long chunks = (total + V - 1) / V;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < N;
-       e += stride) {
-    const float v = load_f(src, e);
-    const float k = kind == 0 ? expf(-v / denom) : expf(-sqrtf(v + 1e-12f) / denom);
-    store_f(dst, e, k);
+  for (long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x; c < chunks;
+       c += stride) {
+    const long long f0 = c * V;
+    const long long b = narrow ? (long long)((unsigned)f0 / (unsigned)N) : f0 / N;
+    const long long e0 = f0 - b * N;
+    if (vec && e0 + V <= N) {  // the chunk lies in batch row b
+      float v[V];
+      load_vec<V>(d2 + f0, v);
+      for (int g = 0; g < G; ++g) {
+        const float denom = denom_of(__ldg(gammas + b * G + g), kind);
+        float k[V];
+        // one branch per chunk, not per element: the compiler evaluates
+        // only the kind's own expression
+        if (kind == 0) {
+#pragma unroll
+          for (int j = 0; j < V; ++j) k[j] = expf(-v[j] / denom);
+        } else {
+#pragma unroll
+          for (int j = 0; j < V; ++j) k[j] = expf(-sqrtf(v[j] + 1e-12f) / denom);
+        }
+        Tout* dst = out + (b * G + g) * N + e0;
+        if (vec_out) {
+          store_vec<V>(dst, k);
+        } else {
+#pragma unroll
+          for (int j = 0; j < V; ++j) store_f(dst, j, k[j]);
+        }
+      }
+    } else {  // straddles two rows, or the ragged end, or unaligned operands
+      for (int j = 0; j < V && f0 + j < total; ++j) {
+        const long long f = f0 + j;
+        const long long bb = f / N, e = f - bb * N;
+        const float x = load_f(d2, f);
+        for (int g = 0; g < G; ++g)
+          store_f(out, (bb * G + g) * N + e,
+                  epilogue(x, denom_of(__ldg(gammas + bb * G + g), kind), kind));
+      }
+    }
   }
 }
 
+// as many blocks as the card holds at once: asked once per instance, not
+// at every launch (B2 launches once per column when serving unfused)
 template <typename Tin, typename Tout>
-void launch_gram(const void* d2, const float* gammas, void* out, int B, int G,
-                 long long N, int kind, cudaStream_t stream) {
-  const int threads = 256;
-  long long blocks = (N + threads * 4 - 1) / (threads * 4);
+long long resident_blocks() {
+  static const long long n = [] {
+    int dev = 0, sms = 0, per_sm = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, gram_from_d2_kernel<Tin, Tout>, GRAM_THREADS, 0) != cudaSuccess)
+      return 0LL;
+    return (long long)sms * (per_sm > 0 ? per_sm : 1);
+  }();
+  return n;
+}
+
+template <typename Tin, typename Tout>
+cudaError_t launch_gram(const void* d2, const float* gammas, void* out, int B, int G,
+                        long long N, int kind, cudaStream_t stream) {
+  constexpr int V = 16 / (sizeof(Tin) < sizeof(Tout) ? sizeof(Tin) : sizeof(Tout));
+  const long long resident = resident_blocks<Tin, Tout>();
+  if (resident < 1) return cudaErrorInvalidDevice;
+  const long long total = (long long)B * N;
+  const long long chunks = (total + V - 1) / V;
+  const bool vec = reinterpret_cast<uintptr_t>(d2) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const bool vec_out = vec && (G == 1 || N % V == 0);
+  // fewer blocks than the card holds for a small matrix
+  long long blocks = (chunks + GRAM_THREADS - 1) / GRAM_THREADS;
+  if (blocks > resident) blocks = resident;
   if (blocks < 1) blocks = 1;
-  if (blocks > 4096) blocks = 4096;
-  dim3 grid((unsigned)blocks, (unsigned)(B * G));
-  gram_from_d2_kernel<Tin, Tout><<<grid, threads, 0, stream>>>(
-      static_cast<const Tin*>(d2), gammas, static_cast<Tout*>(out), G, N, kind);
+  gram_from_d2_kernel<Tin, Tout><<<(unsigned)blocks, GRAM_THREADS, 0, stream>>>(
+      static_cast<const Tin*>(d2), gammas, static_cast<Tout*>(out), G, N, total, kind, vec,
+      vec_out);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -283,18 +402,19 @@ int sq_dists_sym_f32(const float* x, float* out, int B, int n, int d,
 }
 
 // d2 (B, N) f32 or bf16, gammas (B, G) f32, out (B, G, N) f32 or bf16.
-// kind: 0 Gaussian RBF, 1 Laplacian.  B * G at most 65535.
+// kind: 0 Gaussian RBF, 1 Laplacian.  Returns the launch's error.
 int gram_from_d2(const void* d2, const float* gammas, void* out, int B, int G,
                  long long N, int in_bf16, int out_bf16, int kind, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
   if (in_bf16) {
-    if (out_bf16) launch_gram<__nv_bfloat16, __nv_bfloat16>(d2, gammas, out, B, G, N, kind, s);
-    else launch_gram<__nv_bfloat16, float>(d2, gammas, out, B, G, N, kind, s);
+    e = out_bf16 ? launch_gram<__nv_bfloat16, __nv_bfloat16>(d2, gammas, out, B, G, N, kind, s)
+                 : launch_gram<__nv_bfloat16, float>(d2, gammas, out, B, G, N, kind, s);
   } else {
-    if (out_bf16) launch_gram<float, __nv_bfloat16>(d2, gammas, out, B, G, N, kind, s);
-    else launch_gram<float, float>(d2, gammas, out, B, G, N, kind, s);
+    e = out_bf16 ? launch_gram<float, __nv_bfloat16>(d2, gammas, out, B, G, N, kind, s)
+                 : launch_gram<float, float>(d2, gammas, out, B, G, N, kind, s);
   }
-  return (int)cudaGetLastError();
+  return (int)e;
 }
 
 }  // extern "C"

@@ -2,10 +2,13 @@
 
 A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA tensor
 goes to the hand-written kernel in ``csrc/flash_attention.cu`` or the call
-raises.  Unlike the TPU wrapper nothing is transposed, repeated or padded:
-the kernel reads the public (B, T, H, D) / (B, S, Hk, D) layout as it is,
-maps query head h to kv head h // (H / Hk) itself and masks the ragged
-T and S edges.  ``launches`` counts kernel launches.
+raises: bf16 to the tensor-core kernel (wgmma, TMA-fed tiles), f32 to the
+CUDA-core kernel.  Unlike the TPU wrapper nothing is transposed, repeated
+or padded: the kernel reads the public (B, T, H, D) / (B, S, Hk, D) layout
+as it is, maps query head h to kv head h // (H / Hk) itself and masks the
+ragged T and S edges.  Operands must start on a 16-byte boundary (TMA and
+16-byte loads); a view that does not is refused, never copied.
+``launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ MASK_KINDS = {"causal": 0, "window": 1, "bidir": 2}
 HEAD_DIMS = (16, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_MAX = 65535
+_ALIGN = 16          # bytes: TMA and 16-byte loads
 
 launches: Dict[str, int] = {"flash_attention": 0}
 
@@ -58,9 +62,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.flash_attention_ref(q, k, v, mask_kind, window)
 
     runtime.check_launch("flash_attention", (q, k, v), q.device)
-    if d not in HEAD_DIMS or h > _GRID_MAX or b > _GRID_MAX:
+    if (d not in HEAD_DIMS or h > _GRID_MAX or b > _GRID_MAX
+            or -(-t // 64) > _GRID_MAX):
         raise ValueError(f"flash_attention: head_dim {d} not in {HEAD_DIMS} "
-                         f"or B={b}, H={h} beyond the grid")
+                         f"or B={b}, H={h}, T={t} beyond the grid")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % _ALIGN:
+            raise ValueError(f"flash_attention: {name} starts at "
+                             f"{x.data_ptr():#x}, not on a {_ALIGN}-byte "
+                             f"boundary")
     out = torch.empty_like(q)
     if not out.numel():
         return out

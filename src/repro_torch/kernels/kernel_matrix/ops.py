@@ -191,9 +191,6 @@ def _gram_launch(d2: torch.Tensor, gammas: torch.Tensor, kind: str,
     b, n, m = d2.shape
     g_count = gammas.shape[1]
     runtime.check_launch("gram_from_d2", (d2, gammas), d2.device)
-    if b * g_count > _GRID_MAX:
-        raise ValueError(f"gram_from_d2: {b} x {g_count} planes exceed the "
-                         f"grid")
     out = torch.empty((b, g_count, n, m), dtype=OUT_DTYPES[out_dtype],
                       device=d2.device)
     if out.numel():

@@ -13,7 +13,11 @@ chunks, every column-count instantiation of the predict kernel (P = 1..64)
 and banks wider than one 64-column block (P = 66, 130), and an empty SV
 table; for the attention kernels T = 1, T and S off the 64-row tile, GQA
 groups up to 8, head_dim 16 to 256, windows wider than T, S = 1, wrapped
-ring caches and int8 caches; B1 and B3 at the SVM head's d = 2048;
+ring caches and int8 caches; B9's bf16 kernel over 16 kv tiles (its TMA
+ring wraps) and at gemma3-4b's local layers (D = 256, window 1024), and a
+misaligned view refused; B2 with one gamma per row bitwise equal to its
+plain version where rows straddle 16-byte chunks (N % 8 = 1, 7) and where
+they do not; B1 and B3 at the SVM head's d = 2048;
 greedy generation at the smoke configs through the kernels against the
 plain path; for the nearest-center kernel (B6) a center table larger than
 shared memory, C and d off every tile, duplicated centers, one row and
@@ -85,6 +89,29 @@ def test_gram_from_d2_kernel_matches_plain(cuda, kind, din, dout):
     one = km_ops.gram_from_d2(d2[1], float(ga[1, 2]), kind=kind,
                               out_dtype=dout)
     assert torch.equal(one, got[1, 2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["gauss_rbf", "laplacian"])
+@pytest.mark.parametrize("din", ["bf16", "f32"])
+@pytest.mark.parametrize("dout", ["f32", "bf16"])
+@pytest.mark.parametrize("b,n,m", [(4, 3, 67), (3, 1, 263), (2, 16, 512)])
+def test_gram_from_d2_ragged_rows_bitwise(cuda, kind, din, dout, b, n, m):
+    """One gamma per row (the CV gamma step) with N = n m off the 16-byte
+    chunk (N % 8 = 1 and 7: chunks straddle two rows) and on it: the
+    kernel's bits are the plain version's."""
+    gen = torch.Generator().manual_seed(n * m)
+    d2 = (torch.rand(b, n, m, generator=gen) * 20.0).to(cuda)
+    if din == "bf16":
+        d2 = d2.to(torch.bfloat16)
+    ga = (torch.rand(b, 1, generator=gen) * 3.0 + 0.3).to(cuda)
+    before = km_ops.launches["gram_from_d2"]
+    got = km_ops.gram_from_d2(d2, ga, kind=kind, out_dtype=dout)
+    want = km_ref.gram_from_d2_ref(d2[:, None], ga[:, :, None, None], kind,
+                                   dout)
+    torch.cuda.synchronize()
+    assert km_ops.launches["gram_from_d2"] == before + 1
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
@@ -251,11 +278,21 @@ from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 
 def _attn_tol(want: torch.Tensor) -> float:
     """f32: sums of <= S products in another order, 2e-5 on values ~1.
-    bf16: the same, then one bf16 rounding of the output on each side,
-    which may land one ulp (2^-7 relative) apart."""
+    bf16: the same, P rounded to bf16 before P V (2^-8 of each p), then
+    one bf16 rounding of the output on each side, which may land one ulp
+    (2^-7 relative) apart."""
     if want.dtype == torch.bfloat16:
         return 2.0 ** -7 * max(1.0, float(want.float().abs().max()))
     return 2e-5 * max(1.0, float(want.abs().max()))
+
+
+def _attn_bound(q, k, v, mask_kind, window, want):
+    """bf16, value by value: the two output roundings (2^-8 |o| each) and P
+    rounded to bf16 (2^-8 p_j each, so 2^-8 sum_j p_j |v_j| / l: the plain
+    attention of |v|); 2^-14 of that for the f32 sums' order."""
+    a = fa_ref.flash_attention_ref(q.float(), k.float(), v.float().abs(),
+                                   mask_kind, window)
+    return 2.0 ** -7 * want.float().abs() + (2.0 ** -8 + 2.0 ** -14) * a
 
 
 @pytest.mark.gpu
@@ -266,6 +303,8 @@ def _attn_tol(want: torch.Tensor) -> float:
     ("window", 300, 1, 90, 90, 4, 2, 256),    # window wider than T
     ("window", 40, 1, 200, 200, 2, 1, 256),   # tiles skipped left of band
     ("bidir", 0, 2, 33, 65, 4, 2, 16),        # smoke head_dim
+    ("causal", 0, 1, 1024, 1024, 4, 2, 64),   # 16 kv tiles: the ring wraps
+    ("window", 1024, 1, 1536, 1536, 2, 1, 256),  # gemma3-4b's local layers
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, mask_kind, window, b, t,
@@ -280,6 +319,24 @@ def test_flash_attention_kernel_matches_plain(cuda, mask_kind, window, b, t,
     assert fa_ops.launches["flash_attention"] == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     assert float((got.float() - want.float()).abs().max()) <= _attn_tol(want)
+    if dtype == torch.bfloat16:
+        bnd = _attn_bound(q, k, v, mask_kind, window, want)
+        assert bool(((got.float() - want.float()).abs() <= bnd).all())
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_a_misaligned_view(cuda):
+    """TMA reads from 16-byte boundaries: a view that starts off one is
+    refused, not copied."""
+    b, t, h, d = 1, 64, 2, 64
+    buf = torch.zeros(b * t * h * d + 1, dtype=torch.bfloat16, device=cuda)
+    q = buf[1:].view(b, t, h, d)
+    k = torch.zeros(b, t, h, d, dtype=torch.bfloat16, device=cuda)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    before = fa_ops.launches["flash_attention"]
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q, k, k)
+    assert fa_ops.launches["flash_attention"] == before
 
 
 @pytest.mark.gpu

@@ -29,6 +29,13 @@ at these shapes (C=3, m=20, k=72, d=7, P=6, seed 0):
     port differs by at most 5.4e-7 times the largest |decision| (or 1);
     the reference's own gap is up to 7.7e-7.  Tolerance: B3's 1e-5 times
     the largest |decision| (or 1).
+  * B9 ``flash_attention`` on bf16 inputs: the card's kernel runs both
+    products on the tensor cores and rounds P to bf16 before P V (as the
+    TPU kernel's ``jax.lax.dot(p, v)`` does on the MXU at jax's default
+    precision).  A plain emulation of that arithmetic (kv tiles of 64, f32
+    online softmax, l summing the f32 P) is held against the reference's
+    Pallas kernel in interpret mode within the card checks' bf16 budget,
+    2^-7 times max(1, the largest |output|).
   * B4/B5: the reference's Pallas CD kernels no longer run on this jax
     (ROADMAP C1); their parity with the jnp oracles is in
     ``tests/test_torch_train.py::TestCD``.  Here: dispatch and checks.
@@ -45,12 +52,14 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels.flash_attention import ops as jf_ops  # noqa: E402
 from repro.kernels.kernel_matrix import ops as jk_ops  # noqa: E402
 from repro.kernels.kernel_matrix import ref as jk_ref  # noqa: E402
 from repro.kernels.svm_predict import ops as js_ops  # noqa: E402
 from repro.kernels.svm_predict import ref as js_ref  # noqa: E402
 from repro_torch.kernels import runtime  # noqa: E402
 from repro_torch.kernels.cd_solver import ops as tc_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as tf_ref  # noqa: E402
 from repro_torch.kernels.kernel_matrix import ops as tk_ops  # noqa: E402
 from repro_torch.kernels.svm_predict import ops as ts_ops  # noqa: E402
 
@@ -391,6 +400,68 @@ class TestNoSilentCpuFallback:
         c = torch.empty((2, 1, 4, 3), device="meta")
         with pytest.raises(ValueError):
             tc_ops.cd_wave_epoch(k, c, c, c, c)
+
+
+def _flash_bf16_p_emulation(q, k, v, mask_kind, window, block_k=64):
+    """The arithmetic of B9's bf16 kernel in plain PyTorch: S = Q K^T on
+    bf16 inputs with f32 sums, f32 online softmax over kv tiles of
+    ``block_k``, P rounded to bf16 before P V, l the sum of the f32 P;
+    returns bf16 (B, T, H, D)."""
+    b, t, h, d = q.shape
+    s, hk = k.shape[1], k.shape[2]
+    g = h // hk
+    qf = q.float().reshape(b, t, hk, g, d)
+    kf, vf = k.float(), v.float()
+    allowed = tf_ref.attention_mask(t, s, mask_kind, window)
+    m = torch.full((b, hk, g, t, 1), tf_ref.NEG_INF)
+    l = torch.zeros((b, hk, g, t, 1))
+    acc = torch.zeros((b, hk, g, t, d))
+    for c0 in range(0, s, block_k):
+        c1 = min(c0 + block_k, s)
+        logit = torch.einsum("bthgd,bshd->bhgts", qf, kf[:, c0:c1]) * d ** -0.5
+        logit = torch.where(allowed[:, c0:c1], logit,
+                            torch.tensor(tf_ref.NEG_INF))
+        m_new = torch.maximum(m, logit.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(logit - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        pv = torch.einsum("bhgts,bshd->bhgtd", p.to(torch.bfloat16).float(),
+                          vf[:, c0:c1])
+        acc = acc * alpha + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, d).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("mask_kind,window,t,s,h,hk", [
+    ("causal", 0, 300, 300, 4, 2),
+    ("causal", 0, 100, 260, 2, 1),       # T != S: rows offset by S - T
+    ("window", 64, 200, 200, 4, 2),
+    ("window", 100, 150, 290, 2, 2),
+    ("bidir", 0, 100, 260, 4, 2),
+])
+def test_flash_bf16_p_arithmetic_within_the_card_budget(mask_kind, window, t,
+                                                         s, h, hk):
+    rng = np.random.default_rng(t + s)
+    d = 64
+    q, k, v = (rng.normal(size=(2, n, hh, d)).astype(np.float32)
+               for n, hh in ((t, h), (s, hk), (s, hk)))
+    tq, tk, tv = (_t(a).to(torch.bfloat16) for a in (q, k, v))
+    got = _flash_bf16_p_emulation(tq, tk, tv, mask_kind, window)
+    jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
+    pallas = np.asarray(jf_ops.flash_attention(
+        jq, jk, jv, mask_kind=mask_kind, window=window,
+        force_pallas=True).astype(jnp.float32))
+    budget = 2.0 ** -7 * max(1.0, float(np.abs(pallas).max()))
+    assert np.abs(_np(got) - pallas).max() <= budget
+    plain = tf_ref.flash_attention_ref(tq, tk, tv, mask_kind, window)
+    assert (got.float() - plain.float()).abs().max() <= budget
+    # value by value: the output roundings, 2^-8 |o| on each side, and the
+    # bf16 P, 2^-8 sum_j p_j |v_j| / l (the plain attention of |v|)
+    a = tf_ref.flash_attention_ref(tq.float(), tk.float(), tv.float().abs(),
+                                   mask_kind, window)
+    bnd = 2.0 ** -7 * plain.float().abs() + (2.0 ** -8 + 2.0 ** -14) * a
+    assert bool(((got.float() - plain.float()).abs() <= bnd).all())
 
 
 def test_import_leaves_no_jax_and_no_reference_modules():
