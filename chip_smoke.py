@@ -63,7 +63,7 @@ kernels from ``src/repro_torch/csrc/`` into ``build/kernels/`` and then:
      ``svm_predict`` (B8) with its test error;
   8. times each kernel at the main path's shapes beside its plain version,
      its bound from bytes and operations, and a one-call PyTorch yardstick
-     where one exists (B9 and B10 also at one long context each, B2 also
+     where one exists (B9 and B10 also at long contexts, B2 also
      at the training gamma step: 16 slots of 1824^2, one gamma); prints
      one JSON line per phase, the kernel table, and last
      ``{"ok": true, "device": {...}}``.
@@ -121,8 +121,9 @@ LM_DOMAIN, LM_ZIPF, LM_SHARED = 4096, 1.1, 0.5
 LM_SVM_CFG = dict(scenario="ova", cell_method="voronoi", cell_size=800,
                   n_folds=3, max_iters=400)
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 8, 256, 64
-# one long context each for the kernel table: B9 (B, T = S), B10 (B, S)
-LONG_B9, LONG_B10 = (1, 4096), (16, 32768)
+# long contexts for the kernel table: B9 (B, T = S), B10 (B, S) at a batch
+# of 16 and at batch 1 (B10's split over the keys)
+LONG_B9, LONG_B10, LONG_B10_ONE = (1, 4096), (16, 32768), (1, 32768)
 # kernels vs the plain path through the bf16 backbone, relative to the
 # largest |value|: B9 and the plain attention agree to f32 rounding before
 # each layer rounds its output to bf16, so a value next to a rounding
@@ -747,7 +748,8 @@ def lm_kernel_checks(torch, dev, cfg):
     """B9 and B10 against their plain versions on the card: every mask
     kind, GQA groups 1 and 2, head_dim 64 and 256, T != S, ragged T, bf16
     and f32; B10 with bf16 and int8 caches, a partial cache, a wrapped
-    ring (cache_pos >= S) and a window.  The first case of each is the LM
+    ring (cache_pos >= S), a window, and split over the keys (B = 1 at
+    S = 32768; a window over a wrapped ring at B = 1).  The first case of each is the LM
     path's own shape; its error goes into the kernel table."""
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.decode_attention import ref as dec_ref
@@ -788,7 +790,12 @@ def lm_kernel_checks(torch, dev, cfg):
             (4, 300, 8, 2, 256, False, 120, 0),
             (4, 300, 8, 2, 256, True, 700, 0),
             (2, 400, 4, 2, 256, False, 900, 128),
-            (2, 257, 4, 1, 64, True, 200, 64))):
+            (2, 257, 4, 1, 64, True, 200, 64),
+            # the split over the keys: B = 1 at long context, and gemma3-4b's
+            # local layers (window 1024) over a wrapped ring
+            (1, LONG_B10_ONE[1], cfg.n_kv_heads, 1, cfg.head_dim, False,
+             LONG_B10_ONE[1] - 1, 0),
+            (1, 5000, 2, 2, 256, True, 12000, 1024))):
         q = torch.randn(b, hk, g, d, generator=gen).to(dev, bf16)
         k = torch.randn(b, s, hk, d, generator=gen)
         v = torch.randn(b, s, hk, d, generator=gen)
@@ -1185,7 +1192,8 @@ def attn_bound(torch, b, t, s, h, hk, d, kind, window, esize):
 
 
 def lm_timing_cases(torch, dev, cfg):
-    """B9 and B10 at the LM path's shapes and at one long context each:
+    """B9 and B10 at the LM path's shapes and at long contexts (B10 at B =
+    16 and B = 1, bf16 and int8):
     (label, kernel, plain, library call or None, (bound ms, by))."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops as dec_ops
@@ -1217,7 +1225,11 @@ def lm_timing_cases(torch, dev, cfg):
                                         True)),
             ("decode_attention[B=%d,S=%d]" % LONG_B10, LONG_B10 + (False,)),
             ("decode_attention[B=%d,S=%d,int8]" % LONG_B10,
-             LONG_B10 + (True,))):
+             LONG_B10 + (True,)),
+            ("decode_attention[B=%d,S=%d]" % LONG_B10_ONE,
+             LONG_B10_ONE + (False,)),
+            ("decode_attention[B=%d,S=%d,int8]" % LONG_B10_ONE,
+             LONG_B10_ONE + (True,))):
         g = h // hk
         q = torch.randn(b, hk, g, d, generator=gen, device=dev, dtype=bf16)
         k = torch.randn(b, s, hk, d, generator=gen, device=dev, dtype=bf16)

@@ -16,8 +16,10 @@ equal its transpose bitwise): the kernel reads row i of K where the plain
 sweep reads column i, and the two agree bit for bit only on such a K.
 A CPU tensor goes to the plain exact sweep in ``ref.py``; a CUDA tensor
 goes to ``csrc/cd_solver.cu`` or the call raises.  Unlike the reference,
-which runs a delayed-update blocked sweep off the TPU, the port runs the
-exact sweep everywhere: on the card it is the kernel, bit for bit.
+which runs a delayed-update blocked sweep off the TPU (one GEMM a block,
+another summation order), the port runs the exact sweep everywhere: on
+the card the kernel runs it in panels of 32 coordinates whose deltas reach
+every row in coordinate order, so it is the exact sweep bit for bit.
 ``launches`` counts kernel launches (never plain-version calls).
 """
 from __future__ import annotations
@@ -30,8 +32,9 @@ import torch
 from repro_torch.kernels import runtime
 from repro_torch.kernels.cd_solver import ref
 
-_BC_MAX = 16                 # columns per block
-_SMEM_MAX = 227 * 1024       # dynamic shared memory a block may use
+_BULK = 480                  # threads of a block that hold g's rows
+_G_REGS = 64                 # registers of g a thread: rows x columns
+_ROWS = (1, 2, 4, 8, 16, 32)
 _GRID_MAX = 65535
 
 launches: Dict[str, int] = {"cd_wave_epoch": 0, "cd_epoch": 0}
@@ -41,22 +44,35 @@ def _lib() -> ctypes.CDLL:
     lib = runtime.library("cd_solver")
     if not getattr(lib, "_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.cd_wave_epoch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+        lib.cd_wave_epoch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
         lib.cd_wave_epoch.restype = i
         lib._bound = True
     return lib
 
 
-def block_cols(n: int, p: int) -> int:
-    """Columns per block: at most 16, fewer when the (n x bc) slice of g
-    would not fit in shared memory."""
-    bc = max(min(_BC_MAX, p), 1)
-    while bc > 1 and 4 * (bc * n + bc) > _SMEM_MAX:
-        bc -= 1
-    if 4 * (bc * n + bc) > _SMEM_MAX:
-        raise ValueError(f"cd kernel: a column of {n} coordinates does not "
-                         f"fit in shared memory")
+def thread_rows(n: int) -> int:
+    """Rows of g each of the kernel's 480 bulk threads holds in registers:
+    the least of 1, 2, 4, .., 32 with 480 rows >= n."""
+    for r in _ROWS:
+        if _BULK * r >= n:
+            return r
+    raise ValueError(f"cd kernel: {n} coordinates exceed the "
+                     f"{_BULK * _ROWS[-1]} rows its registers hold")
+
+
+def _kernel_cols(n: int, p: int, slots: int, n_sm: int) -> int:
+    bc = min(16, _G_REGS // thread_rows(n))
+    if bc == 16 and slots * -(-p // 16) < n_sm:
+        bc = 8
     return bc
+
+
+def block_cols(n: int, p: int, slots: int = 1, n_sm: int = 0) -> int:
+    """Columns a block holds (of a slot's ``p`` = F x P): 16, fewer where
+    the rows a thread holds times the columns would pass 64 registers; 8
+    where ``slots`` x the 16-column blocks would leave some of ``n_sm``
+    SMs idle.  At most ``p``."""
+    return max(min(_kernel_cols(n, p, slots, n_sm), p), 1)
 
 
 def _check(k: torch.Tensor, c, g, lo, hi) -> None:
@@ -77,14 +93,16 @@ def _launch(k: torch.Tensor, c: torch.Tensor, g: torch.Tensor,
     """One epoch in place on ``c`` and ``g``; ``k`` symmetric per slot."""
     s, f, n, p = c.shape
     runtime.check_launch("cd_wave_epoch", (k, c, g, lo, hi), c.device)
-    if s > _GRID_MAX or f > _GRID_MAX:
-        raise ValueError(f"cd: {s} slots x {f} problems exceed the grid")
+    if s > _GRID_MAX or f * p >= 2 ** 31:
+        raise ValueError(f"cd: {s} slots x {f * p} columns exceed the grid")
     if c.numel() == 0:
         return
-    bc = block_cols(n, p)
+    rows = thread_rows(n)
+    cols = _kernel_cols(n, f * p, s, runtime.sm_count(c.device))
     rc = _lib().cd_wave_epoch(
         runtime.ptr(k), runtime.ptr(c), runtime.ptr(g), runtime.ptr(lo),
-        runtime.ptr(hi), s, f, n, p, bc, runtime.stream_handle(c.device))
+        runtime.ptr(hi), s, f, n, p, rows, cols,
+        runtime.stream_handle(c.device))
     runtime.raise_on_error("cd_wave_epoch", rc)
     launches[counter] += 1
 

@@ -4,12 +4,18 @@ A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA tensor
 goes to the hand-written kernel in ``csrc/decode_attention.cu`` or the call
 raises.  Unlike the TPU wrapper nothing is transposed or padded: the
 kernel reads the (B, S, Hk, D) cache layout and its real S as they are.
-``launches`` counts kernel launches.
+The wrapper turns the cache position and window into the run of visible
+ring positions (:func:`visible_range`) and picks how many blocks split it
+(:func:`split_count`); a split launch merges its partials in the block
+that finishes last, found through a per-(batch, head) ticket in a zeroed
+counter buffer kept per device (the kernel leaves it zeroed, so calls on
+one device must not overlap on two streams).  ``launches`` counts kernel
+launches.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -20,19 +26,74 @@ HEAD_DIMS = (16, 64, 128, 256)
 GROUPS = (1, 2, 4, 8)           # query heads per kv head the kernel takes
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_MAX = 65535
+SPLIT_MAX = 64                  # the kernel's workspace weights hold 64
+SPLIT_MIN_KEYS = 256            # keys a split streams at least
+BLOCKS_PER_SM = 4               # resident blocks an SM a split aims for
+LONG_KEYS = 4096                # visible keys from which a run is "long"
 
 launches: Dict[str, int] = {"decode_attention": 0}
+_tickets: Dict[int, torch.Tensor] = {}   # device index -> zeroed int32
 
 
 def _lib() -> ctypes.CDLL:
     lib = runtime.library("decode_attention")
     if not getattr(lib, "_bound", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.decode_attention_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                             i, i, i, i, f, p]
+        lib.decode_attention_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
+                                             i, i, i, i, i, i, i, i, i, f, p]
         lib.decode_attention_fwd.restype = i
         lib._bound = True
     return lib
+
+
+def visible_range(s: int, pos: int, window: int = 0) -> Tuple[int, int]:
+    """The reference's visible keys as one run of ring positions: key
+    (s0 + j) mod S for j < nvis.  Key s is visible when s <= pos or pos >=
+    S, and with a window when (pos - s) mod S < window."""
+    if pos < s:
+        first = 0 if window <= 0 else max(0, pos - window + 1)
+        return first, pos - first + 1
+    if window <= 0 or window >= s:
+        return 0, s
+    return (pos - window + 1) % s, window
+
+
+def heads_per_block(b: int, hk: int, d: int, cache: torch.dtype,
+                    nvis: int, n_sm: int) -> int:
+    """Kv heads a block reads side by side (a key's rows of adjacent heads
+    are one contiguous run): with bf16 queries and D <= 64, an int8 cache
+    takes 2 (its 64-byte rows fill a 128-byte line), 4 over long runs; a
+    bf16 cache takes 2 over long runs when B x Hk / 2 blocks still cover
+    the card; else 1.  Hk must be a multiple."""
+    if d > 64:
+        return 1
+    if cache == torch.int8:
+        if nvis >= LONG_KEYS and hk % 4 == 0:
+            return 4
+        return 2 if hk % 2 == 0 else 1
+    if (cache == torch.bfloat16 and nvis >= LONG_KEYS and hk % 2 == 0
+            and b * hk // 2 >= n_sm):
+        return 2
+    return 1
+
+
+def split_count(pairs: int, nvis: int, n_sm: int) -> int:
+    """Blocks that share the visible keys of one (batch, head block) pair:
+    1 while the pairs alone give every SM a block; else as many as put
+    at most BLOCKS_PER_SM blocks on each SM, each with at least
+    SPLIT_MIN_KEYS keys, at most SPLIT_MAX."""
+    if pairs >= n_sm:
+        return 1
+    want = BLOCKS_PER_SM * n_sm // pairs
+    return max(1, min(want, nvis // SPLIT_MIN_KEYS, SPLIT_MAX))
+
+
+def _ticket_counters(device: torch.device, pairs: int) -> torch.Tensor:
+    buf = _tickets.get(device.index)
+    if buf is None or buf.numel() < pairs:
+        buf = torch.zeros(max(pairs, 1024), dtype=torch.int32, device=device)
+        _tickets[device.index] = buf
+    return buf
 
 
 def decode_attention_fused(q: torch.Tensor, k_cache: torch.Tensor,
@@ -71,21 +132,39 @@ def decode_attention_fused(q: torch.Tensor, k_cache: torch.Tensor,
                                         k_scale, v_scale, window)
 
     runtime.check_launch("decode_attention", operands, q.device)
-    if (d not in HEAD_DIMS or g not in GROUPS or hk > _GRID_MAX
-            or b > _GRID_MAX or s < 1 or pos < 0):
+    if (d not in HEAD_DIMS or g not in GROUPS or b > _GRID_MAX or s < 1
+            or pos < 0):
         raise ValueError(f"decode_attention_fused: head_dim {d} not in "
                          f"{HEAD_DIMS}, group {g} not in {GROUPS}, B={b}, "
                          f"Hk={hk}, S={s} or cache_pos={pos} out of range")
+    if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
+        raise ValueError("decode_attention_fused: the kernel copies 16-byte "
+                         "chunks; q and the caches must start on a 16-byte "
+                         "boundary")
     out = torch.empty_like(q)
     if not out.numel():
         return out
+    s0, nvis = visible_range(s, pos, int(window))
+    n_sm = runtime.sm_count(q.device)
+    heads = (1 if q.dtype != torch.bfloat16
+             else heads_per_block(b, hk, d, k_cache.dtype, nvis, n_sm))
+    n_split = split_count(b * hk // heads, nvis, n_sm)
+    chunk = -(-nvis // n_split)
+    n_split = -(-nvis // chunk)
     null = ctypes.c_void_p(0)
+    ws = cnt = None
+    if n_split > 1:                    # partials: (B Hk, split, G, D + 2)
+        ws = torch.empty(b * hk * n_split * g * (d + 2), dtype=torch.float32,
+                         device=q.device)
+        cnt = _ticket_counters(q.device, b * hk // heads)
     rc = _lib().decode_attention_fwd(
         runtime.ptr(q), runtime.ptr(k_cache), runtime.ptr(v_cache),
         runtime.ptr(k_scale) if quant else null,
         runtime.ptr(v_scale) if quant else null, runtime.ptr(out),
-        b, s, hk, g, d, _Q_DTYPES[q.dtype], int(quant), pos, int(window),
-        float(scale), runtime.stream_handle(q.device))
+        null if ws is None else runtime.ptr(ws),
+        null if cnt is None else runtime.ptr(cnt),
+        b, s, hk, g, d, _Q_DTYPES[q.dtype], int(quant), heads, s0, nvis,
+        n_split, chunk, float(scale), runtime.stream_handle(q.device))
     runtime.raise_on_error("decode_attention", rc)
     launches["decode_attention"] += 1
     return out

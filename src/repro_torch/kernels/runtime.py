@@ -162,6 +162,18 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
+_SM_COUNT: Dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (asked once)."""
+    n = _SM_COUNT.get(device.index)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _SM_COUNT[device.index] = n
+    return n
+
+
 def stream_handle(device: torch.device) -> ctypes.c_void_p:
     """PyTorch's current stream on ``device``, for a kernel launch."""
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

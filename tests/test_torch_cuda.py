@@ -13,11 +13,16 @@ chunks, every column-count instantiation of the predict kernel (P = 1..64)
 and banks wider than one 64-column block (P = 66, 130), and an empty SV
 table; for the attention kernels T = 1, T and S off the 64-row tile, GQA
 groups up to 8, head_dim 16 to 256, windows wider than T, S = 1, wrapped
-ring caches and int8 caches; B9's bf16 kernel over 16 kv tiles (its TMA
-ring wraps) and at gemma3-4b's local layers (D = 256, window 1024), and a
-misaligned view refused; B2 with one gamma per row bitwise equal to its
-plain version where rows straddle 16-byte chunks (N % 8 = 1, 7) and where
-they do not; B1 and B3 at the SVM head's d = 2048;
+ring caches and int8 caches; B10 also through its split over the keys (B =
+1 at S = 32768, gemma3-4b's local layers with a window over a wrapped
+ring), with two and four kv heads a block and on its direct path, each
+case twice for bitwise equal outputs, and a misaligned cache refused; the
+Gauss-Seidel epoch (B4, B5) bitwise where n is off and below its
+32-coordinate panel, with 8-column blocks and with 8 rows a thread; B9's
+bf16 kernel over 16 kv tiles (its TMA ring wraps) and at gemma3-4b's local
+layers (D = 256, window 1024), and a misaligned view refused; B2 with one
+gamma per row bitwise equal to its plain version where rows straddle
+16-byte chunks (N % 8 = 1, 7) and where they do not; B1 and B3 at the SVM head's d = 2048;
 greedy generation at the smoke configs through the kernels against the
 plain path; for the nearest-center kernel (B6) a center table larger than
 shared memory, C and d off every tile, duplicated centers, one row and
@@ -210,7 +215,10 @@ def _cd_problem(gen, s, f, n, p, pad):
 @pytest.mark.gpu
 @pytest.mark.parametrize("s,f,n,p,pad", [(2, 3, 37, 1, 0), (3, 2, 129, 70, 9),
                                          (1, 1, 300, 130, 0),
-                                         (2, 5, 201, 70, 17)])
+                                         (2, 5, 201, 70, 17),
+                                         (2, 5, 1824, 70, 17),   # 8-col blocks
+                                         (1, 1, 33, 1, 0),       # n < panel + 2
+                                         (1, 2, 2000, 9, 3)])    # 8 rows a thread
 def test_cd_wave_epoch_bitwise_equals_plain_sweep(cuda, s, f, n, p, pad):
     gen = torch.Generator().manual_seed(s * 1000 + n + p)
     k, c, g, lo, hi = (t.to(cuda) for t in _cd_problem(gen, s, f, n, p, pad))
@@ -340,19 +348,24 @@ def test_flash_attention_refuses_a_misaligned_view(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("s,pos,window,g,d,quant", [
-    (1, 0, 0, 1, 64, False),                  # S = 1
-    (333, 332, 0, 2, 64, True),               # int8, S off any tile, pos S-1
-    (333, 666, 0, 1, 64, True),               # ring wrapped: pos = 2S
-    (300, 120, 0, 8, 16, False),              # partial cache, G = 8
-    (257, 500, 64, 2, 256, True),             # window by ring age
-    (96, 95, 0, 4, 128, False),
+@pytest.mark.parametrize("b,hk,s,pos,window,g,d,quant", [
+    (3, 2, 1, 0, 0, 1, 64, False),            # S = 1
+    (3, 2, 333, 332, 0, 2, 64, True),         # int8, S off any tile, pos S-1
+    (3, 2, 333, 666, 0, 1, 64, True),         # ring wrapped: pos = 2S
+    (3, 2, 300, 120, 0, 8, 16, False),        # partial cache, G = 8
+    (3, 2, 257, 500, 64, 2, 256, True),       # window by ring age
+    (3, 2, 96, 95, 0, 4, 128, False),
+    (8, 32, 320, 319, 0, 1, 64, False),       # the LM path's step (direct)
+    (1, 32, 32768, 32767, 0, 1, 64, False),   # B = 1 long context: splits
+    (1, 2, 5000, 12000, 1024, 2, 256, True),  # gemma3 local: window, wrapped
+    (1, 2, 5000, 4000, 1024, 2, 256, False),  # window, ring not wrapped
+    (2, 8, 8192, 9000, 0, 1, 64, True),       # int8, 4 heads a block, splits
+    (9, 32, 4096, 4095, 0, 1, 64, False),     # bf16, 2 heads a block
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_decode_attention_kernel_matches_plain(cuda, s, pos, window, g, d,
-                                               quant, dtype):
+def test_decode_attention_kernel_matches_plain(cuda, b, hk, s, pos, window,
+                                               g, d, quant, dtype):
     gen = torch.Generator().manual_seed(s * 7 + g + d)
-    b, hk = 3, 2
     q = _rand(gen, b, hk, g, d).to(cuda, dtype)
     k = _rand(gen, b, s, hk, d)
     v = _rand(gen, b, s, hk, d)
@@ -371,10 +384,13 @@ def test_decode_attention_kernel_matches_plain(cuda, s, pos, window, g, d,
                                          window=window)
     want = dec_ref.decode_attention_ref(q, k, v, pos, d ** -0.5, ks, vs,
                                         window)
+    again = dec_ops.decode_attention_fused(q, k, v, pos, d ** -0.5, ks, vs,
+                                           window=window)
     torch.cuda.synchronize()
-    assert dec_ops.launches["decode_attention"] == before + 1
+    assert dec_ops.launches["decode_attention"] == before + 2
     assert got.dtype == dtype and got.shape == q.shape
     assert float((got.float() - want.float()).abs().max()) <= _attn_tol(want)
+    assert torch.equal(got, again)      # split merges in a fixed order
 
 
 @pytest.mark.gpu
@@ -389,6 +405,13 @@ def test_attention_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):                   # int8 without scales
         dec_ops.decode_attention_fused(q[:, :, :1], c.to(torch.int8),
                                        c.to(torch.int8), 3, 0.125)
+    q1 = torch.ones(1, 2, 1, 64, device=cuda)
+    buf = torch.ones(8 * 2 * 64 + 1, device=cuda)     # a cache off 16 bytes
+    before = dec_ops.launches["decode_attention"]
+    with pytest.raises(ValueError):
+        dec_ops.decode_attention_fused(q1, buf[1:].view(1, 8, 2, 64), c, 3,
+                                       0.125)
+    assert dec_ops.launches["decode_attention"] == before
 
 
 @pytest.mark.gpu

@@ -349,12 +349,99 @@ class TestCDWrappers:
             tc_ops.cd_wave_epoch(k.double(), c, g, lo, hi)
 
     @pytest.mark.parametrize("n,p,bc", [(1824, 70, 16), (100, 3, 3),
-                                        (4000, 70, 14), (14000, 1, 1)])
+                                        (4000, 70, 4), (14000, 1, 1)])
     def test_block_columns_fit_shared_memory(self, n, p, bc):
+        """The kernel keeps g in registers: a thread's rows (480 of them
+        cover n) times the block's columns stay within 64."""
         assert tc_ops.block_cols(n, p) == bc
-        assert 4 * (bc * n + bc) <= 227 * 1024
+        assert bc * tc_ops.thread_rows(n) <= 64
+        assert 480 * tc_ops.thread_rows(n) >= n
+        # 8 columns where 16-column blocks would leave SMs idle (B5's row)
+        assert tc_ops.block_cols(1824, 350, 1, 132) == 8
+        assert tc_ops.block_cols(1824, 350, 16, 132) == 16
         with pytest.raises(ValueError):
             tc_ops.block_cols(60000, 4)
+
+
+def _panel_sweep(k, c, g, lo, hi, panel, bc):
+    """B4's kernel order in plain PyTorch (a test model, on no path): each
+    block takes ``bc`` of a slot's F x P columns (folds packed together);
+    per panel of ``panel`` coordinates a sweeper updates only the panel's
+    rows of g, with the panel's diagonal block of K, and publishes the
+    deltas; the bulk then applies them in coordinate order to the next
+    panel's rows first (the look-ahead) and then to every other row, each
+    product and sum rounded on its own, K read by rows.  Asserts that the
+    bulk's copy of the panel rows equals the sweeper's."""
+    s, f, n, p = c.shape
+
+    def cols(t):
+        return t.permute(0, 2, 1, 3).reshape(s, n, f * p).clone()
+    cc, gg, ll, hh = (cols(t) for t in (c, g, lo, hi))
+    diag = torch.clamp(torch.diagonal(k, dim1=-2, dim2=-1), min=1e-12)
+    for j0 in range(0, f * p, bc):
+        js = slice(j0, min(j0 + bc, f * p))
+        for i0 in range(0, n, panel):
+            i1 = min(i0 + panel, n)
+            gp = gg[:, i0:i1, js].clone()
+            dl = []
+            for t in range(i1 - i0):
+                i = i0 + t
+                ci = cc[:, i, js]
+                tg = torch.clamp(ci - gp[:, t] / diag[:, i, None],
+                                 min=ll[:, i, js], max=hh[:, i, js])
+                dl.append(tg - ci)
+                cc[:, i, js] = tg
+                gp = gp + k[:, i, i0:i1, None] * dl[-1][:, None, :]
+            ahead = torch.arange(i1, min(i1 + panel, n))
+            rest = torch.tensor([r for r in range(n)
+                                 if not i1 <= r < i1 + panel], dtype=torch.long)
+            for rows in (ahead, rest):
+                for t, d in enumerate(dl):
+                    gg[:, rows, js] = (gg[:, rows, js]
+                                       + k[:, i0 + t, rows, None] * d[:, None])
+            assert torch.equal(gg[:, i0:i1, js], gp)
+
+    def back(t):
+        return t.reshape(s, n, f, p).permute(0, 2, 1, 3).contiguous()
+    return back(cc), back(gg)
+
+
+@pytest.mark.parametrize("n,panel,bc", [
+    (203, 32, 16),      # n not a multiple of the panel, P > bc
+    (203, 7, 16),
+    (203, 1, 5),        # one-coordinate panels, columns straddle folds
+    (203, 64, 16),
+    (203, 256, 16),     # n < panel
+    (29, 32, 1),        # n < panel, one column a block
+])
+def test_panel_sweep_order_is_bitwise_the_exact_sweep(n, panel, bc):
+    """The kernel's blocked schedule (panels, look-ahead, folds packed into
+    column blocks) gives the exact sweep's c and g bit for bit: an element
+    of g depends only on the order of its own updates.  Padding coordinates
+    (lo == hi == 0) stay 0."""
+    from repro_torch.kernels.cd_solver import ref as tc_ref
+    rng = np.random.default_rng(n + panel + bc)
+    s, f, p, pad = 2, 3, 19, 5
+    x = rng.normal(size=(s, n, 3))
+    d2 = ((x[:, :, None] - x[:, None]) ** 2).sum(-1)
+    a = _t(np.exp(-d2 / 3.0).astype(np.float32))
+    k = a + a.transpose(1, 2)                      # symmetric bit for bit
+    y = np.sign(rng.normal(size=(s, 1, n, 1)))
+    cost = rng.uniform(0.1, 3.0, size=(s, f, 1, p))
+    lo = _t(np.minimum(y * cost, 0.0).astype(np.float32))
+    hi = _t(np.maximum(y * cost, 0.0).astype(np.float32))
+    lo[:, :, n - pad:] = 0.0
+    hi[:, :, n - pad:] = 0.0
+    c = torch.clamp(_t(rng.normal(size=(s, f, n, p)).astype(np.float32)),
+                    min=lo, max=hi)
+    g = (tc_ops.slot_matmul(k, c) - _t(y.astype(np.float32))).contiguous()
+    kc, kg, pc, pg = c, g, c, g
+    for _ in range(2):
+        kc, kg = _panel_sweep(k, kc, kg, lo, hi, panel, bc)
+        pc, pg = tc_ref.cd_wave_epoch_ref(k, pc, pg, lo, hi)
+    assert torch.equal(kc, pc) and torch.equal(kg, pg)
+    assert not kc[:, :, n - pad:].any()
+    assert (kc != c).any()
 
 
 class TestNoSilentCpuFallback:
@@ -462,6 +549,57 @@ def test_flash_bf16_p_arithmetic_within_the_card_budget(mask_kind, window, t,
                                    mask_kind, window)
     bnd = 2.0 ** -7 * plain.float().abs() + (2.0 ** -8 + 2.0 ** -14) * a
     assert bool(((got.float() - plain.float()).abs() <= bnd).all())
+
+
+@pytest.mark.parametrize("s", [1, 7, 300, 5000])
+def test_decode_visible_range_is_the_reference_mask(s):
+    """B10's wrapper hands the kernel one run of ring positions; it holds
+    exactly the keys the plain version's mask lets through."""
+    from repro_torch.kernels.decode_attention import ops as td_ops
+    idx = torch.arange(s)
+    for pos in sorted({0, 1, s // 2, s - 1, s, s + 3, 2 * s + 1, 3 * s - 1}):
+        for window in (0, 1, 5, s - 1, s, s + 9, 1024):
+            valid = (idx <= pos) | (pos >= s)
+            if window > 0:
+                valid &= torch.remainder(pos - idx, s) < window
+            s0, nvis = td_ops.visible_range(s, pos, window)
+            run = torch.zeros(s, dtype=torch.bool)
+            run[(s0 + torch.arange(nvis)) % s] = True
+            assert nvis >= 1 and 0 <= s0 < s
+            assert torch.equal(run, valid), (pos, window)
+
+
+@pytest.mark.parametrize("pairs,nvis,n_sm,want", [
+    (256, 320, 132, 1),       # the LM path's decode step: no split
+    (512, 32768, 132, 1),     # B=16 long context
+    (32, 32768, 132, 16),     # B=1 long context: at most 4 blocks an SM
+    (2, 1024, 132, 4),        # a short window caps it at 256 keys a split
+    (2, 32768, 132, 64),      # capped by the kernel's 64
+    (1, 100, 132, 1),         # too few keys to split
+])
+def test_decode_split_count(pairs, nvis, n_sm, want):
+    from repro_torch.kernels.decode_attention import ops as td_ops
+    got = td_ops.split_count(pairs, nvis, n_sm)
+    assert got == want
+    assert 1 <= got <= td_ops.SPLIT_MAX
+    if got > 1:
+        assert nvis // got >= td_ops.SPLIT_MIN_KEYS
+
+
+@pytest.mark.parametrize("b,hk,d,cache,nvis,want", [
+    (8, 32, 64, torch.bfloat16, 320, 1),      # the LM path's decode step
+    (16, 32, 64, torch.bfloat16, 32768, 2),   # long: 256-byte runs a key
+    (1, 32, 64, torch.bfloat16, 32768, 1),    # too few blocks for 2
+    (8, 32, 64, torch.int8, 320, 2),          # 64-byte rows fill a line
+    (16, 32, 64, torch.int8, 32768, 4),
+    (1, 2, 256, torch.int8, 1024, 1),         # rows of a line or more
+    (3, 3, 16, torch.int8, 300, 1),           # Hk odd
+    (3, 2, 64, torch.float32, 32768, 1),
+])
+def test_decode_heads_per_block(b, hk, d, cache, nvis, want):
+    from repro_torch.kernels.decode_attention import ops as td_ops
+    got = td_ops.heads_per_block(b, hk, d, cache, nvis, 132)
+    assert got == want and hk % got == 0
 
 
 def test_import_leaves_no_jax_and_no_reference_modules():
