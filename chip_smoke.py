@@ -64,7 +64,9 @@ kernels from ``src/repro_torch/csrc/`` into ``build/kernels/`` and then:
   8. times each kernel at the main path's shapes beside its plain version,
      its bound from bytes and operations, and a one-call PyTorch yardstick
      where one exists (B9 and B10 also at long contexts, B2 also
-     at the training gamma step: 16 slots of 1824^2, one gamma); prints
+     at the training gamma step: 16 slots of 1824^2, one gamma; B3 also
+     at the LM head's wave, EmbedServe's most frequent launch shape,
+     held against its plain version within ``predict_bound``); prints
      one JSON line per phase, the kernel table, and last
      ``{"ok": true, "device": {...}}``.
 
@@ -74,6 +76,7 @@ before printing any result.
 """
 from __future__ import annotations
 
+import collections
 import json
 import shutil
 import subprocess
@@ -953,7 +956,9 @@ def lm_embed(torch, dev, cfg, corpus, tables, obs):
 def lm_svm_head(torch, dev, ex, src_tr, src_ho, corpus, tables, refs):
     """The SVM head on the cached embeddings: SVM(y=None) takes the labels
     from the source; held-out error against chance; the bank served
-    through EmbedServe on the held-out tokens (the backbone runs again)."""
+    through EmbedServe on the held-out tokens (the backbone runs again).
+    Returns the fit's and the serving run's launch counts and B3's
+    operands at the run's most frequent wave shape (the LM head's wave)."""
     from repro_torch.api.session import SVM
     from repro_torch.serve import EmbedServe, SVMEngine
     from repro_torch.train.svm_trainer import SVMTrainerConfig
@@ -989,6 +994,17 @@ def lm_svm_head(torch, dev, ex, src_tr, src_ho, corpus, tables, refs):
                        f"{ex.cfg.n_layers} times a block and B3")
     if sorted(served) != list(range(len(x_ho))):
         raise Mismatch("EmbedServe: not every request was served")
+    # B3's operands at the run's most frequent wave shape: held-out rows
+    # packed into (n_slots, m_pad) slots of cells 0, 1, ...
+    waves = collections.Counter((r["n_slots"], r["m_pad"])
+                                for r in srv.engine.wave_stats)
+    (n_s, m_p), _ = waves.most_common(1)[0]
+    xt_h = emb_ho[np.arange(n_s * m_p) % len(emb_ho)].astype(np.float32)
+    head_wave = {"args": srv.engine.launch_operands(
+                     xt_h.reshape(n_s, m_p, -1),
+                     np.arange(n_s, dtype=np.int64) % bank.n_cells),
+                 "kind": bank.kernel,
+                 "waves": {f"{s}x{m}": n for (s, m), n in waves.items()}}
     dec_srv = np.stack([served[i] for i in range(len(x_ho))])
     gap = 0.0
     for rid in range(len(x_ho)):
@@ -1013,13 +1029,14 @@ def lm_svm_head(torch, dev, ex, src_tr, src_ho, corpus, tables, refs):
                                 for k, v in st["per_stage"].items()},
           "breakdown_max_gap_ms": gap, "launches_fit": fit_counts,
           "launches_serve": srv_counts,
+          "b3_waves_slots_x_rows": head_wave["waves"],
           "ok": bool(res.error < chance and gap <= 1e-6)})
     if not res.error < chance:
         raise Mismatch(f"held-out error {res.error} not below chance "
                        f"{chance}")
     if gap > 1e-6:
         raise Mismatch(f"EmbedServe breakdowns miss total_ms by {gap} ms")
-    return fit_counts, srv_counts
+    return fit_counts, srv_counts, head_wave
 
 
 def lm_generate(torch, dev, cfg, params, prompt, tables):
@@ -1963,8 +1980,8 @@ def main() -> int:
     corpus = lm_corpus(lm_cfg.vocab)
     ex, src_tr, src_ho, embed_counts = lm_embed(torch, dev, lm_cfg, corpus,
                                                 tables, obs)
-    fit_counts_lm, serve_counts_lm = lm_svm_head(torch, dev, ex, src_tr,
-                                                 src_ho, corpus, tables, refs)
+    fit_counts_lm, serve_counts_lm, head_wave = lm_svm_head(
+        torch, dev, ex, src_tr, src_ho, corpus, tables, refs)
     prompt = torch.as_tensor(corpus[2][:GEN_BATCH, :GEN_PROMPT]).to(dev)
     gen_counts = lm_generate(torch, dev, lm_cfg, ex.params, prompt, tables)
     lm_decode_profile(torch, dev, lm_cfg, ex.params, prompt)
@@ -2063,6 +2080,32 @@ def main() -> int:
                         "bound_ms": b[0], "bound_by": b[1],
                         "library_ms": (None if lib is None
                                        else cuda_ms(torch, lib))})
+    # B3 at the LM head's wave: EmbedServe's most frequent launch shape
+    xh, svh, coh, gah = head_wave["args"]
+    c_h, m_h, d_h = xh.shape
+    k_h, p_h = svh.shape[1], coh.shape[2]
+    kind_h = head_wave["kind"]
+    dd2_h = 64 * eps * float((xh * xh).sum(-1).max()
+                             + (svh * svh).sum(-1).max())
+    label = f"svm_predict_cells[LM head: {c_h}x{m_h}x{k_h}x{d_h}, P {p_h}]"
+    e_h = check_bound(label, sp_ops.svm_predict_cells(
+        xh, svh, coh, gah, kind=kind_h).cpu(), sp_ref.svm_predict_cells_ref(
+        xh, svh, coh, gah, kind=kind_h).cpu(), predict_bound(
+        torch, km_ref.sq_dists_ref, xh, svh, coh, gah, kind_h, dd2_h).cpu())
+    b_h = bound(f32 * (c_h * m_h * d_h + c_h * k_h * d_h + c_h * k_h * p_h
+                       + c_h * p_h + c_h * m_h * p_h),
+                c_h * m_h * k_h * (2 * d_h + 3) + c_h * (m_h + k_h) * 2 * d_h
+                + 4 * c_h * m_h * k_h * p_h)
+    lm_rows.append({
+        "name": label, "launches": serve_counts_lm["svm_predict_cells"],
+        "max_abs_err": e_h,
+        "ms": cuda_ms(torch, lambda: sp_ops.svm_predict_cells(
+            xh, svh, coh, gah, kind=kind_h)),
+        "plain_ms": cuda_ms(torch, lambda: sp_ref.svm_predict_cells_ref(
+            xh, svh, coh, gah, kind=kind_h)),
+        "bound_ms": b_h[0], "bound_by": b_h[1], "library_ms": None,
+        "waves_slots_x_rows": head_wave["waves"]})
+    del head_wave, xh, svh, coh, gah
     timing.update(cell_timing)
     cell_rows = [{"name": label, "ms": cuda_ms(torch, kern),
                   "plain_ms": cuda_ms(torch, plain), "bound_ms": b[0],

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""B4, B5 and B10 device times from the port in a given checkout, for
-comparing two commits in turns on one card.
+"""B3, B4, B5, B6, B8 and B10 device times from the port in a given
+checkout, for comparing two commits in turns on one card.
 
     python3 scripts/kernel_turns.py --root . --label change
     python3 scripts/kernel_turns.py --root build/parent --label parent
@@ -8,7 +8,14 @@ comparing two commits in turns on one card.
 Builds the checkout's kernels (into <root>/build/kernels), times each row
 with CUDA events behind a sleep kernel (as ``chip_smoke.py``'s
 ``cuda_ms``), and prints one JSON line: the label, the card (``nvidia-smi``
-name and power limit) and {row: ms}.  Rows: B4 at the training wave's
+name and power limit), {row: ms} and, for B6, {row: digest}.  Rows: B3
+at the serving wave (256 slots x 8 rows x 2048 SVs x d 54, P 7) and at
+the LM head's wave (the shape of ``chip_smoke.py``'s EmbedServe
+launches: LM_HEAD below, d 2048), B8 at the one-cell shape (8192 test rows
+x 2048 SVs x d 54, P 7), B6 at a Covertype chunk (65,536 rows x 291
+centers x d 54) and at a HIGGS-width table (5500 x 28), each with the
+sha256 of its int32 owners (the first 16 hex digits) so that two
+checkouts can be seen to give the same bits; B4 at the training wave's
 shape (16 slots x 5 folds x 1824 x 70 columns), B5 at one slot (1824 x
 350), B10 at the LM path's decode step (B 8, S 320, Hk 32, G 1, D 64) and
 at S = 32768 with B = 16 and B = 1, each with a bf16 and an int8 cache,
@@ -19,16 +26,26 @@ decode step end to end (stablelm-1.6b at full width, seed-initialised,
 batch 8, prompt 256): ms per step of ``serve.engine.generate`` over 64
 new tokens less one, bf16 and int8 caches, the median of 3 runs on the
 host clock.  Needs a CUDA card.
+
+    python3 scripts/kernel_turns.py --root . --b3-paths
+
+times only B3 at the serving wave's shape for banks of B3_PATH_P columns,
+each through the plan's choice and with each copy path forced
+(``BULK_BANK_WAYS`` 0: per-thread copies; 32: the TMA spans wherever the
+tile allows them), and prints one JSON line.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
 from pathlib import Path
 
 SLEEP_CYCLES = 50_000_000
+LM_HEAD = (4, 16, 704, 2048, 3)    # C, m, k, d, P
+B3_PATH_P = (6, 7, 8, 16, 32, 64)
 B10_ROWS = (("decode_attention", 8, 320), ("decode_attention[B=16,S=32768]",
                                            16, 32768),
             ("decode_attention[B=1,S=32768]", 1, 32768))
@@ -83,6 +100,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=".", help="checkout whose src/ to time")
     ap.add_argument("--label", default="")
+    ap.add_argument("--b3-paths", action="store_true",
+                    help="time only B3's copy paths at the serving wave")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -90,15 +109,62 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(args.root).resolve() / "src"))
     from repro_torch.kernels import runtime
+    from repro_torch.kernels.assign import ops as as_ops
     from repro_torch.kernels.cd_solver import ops as cd_ops
+    from repro_torch.kernels.svm_predict import ops as sp_ops
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.models.attention import quantize_kv
     import torch.nn.functional as F
 
-    runtime.build(("cd_solver", "decode_attention"))
+    runtime.build(("cd_solver", "decode_attention", "svm_predict", "assign"))
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    rows = {}
+    rows, digests = {}, {}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def card() -> str:
+        return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True,
+                              text=True, check=True).stdout.strip()
+
+    if args.b3_paths:
+        default = sp_ops.BULK_BANK_WAYS
+        for p in B3_PATH_P:
+            c, m, k, d = 256, 8, 2048, 54
+            xt, sv, co = randn(c, m, d), randn(c, k, d), randn(c, k, p)
+            ga = (torch.rand(c, p, generator=gen, device=dev) + 0.5) * d ** 0.5
+            for label, ways in (("plan", default), ("copies", 0),
+                                ("bulk", 32)):
+                sp_ops.BULK_BANK_WAYS = ways
+                plan = sp_ops.predict_plan(c, m, k, d, p, 132, 2, True)
+                rows[f"svm_predict_cells[P {p}, {label}: "
+                     f"{'bulk' if plan.bulk else 'copies'}]"] = cuda_ms(
+                    torch, lambda: sp_ops.svm_predict_cells(xt, sv, co, ga),
+                    50)
+            sp_ops.BULK_BANK_WAYS = default
+        print(json.dumps({"label": args.label, "card": card(), "ms": rows}))
+        return 0
+
+    for name, (c, m, k, d, p) in (("svm_predict_cells", (256, 8, 2048, 54, 7)),
+                                  ("svm_predict_cells[LM head]", LM_HEAD)):
+        xt, sv, co = randn(c, m, d), randn(c, k, d), randn(c, k, p)
+        ga = (torch.rand(c, p, generator=gen, device=dev) + 0.5) * d ** 0.5
+        rows[name] = cuda_ms(torch, lambda: sp_ops.svm_predict_cells(
+            xt, sv, co, ga), 50)
+    x, sv, co = randn(8192, 54), randn(2048, 54), randn(2048, 7)
+    rows["svm_predict"] = cuda_ms(torch, lambda: sp_ops.svm_predict(
+        x, sv, co, 0.7 * 54 ** 0.5), 20)
+    for name, (n, c, d) in (("assign", (65536, 291, 54)),
+                            ("assign[HIGGS]", (65536, 5500, 28))):
+        x = randn(n, d) * 2
+        cen = (x[torch.randint(0, n, (c,), generator=gen, device=dev)]
+               + 0.5 * randn(c, d))
+        rows[name] = cuda_ms(torch, lambda: as_ops.assign(x, cen), 20)
+        owners = as_ops.assign(x, cen).cpu().numpy()
+        digests[name] = hashlib.sha256(owners.tobytes()).hexdigest()[:16]
+    del x, sv, co, cen
 
     s, f, n, p = 16, 5, 1824, 70
     x = torch.randn(s, n, 5, generator=gen, device=dev)
@@ -138,11 +204,8 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     decode = decode_steps(torch, dev)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
-    print(json.dumps({"label": args.label, "card": card, "ms": rows,
-                      "decode_ms_per_step": decode}))
+    print(json.dumps({"label": args.label, "card": card(), "ms": rows,
+                      "digests": digests, "decode_ms_per_step": decode}))
     return 0
 
 

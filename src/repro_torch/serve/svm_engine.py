@@ -763,21 +763,36 @@ class SVMEngine:
             self.max_queue = prev_mq
         return results
 
+    def launch_operands(self, xt: np.ndarray, cell_idx: np.ndarray
+                        ) -> Tuple[torch.Tensor, ...]:
+        """The fused launch's operands for a packed wave, on the engine's
+        device: ``xt`` (n_slots, m_pad, d) and the SV tables, coefficients
+        and gammas of the slots' cells ``cell_idx`` (n_slots,), as
+        ``sp_ops.svm_predict_cells`` takes them with ``bank.kernel``."""
+        xt_d, idx_d = self._upload(xt, cell_idx)
+        return (xt_d, *self._cell_operands(idx_d))
+
+    def _upload(self, xt: np.ndarray, cell_idx: np.ndarray):
+        return (torch.from_numpy(xt).to(self.device, non_blocking=True),
+                torch.from_numpy(cell_idx).to(self.device, non_blocking=True))
+
+    def _cell_operands(self, idx_d: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        return tuple(t.index_select(0, idx_d)
+                     for t in (self._sv, self._coefs, self._gammas))
+
     def _evaluate(self, xt: np.ndarray, cell_idx: np.ndarray
                   ) -> torch.Tensor:
         """Upload the packed wave and enqueue its launch(es); returns the
         (n_slots, m_pad, P) decisions without waiting for the device."""
-        xt_d = torch.from_numpy(xt).to(self.device, non_blocking=True)
-        idx_d = torch.from_numpy(cell_idx).to(self.device, non_blocking=True)
-        co_w = self._coefs.index_select(0, idx_d)
-        ga_w = self._gammas.index_select(0, idx_d)
+        xt_d, idx_d = self._upload(xt, cell_idx)
         self._last_wave = {"xt": xt, "cell_idx": cell_idx, "xt_d": xt_d,
                            "idx_d": idx_d, "d2": None}
         if self.fused:
             # one fused launch; the Gram never touches device memory
-            sv_w = self._sv.index_select(0, idx_d)
-            return sp_ops.svm_predict_cells(xt_d, sv_w, co_w, ga_w,
-                                            kind=self.bank.kernel)
+            return sp_ops.svm_predict_cells(
+                xt_d, *self._cell_operands(idx_d), kind=self.bank.kernel)
+        co_w = self._coefs.index_select(0, idx_d)
+        ga_w = self._gammas.index_select(0, idx_d)
         d2 = self._d2_for(self._last_wave)
         self._last_wave["d2"] = d2
         return _decide_cells(d2, ga_w, co_w, self.bank.kernel)

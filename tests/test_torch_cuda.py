@@ -8,12 +8,14 @@ CUDA toolkit run them with
 
 The shapes are chosen for the kernels' edges rather than for speed: query
 rows not a multiple of the 8-row tile, SV counts not a multiple of the
-128/256-row tiles, feature widths not a multiple of the 16/32-wide shared
-chunks, every column-count instantiation of the predict kernel (P = 1..64)
-and banks wider than one 64-column block (P = 66, 130), and an empty SV
-table; for the attention kernels T = 1, T and S off the 64-row tile, GQA
-groups up to 8, head_dim 16 to 256, windows wider than T, S = 1, wrapped
-ring caches and int8 caches; B10 also through its split over the keys (B =
+128-row tile, feature widths off the copy widths and wider than one
+64-feature chunk, every column-count instantiation of the predict kernel
+(P = 1..64) and banks wider than one 64-column block (P = 66, 130), slots
+too few to fill the card (the SV axis split, k d odd), each case twice
+for bitwise equal outputs, and an empty SV table; for the attention
+kernels T = 1, T and S off the 64-row tile, GQA groups up to 8,
+head_dim 16 to 256, windows wider than T, S = 1, wrapped ring caches and
+int8 caches; B10 also through its split over the keys (B =
 1 at S = 32768, gemma3-4b's local layers with a window over a wrapped
 ring), with two and four kv heads a block and on its direct path, each
 case twice for bitwise equal outputs, and a misaligned cache refused; the
@@ -25,9 +27,10 @@ gamma per row bitwise equal to its plain version where rows straddle
 16-byte chunks (N % 8 = 1, 7) and where they do not; B1 and B3 at the SVM head's d = 2048;
 greedy generation at the smoke configs through the kernels against the
 plain path; for the nearest-center kernel (B6) a center table larger than
-shared memory, C and d off every tile, duplicated centers, one row and
-one center; for the one-shot Gram (B7) and the one-cell predict (B8) one
-row, SV counts off the tile and P = 1.  This file imports no jax.
+shared memory, tables just under and over the resident limit, C and d off
+every tile, d odd, duplicated centers, one row and one center; for the
+one-shot Gram (B7) and the one-cell predict (B8) one row, SV counts off
+the tile and P = 1.  This file imports no jax.
 """
 from __future__ import annotations
 
@@ -125,7 +128,18 @@ def test_gram_from_d2_ragged_rows_bitwise(cuda, kind, din, dout, b, n, m):
                                        (3, 21, 513, 17, 9), (2, 5, 100, 33, 17),
                                        (2, 3, 257, 70, 33), (1, 2, 64, 5, 64),
                                        (3, 11, 300, 54, 66),
-                                       (2, 9, 130, 6, 130)])
+                                       (2, 9, 130, 6, 130),
+                                       (1, 8, 2048, 54, 7), (3, 8, 2048, 54, 7),
+                                       (1, 8, 4099, 17, 9), (3, 8, 4099, 33, 7),
+                                       (1, 8, 4099, 33, 66),
+                                       (3, 8, 4099, 17, 130),
+                                       (3, 8, 2048, 54, 65),
+                                       (2, 8, 2048, 54, 6),
+                                       (2, 8, 2048, 54, 8),
+                                       (2, 8, 2048, 54, 32),
+                                       (2, 8, 2048, 54, 16),
+                                       (3, 5, 2048, 54, 17),
+                                       (1, 8, 2048, 54, 33)])
 def test_svm_predict_cells_kernel_matches_plain(cuda, kind, c, m, k, d, p):
     gen = torch.Generator().manual_seed(c * 100 + p)
     xt = _rand(gen, c, m, d).to(cuda)
@@ -136,11 +150,13 @@ def test_svm_predict_cells_kernel_matches_plain(cuda, kind, c, m, k, d, p):
     before = sp_ops.launches["svm_predict_cells"]
     got = sp_ops.svm_predict_cells(xt, sv, co, ga, kind=kind)
     want = sp_ref.svm_predict_cells_ref(xt, sv, co, ga, kind=kind)
+    again = sp_ops.svm_predict_cells(xt, sv, co, ga, kind=kind)
     torch.cuda.synchronize()
-    assert sp_ops.launches["svm_predict_cells"] == before + 1
+    assert sp_ops.launches["svm_predict_cells"] == before + 2
     assert got.shape == (c, m, p)
     assert float((got - want).abs().max()) <= 1e-4 * max(
         1.0, float(want.abs().max()))
+    assert torch.equal(got, again)      # fixed sum order, splits included
 
 
 @pytest.mark.gpu
@@ -491,10 +507,15 @@ def _assign_flips_within_bound(x, c, got, want):
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,c,d", [(1, 1, 1), (1, 300, 54), (4097, 1, 3),
                                    (777, 67, 19), (2000, 5500, 28),
-                                   (65536, 291, 54), (130, 64, 32)])
+                                   (65536, 291, 54), (130, 64, 32),
+                                   (3000, 552, 54), (3000, 553, 54),
+                                   (1001, 291, 55), (999, 700, 33),
+                                   (300, 70, 2048)])
 def test_assign_kernel_matches_plain(cuda, n, c, d):
-    """C and d off every tile, one row, one center, and a center table of
-    5500 x 28 (616 KB) larger than a block's shared memory."""
+    """C and d off every tile, one row, one center, a center table of 5500
+    x 28 (616 KB) larger than a block's shared memory, tables just under
+    and just over the resident limit (552 and 553 centers at d 54), d odd
+    and rows wider than one 32-feature chunk of the streamed path."""
     gen = torch.Generator().manual_seed(n + c + d)
     x = _rand(gen, n, d, scale=2.0).to(cuda)
     cen = x[torch.randint(0, n, (c,), generator=gen).to(cuda)] + _rand(

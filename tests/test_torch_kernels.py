@@ -602,6 +602,163 @@ def test_decode_heads_per_block(b, hk, d, cache, nvis, want):
     assert got == want and hk % got == 0
 
 
+@pytest.mark.parametrize("c,m,k,p,want", [
+    (256, 8, 2048, 7, 1),      # the serving wave: its slots fill the card
+    (1, 8192, 2048, 7, 1),     # B8's one cell: 1024 row tiles
+    (1, 8, 2048, 7, 16),       # one slot: a split a 128-row SV tile
+    (3, 8, 4099, 9, 33),       # 33 tiles (the last of 3 rows) over 3 units
+    (3, 8, 2048, 130, 3),      # 72 units (8 row tiles x 3 column blocks)
+    (131, 8, 4096, 7, 2),      # one unit short of a block an SM
+    (132, 8, 4096, 7, 1),      # a block an SM
+    (1, 8, 128, 7, 1),         # one tile: nothing to split
+])
+def test_predict_split_count(c, m, k, p, want):
+    """B3's split of the SV axis: 1 while the (slot, row tile, column
+    block) units give every SM a block, else up to BLOCKS_PER_SM blocks an
+    SM, at most one a 128-row SV tile, and no split left empty."""
+    got = ts_ops.predict_splits(c, m, k, p, 132)
+    assert got == want
+    tiles = -(-k // ts_ops.SV_TILE)
+    per = -(-tiles // got)
+    assert (got - 1) * per < tiles <= got * per
+
+
+def test_predict_plan_takes_every_shape_the_first_kernel_took():
+    """Every (d, P) that fit the first port's shared tiles (ROWS x d
+    rounded to 16, 256 x P coefficients, 20 KB static) still gets a plan,
+    whatever copy width the table allows; a 60000-wide row at P = 2 (8
+    query rows a block) still does not."""
+    def first_fits(d, p):
+        rows = 8 if p <= 8 else 4 if p <= 16 else 2 if p <= 32 else 1
+        return (4 * (rows * -(-d // 16) * 16 + 256 * min(p, 64)) + 20480
+                <= 232448)
+    for p in (1, 2, 7, 8, 9, 16, 17, 32, 33, 64, 65, 130):
+        edge = max(d for d in range(1, 40000, 16) if first_fits(d, p)) + 15
+        for d in list(range(1, 140)) + list(range(edge - 400, edge + 1)):
+            if not first_fits(d, p):
+                continue
+            for v in (1, 2, 4):
+                if d % v == 0:
+                    plan = ts_ops.predict_plan(256, 8, 2048, d, p, 132, v)
+                    assert plan.smem + 1536 <= ts_ops.SMEM_MAX
+                    assert plan.ld % v == 0 and (plan.ld // v) % 2 == 1
+    with pytest.raises(ValueError):
+        ts_ops.predict_plan(1, 8, 8, 60000, 2, 132, 4)
+
+
+def test_predict_plan_bulk_only_for_whole_aligned_tiles():
+    """The TMA path moves a tile as two contiguous spans: rows whole in one
+    chunk at their own stride, all P <= 64 columns in the block and read
+    at their own stride with at most a 16-way bank conflict (gcd(P, 32)
+    <= 16), every span 16-byte aligned.  The serving wave (d 54: 8-byte
+    copies, stride 54) takes it; P = 65 (a second column block of one
+    column) does not."""
+    plan = ts_ops.predict_plan(256, 8, 2048, 54, 7, 132, 2, True)
+    assert plan.bulk and plan.ld == 54 and plan.dk >= 54 and plan.splits == 1
+    assert plan.cld == 7
+    assert ts_ops.predict_plan(1, 8192, 2048, 54, 1, 132, 2, True).bulk
+    for p in (6, 8, 16):                                 # 2-16-way conflicts
+        plan = ts_ops.predict_plan(256, 8, 2048, 54, p, 132, 2, True)
+        assert plan.bulk and plan.cld == p
+    for args in ((256, 8, 2048, 54, 7, 132, 2, False),   # unaligned tables
+                 (256, 8, 2048, 54, 32, 132, 2, True),   # 32-way conflicts
+                 (256, 8, 2048, 54, 64, 132, 2, True),   # 32-way conflicts
+                 (256, 8, 2047, 54, 7, 132, 2, True),    # k d % 4 != 0
+                 (256, 8, 2048, 56, 7, 132, 4, True),    # stride 60 != 56
+                 (4, 8, 800, 2048, 3, 132, 4, True),     # chunks of 64
+                 (3, 8, 2048, 54, 65, 132, 2, True),     # column blocks
+                 (32, 8, 2048, 54, 70, 132, 2, True)):   # column blocks
+        assert not ts_ops.predict_plan(*args).bulk, args
+
+
+@pytest.mark.parametrize("p", [1, 2, 6, 7, 8, 9, 16, 17, 33, 64, 65, 66,
+                               127, 130])
+@pytest.mark.parametrize("d,v,k", [(54, 2, 2048), (56, 4, 2048),
+                                   (17, 1, 4099), (2048, 4, 704)])
+def test_predict_plan_fixes_the_shared_layout(p, d, v, k):
+    """The plan alone fixes B3's shared layout: each ring stage holds 128
+    SV rows at stride ld and 128 coefficient rows at stride cld, a
+    16-byte multiple, and every column block's columns (at most 64; the
+    last one P mod 64) fit a coefficient row; a bulk copy's span of P
+    floats a row fills exactly cld = P; two stages and the query rows are
+    the shared bytes."""
+    plan = ts_ops.predict_plan(3, 8, k, d, p, 132, v, True)
+    rows = ts_ops._rows_per_block(p)
+    blocks = [min(64, p - p0) for p0 in range(0, p, 64)]
+    assert max(blocks) <= plan.cld
+    assert plan.stage % 4 == 0
+    assert plan.stage >= 128 * (plan.ld + plan.cld)
+    assert plan.smem == 4 * (-(-rows * d // 4) * 4 + 2 * plan.stage)
+    if plan.bulk:
+        assert len(blocks) == 1 and plan.cld == p and plan.ld == d
+    else:
+        assert plan.cld % 2 == 1
+
+
+@pytest.mark.parametrize("d,ptr,want", [(54, 0, 2), (54, 8, 2), (54, 4, 1),
+                                        (56, 16, 4), (56, 8, 2), (17, 16, 1),
+                                        (2048, 256, 4)])
+def test_predict_copy_width(d, ptr, want):
+    assert ts_ops.copy_width(d, ptr) == want
+
+
+@pytest.mark.parametrize("kind", ["gauss_rbf", "laplacian"])
+def test_predict_folded_exp2_epilogue_within_its_budget(kind):
+    """A plain model of B3's epilogue on the card: per block s = -log2(e) /
+    den in fp32 (den = max(gamma^2, 1e-12), Laplacian max(gamma, 1e-12)),
+    per (pair, column) 2^(root s), results below 2^-126 flushed to zero,
+    against exp(-root / den) of the same fp32 root and den in float64, over
+    a grid of D² and gamma.  The budget is the source note's: 1.1 |a|
+    2^-23 + 2^-22 relative (a = root s; the 2^-22 is ex2.approx's own,
+    which the exact exp2 here does not have), plus 2^-126.  A fold with
+    1/log2(e) in place of log2(e) misses it."""
+    d2 = torch.tensor(np.concatenate([[0.0], np.geomspace(1e-6, 1e4, 400)]),
+                      dtype=torch.float32)
+    gam = torch.tensor(np.geomspace(1e-3, 1e2, 61), dtype=torch.float32)
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    if kind == "gauss_rbf":
+        root, den = d2, torch.clamp(gam * gam, min=1e-12)
+    else:
+        root, den = torch.sqrt(d2 + 1e-12), torch.clamp(gam, min=1e-12)
+    want = torch.exp(-(root.double()[:, None] / den.double()[None, :]))
+
+    def model(scale):
+        a = root[:, None] * scale[None, :]                 # fp32 product
+        k = torch.exp2(a.double())
+        return torch.where(k < 2.0 ** -126, torch.zeros_like(k), k), a
+
+    got, a = model(-log2e / den)
+    budget = (want * (1.1 * a.abs().double() * 2.0 ** -23 + 2.0 ** -22)
+              + 2.0 ** -126)
+    assert bool(((got - want).abs() <= budget).all())
+    wrong, _ = model(-(1.0 / log2e) / den)
+    assert not bool(((wrong - want).abs() <= budget).all())
+
+
+@pytest.mark.parametrize("c,d,resident", [
+    (291, 54, True),     # Covertype's table (63 KB) and two row tiles
+    (552, 54, True),     # the largest resident table at d 54
+    (553, 54, False),    # one center more: streamed
+    (5500, 28, False),   # HIGGS width (616 KB)
+    (1, 1, True),
+    (70, 2048, False),   # wide rows: the row tiles alone do not fit
+])
+def test_assign_resident_or_streamed(c, d, resident):
+    """B6 keeps the center table in shared memory when the table (C
+    rounded up to 4, feature-major), its norms and two 256-row tiles fit;
+    otherwise it streams 256-center tiles past blocks of 64 rows."""
+    from repro_torch.kernels.assign import ops as ta_ops
+    assert ta_ops.assign_resident(c, d) is resident
+    plan = ta_ops.assign_plan(65536, c, d, 132)
+    assert plan.resident is resident and plan.smem <= ta_ops.SMEM_MAX
+    assert plan.dp == d + d % 2 and plan.lda % 4 == 2
+    assert plan.grid == (132 if resident else 1024)
+    if resident:
+        assert plan.cp % 4 == 0 and c <= plan.cp < c + 4
+    assert ta_ops.assign_plan(1, c, d, 132).grid == 1
+    assert ta_ops.assign_plan(300, c, d, 132).grid == (2 if resident else 5)
+
+
 def test_import_leaves_no_jax_and_no_reference_modules():
     """Importing every module of the port pulls in neither jax nor any
     module of the JAX package."""

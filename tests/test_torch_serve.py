@@ -200,6 +200,28 @@ class TestEngineParity:
                                    cached.sweep_gammas(g).numpy(), atol=1e-6)
         assert fused.counters["d2_misses"] == 1
 
+    def test_launch_operands_are_the_fused_launch(self, monkeypatch):
+        """``launch_operands`` gives for a packed wave exactly what the
+        fused engine hands B3's wrapper for it."""
+        from repro_torch.kernels.svm_predict import ops as sp_ops
+        cells, q = _cells(seed=12)
+        eng = SVMEngine(ModelBank.from_cells(*cells), device=CPU, fused=True)
+        seen = []
+        real = sp_ops.svm_predict_cells
+
+        def spy(*args, **kw):
+            seen.append((args, kw))
+            return real(*args, **kw)
+        monkeypatch.setattr(sp_ops, "svm_predict_cells", spy)
+        eng.predict(q)
+        assert len(seen) == 1
+        args, kw = seen[0]
+        wave = eng._last_wave
+        got = eng.launch_operands(wave["xt"], wave["cell_idx"])
+        assert kw == {"kind": eng.bank.kernel} and len(got) == len(args) == 4
+        for a, b in zip(got, args):
+            assert torch.equal(a, b)
+
     def test_bf16_cache_bounds_error_and_halves_bytes(self):
         cells, q = _cells(seed=10)
         bank = ModelBank.from_cells(*cells)
