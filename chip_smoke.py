@@ -27,15 +27,16 @@ kernels from ``src/repro_torch/csrc/`` into ``build/kernels/`` and then:
      + Gauss-Seidel polish -> ``to_bank``) at Covertype's widths (d=54,
      7 classes one-vs-all, liquidSVM's recursive cells of 2000, 5 folds,
      the default 10 x 10 grid; rows from ``covtype_like``, 32004 for
-     training and 8000 held out): holds the symmetric D² (B1-sym) and the
-     Gauss-Seidel epoch (B4, and B5 at one slot) against their plain
-     versions at the training wave's shapes (16 slots x 5 folds x k_max
-     rows x 70 columns), fits a small set on the CPU and on the card and
-     compares plans, fold masks, surfaces and selections, then fits the
-     full set on the card with the launches of every wave counted, its
-     stage times, FISTA iterations and test error through
-     ``decision_function`` and through the bank served by ``SVMEngine``;
-     drives ``cd_epochs`` (B5's entry point) on one fitted cell;
+     training and 8000 held out): holds the symmetric D² (B1-sym; also
+     bitwise against B1(x, x)) and the Gauss-Seidel epoch (B4, and B5 at
+     one slot) against their plain versions at the training wave's shapes
+     (16 slots x 5 folds x k_max rows x 70 columns), fits a small set on
+     the CPU and on the card and compares plans, fold masks, surfaces and
+     selections, then fits the full set on the card with the launches of
+     every wave counted, its stage times, FISTA iterations and test error
+     through ``decision_function`` and through the bank served by
+     ``SVMEngine``; drives ``cd_epochs`` (B5's entry point) on one fitted
+     cell;
   6. the LM path at stablelm-1.6b's full width (seed-initialised, bf16):
      holds flash attention (B9) and fused decode attention (B10) against
      their plain versions (every mask kind, GQA, head_dim 64 and 256, bf16
@@ -66,8 +67,10 @@ kernels from ``src/repro_torch/csrc/`` into ``build/kernels/`` and then:
      where one exists (B9 and B10 also at long contexts, B2 also
      at the training gamma step: 16 slots of 1824^2, one gamma; B3 also
      at the LM head's wave, EmbedServe's most frequent launch shape,
-     held against its plain version within ``predict_bound``); prints
-     one JSON line per phase, the kernel table, and last
+     held against its plain version within ``predict_bound``; B1 also
+     at the fit's test phase and B1-sym at the LM head's fit wave, each
+     path's own launch operands, held against their plain versions);
+     prints one JSON line per phase, the kernel table, and last
      ``{"ok": true, "device": {...}}``.
 
 Any mismatch or exception ends the run with a non-zero exit code.  Without
@@ -77,6 +80,7 @@ before printing any result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import shutil
 import subprocess
@@ -353,6 +357,23 @@ def require_launches(label: str, counts: dict, expect: dict) -> None:
                            f"expected {want}")
 
 
+@contextlib.contextmanager
+def recorded_d2(km_ops, calls: list):
+    """Inside, every ``km_ops.sq_dists`` call also appends its operands
+    (x, z, symmetric) to ``calls``, so that a path's own B1 and B1-sym
+    launches can be timed at their shapes; the counts stay the wrapper's."""
+    inner = km_ops.sq_dists
+
+    def rec(x, z, symmetric=False):
+        calls.append((x, z, symmetric))
+        return inner(x, z, symmetric=symmetric)
+    km_ops.sq_dists = rec
+    try:
+        yield calls
+    finally:
+        km_ops.sq_dists = inner
+
+
 def wave_problem(torch, x_w, mask_w, n_folds: int, n_cols: int, seed: int):
     """A hinge-like wave of box QPs on the cells' own Gram: per-slot gamma
     from the mean valid D², random fold partitions and labels, one box
@@ -385,14 +406,16 @@ def wave_problem(torch, x_w, mask_w, n_folds: int, n_cols: int, seed: int):
 
 def train_kernel_checks(torch, x_w, mask_w, n_folds: int, n_cols: int):
     """B1-sym, B4 and B5 against their plain versions at the training
-    wave's shapes.  B1-sym: bitwise equal to its transpose, and within
-    B1's 64 ulps of the largest |x|^2 + |z|^2 of the plain 0.5 (D + D^T).
+    wave's shapes.  B1-sym: bitwise equal to its transpose and to B1(x,
+    x), and within B1's 64 ulps of the largest |x|^2 + |z|^2 of the plain
+    0.5 (D + D^T).
     B4: CD_EPOCHS epochs bitwise equal to the plain exact sweep on the
     card (every operation rounded on its own on both sides).  B5: each of
     three slots alone (its folds' columns side by side, K shared) bitwise
     equal to B4's result for that slot."""
     from repro_torch.kernels.cd_solver import ops as cd_ops
     from repro_torch.kernels.cd_solver import ref as cd_ref
+    from repro_torch.kernels.kernel_matrix import ops as km_ops
     from repro_torch.kernels.kernel_matrix import ref as km_ref
     eps = float(np.finfo(np.float32).eps)
     errs = {}
@@ -408,6 +431,14 @@ def train_kernel_checks(torch, x_w, mask_w, n_folds: int, n_cols: int):
     if not sym:
         raise Mismatch("sq_dists_sym: result differs from its transpose")
     del want
+    cross = km_ops.sq_dists(x_w, x_w)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(d2, cross))
+    check("sq_dists_sym vs sq_dists(x, x)", float((d2 - cross).abs().max()),
+          0.0, shape=list(d2.shape), bitwise=same)
+    if not same:
+        raise Mismatch("sq_dists_sym: not bitwise B1(x, x)")
+    del cross
 
     kc, kg, pc, pg = c0, g0, c0, g0
     for _ in range(CD_EPOCHS):
@@ -585,17 +616,20 @@ def full_fit(torch, dev, data, LiquidSVM, SVMTrainerConfig, tables,
           "matmul_precision": torch.get_float32_matmul_precision(),
           "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
 
-    # test phase through decision_function (B1 + B2 + one product)
+    # test phase through decision_function (B1 + B2 + one product); B1's
+    # operands kept for the kernel table
+    from repro_torch.kernels.kernel_matrix import ops as km_ops
     zero_counts(tables)
-    dec_df = model.decision_function(xt)
-    err_df = model.error(xt, yt)
+    with recorded_d2(km_ops, []) as calls:
+        dec_df = model.decision_function(xt)
+        err_df = model.error(xt, yt)
     test_counts = read_counts(tables)
     if not (test_counts["sq_dists"] and test_counts["gram_from_d2"]) or any(
             n for k, n in test_counts.items()
             if k not in ("sq_dists", "gram_from_d2")):
         raise Mismatch(f"decision_function launched {test_counts}; it "
                        f"launches B1 and B2 only")
-    return model, fit_counts, test_counts, dec_df, err_df
+    return model, fit_counts, test_counts, dec_df, err_df, calls[0][:2]
 
 
 def serve_trained(torch, dev, model, xt, yt, dec_df, err_df, SVMEngine,
@@ -957,9 +991,11 @@ def lm_svm_head(torch, dev, ex, src_tr, src_ho, corpus, tables, refs):
     """The SVM head on the cached embeddings: SVM(y=None) takes the labels
     from the source; held-out error against chance; the bank served
     through EmbedServe on the held-out tokens (the backbone runs again).
-    Returns the fit's and the serving run's launch counts and B3's
-    operands at the run's most frequent wave shape (the LM head's wave)."""
+    Returns the fit's and the serving run's launch counts, B3's operands
+    at the run's most frequent wave shape (the LM head's wave) and the
+    fit's first B1-sym operand (the LM head's fit wave)."""
     from repro_torch.api.session import SVM
+    from repro_torch.kernels.kernel_matrix import ops as km_ops
     from repro_torch.serve import EmbedServe, SVMEngine
     from repro_torch.train.svm_trainer import SVMTrainerConfig
     _, _, x_ho, y_ho = corpus
@@ -967,10 +1003,12 @@ def lm_svm_head(torch, dev, ex, src_tr, src_ho, corpus, tables, refs):
     zero_counts(tables)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sess = SVM(src_tr, None, cfg, device=dev)
-    sel = sess.train().select()
+    with recorded_d2(km_ops, []) as calls:
+        sess = SVM(src_tr, None, cfg, device=dev)
+        sel = sess.train().select()
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
+    fit_d2 = next(x for x, _, sym in calls if sym)
     fit_counts = read_counts(tables)
     if fit_counts["flash_attention"] or fit_counts["decode_attention"]:
         raise Mismatch(f"SVM fit ran the backbone: {fit_counts}")
@@ -1036,7 +1074,7 @@ def lm_svm_head(torch, dev, ex, src_tr, src_ho, corpus, tables, refs):
                        f"{chance}")
     if gap > 1e-6:
         raise Mismatch(f"EmbedServe breakdowns miss total_ms by {gap} ms")
-    return fit_counts, srv_counts, head_wave
+    return fit_counts, srv_counts, head_wave, fit_d2
 
 
 def lm_generate(torch, dev, cfg, params, prompt, tables):
@@ -1960,7 +1998,7 @@ def main() -> int:
     errs.update(errs_t)
     small_fit_parity(torch, dev, covtype_like, LiquidSVM, SVMTrainerConfig,
                      make_fold_masks, argmin_winners)
-    model, fit_counts, test_counts, dec_df, err_df = full_fit(
+    model, fit_counts, test_counts, dec_df, err_df, test_d2 = full_fit(
         torch, dev, (x_tr, y_tr, x_te, y_te), LiquidSVM, SVMTrainerConfig,
         tables, cell_trainer, obs)
     bank_counts = serve_trained(torch, dev, model, x_te, y_te, dec_df,
@@ -1980,7 +2018,7 @@ def main() -> int:
     corpus = lm_corpus(lm_cfg.vocab)
     ex, src_tr, src_ho, embed_counts = lm_embed(torch, dev, lm_cfg, corpus,
                                                 tables, obs)
-    fit_counts_lm, serve_counts_lm, head_wave = lm_svm_head(
+    fit_counts_lm, serve_counts_lm, head_wave, lm_fit_d2 = lm_svm_head(
         torch, dev, ex, src_tr, src_ho, corpus, tables, refs)
     prompt = torch.as_tensor(corpus[2][:GEN_BATCH, :GEN_PROMPT]).to(dev)
     gen_counts = lm_generate(torch, dev, lm_cfg, ex.params, prompt, tables)
@@ -2106,6 +2144,30 @@ def main() -> int:
         "bound_ms": b_h[0], "bound_by": b_h[1], "library_ms": None,
         "waves_slots_x_rows": head_wave["waves"]})
     del head_wave, xh, svh, coh, gah
+    # B1-sym at the LM head's fit wave: the fit's own launch
+    s_l, n_l, d_l = lm_fit_d2.shape
+    label = f"sq_dists_sym[LM head fit: {s_l}x{n_l}^2, d {d_l}]"
+    got = km_ops.sq_dists(lm_fit_d2, lm_fit_d2, symmetric=True)
+    want = km_ref.sq_dists_ref(lm_fit_d2, lm_fit_d2, symmetric=True)
+    torch.cuda.synchronize()
+    sym = bool(torch.equal(got, got.transpose(1, 2)))
+    e_l = check(label, float((got - want).abs().max()),
+                64 * eps * float(2 * (lm_fit_d2 * lm_fit_d2).sum(-1).max()),
+                bitwise_symmetric=sym)
+    if not sym:
+        raise Mismatch(f"{label}: result differs from its transpose")
+    del got, want
+    b_l = bound(f32 * (s_l * n_l * d_l + s_l * n_l * n_l),
+                s_l * (n_l * (n_l + 1) // 2 * (2 * d_l + 3) + n_l * 2 * d_l))
+    lm_rows.append({
+        "name": label, "launches": fit_counts_lm["sq_dists_sym"],
+        "max_abs_err": e_l,
+        "ms": cuda_ms(torch, lambda: km_ops.sq_dists(
+            lm_fit_d2, lm_fit_d2, symmetric=True)),
+        "plain_ms": cuda_ms(torch, lambda: km_ref.sq_dists_ref(
+            lm_fit_d2, lm_fit_d2, symmetric=True)),
+        "bound_ms": b_l[0], "bound_by": b_l[1], "library_ms": None})
+    del lm_fit_d2
     timing.update(cell_timing)
     cell_rows = [{"name": label, "ms": cuda_ms(torch, kern),
                   "plain_ms": cuda_ms(torch, plain), "bound_ms": b[0],
@@ -2137,7 +2199,26 @@ def main() -> int:
         raise Mismatch("gram_from_d2 at the training gamma step: not "
                        "bitwise equal to its plain version")
     del got, want
+    # B1 at the fit's test phase: decision_function's own launch
+    xq, zq = test_d2
+    s_q, m_q, d_q = xq.shape
+    k_q = zq.shape[1]
+    label = f"sq_dists[test phase: {s_q}x{m_q}x{k_q}, d {d_q}]"
+    got = km_ops.sq_dists(xq, zq)
+    want = km_ref.sq_dists_ref(xq, zq)
+    torch.cuda.synchronize()
+    e_q = check(label, float((got - want).abs().max()),
+                64 * eps * float((xq * xq).sum(-1).max()
+                                 + (zq * zq).sum(-1).max()))
+    del got, want
+    b_q = bound(f32 * (s_q * m_q * d_q + s_q * k_q * d_q + s_q * m_q * k_q),
+                s_q * m_q * k_q * (2 * d_q + 3) + s_q * (m_q + k_q) * 2 * d_q)
     train_rows = [{
+        "name": label, "launches": test_counts["sq_dists"],
+        "max_abs_err": e_q, "ms": cuda_ms(torch, lambda: km_ops.sq_dists(
+            xq, zq)),
+        "plain_ms": cuda_ms(torch, lambda: km_ref.sq_dists_ref(xq, zq)),
+        "bound_ms": b_q[0], "bound_by": b_q[1], "library_ms": None}, {
         "name": "gram_from_d2[train: %d x %d^2, G 1]" % (s_t, n_t),
         "ms": cuda_ms(torch, lambda: km_ops.gram_from_d2(d2_t, gam_t)),
         "plain_ms": cuda_ms(torch, lambda: km_ref.gram_from_d2_ref(

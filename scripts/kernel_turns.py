@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""B3, B4, B5, B6, B8 and B10 device times from the port in a given
-checkout, for comparing two commits in turns on one card.
+"""B1, B1-sym, B3, B4, B5, B6, B7, B8 and B10 device times from the port
+in a given checkout, for comparing two commits in turns on one card.
 
     python3 scripts/kernel_turns.py --root . --label change
     python3 scripts/kernel_turns.py --root build/parent --label parent
@@ -8,14 +8,20 @@ checkout, for comparing two commits in turns on one card.
 Builds the checkout's kernels (into <root>/build/kernels), times each row
 with CUDA events behind a sleep kernel (as ``chip_smoke.py``'s
 ``cuda_ms``), and prints one JSON line: the label, the card (``nvidia-smi``
-name and power limit), {row: ms} and, for B6, {row: digest}.  Rows: B3
-at the serving wave (256 slots x 8 rows x 2048 SVs x d 54, P 7) and at
-the LM head's wave (the shape of ``chip_smoke.py``'s EmbedServe
-launches: LM_HEAD below, d 2048), B8 at the one-cell shape (8192 test rows
-x 2048 SVs x d 54, P 7), B6 at a Covertype chunk (65,536 rows x 291
-centers x d 54) and at a HIGGS-width table (5500 x 28), each with the
-sha256 of its int32 owners (the first 16 hex digits) so that two
-checkouts can be seen to give the same bits; B4 at the training wave's
+name and power limit), {row: ms} and {row: digest}, the first 16 hex
+digits of the sha256 of a row's output bytes from seeded operands, so
+that two checkouts can be seen to give the same bits.  Rows: the D²
+kernels (D2_ROWS below, digests): B1-sym at the training wave (16 slots
+x 1824 rows, d 54) and at the LM SVM head's fit wave (3 cells of 921
+rows, d 2048), B1 at the serving wave (256 slots x 8 rows x 2048 SVs, d
+54) and at the fit's test phase (26 slots x 416 routed rows x 1824 SVs,
+d 54: the launch of ``chip_smoke.py``'s train_fit test), B7 at (2048,
+54)^2; B3 at the serving wave (256 slots x 8 rows x 2048 SVs x d 54, P 7)
+and at the LM head's wave (the shape of ``chip_smoke.py``'s EmbedServe
+launches: LM_HEAD below, d 2048), with digests; B8 at the one-cell shape
+(8192 test rows x 2048 SVs x d 54, P 7), B6 at a Covertype chunk (65,536
+rows x 291 centers x d 54) and at a HIGGS-width table (5500 x 28), with
+the digests of their int32 owners; B4 at the training wave's
 shape (16 slots x 5 folds x 1824 x 70 columns), B5 at one slot (1824 x
 350), B10 at the LM path's decode step (B 8, S 320, Hk 32, G 1, D 64) and
 at S = 32768 with B = 16 and B = 1, each with a bf16 and an int8 cache,
@@ -46,6 +52,13 @@ from pathlib import Path
 SLEEP_CYCLES = 50_000_000
 LM_HEAD = (4, 16, 704, 2048, 3)    # C, m, k, d, P
 B3_PATH_P = (6, 7, 8, 16, 32, 64)
+# name, kind, shape: sym (B, n, d), cross (B, n, m, d), gram (n, m, d)
+D2_ROWS = (
+    ("sq_dists_sym[train wave]", "sym", (16, 1824, 54)),
+    ("sq_dists_sym[LM head fit]", "sym", (3, 921, 2048)),
+    ("sq_dists[serving wave]", "cross", (256, 8, 2048, 54)),
+    ("sq_dists[test phase]", "cross", (26, 416, 1824, 54)),
+    ("gram", "gram", (2048, 2048, 54)))
 B10_ROWS = (("decode_attention", 8, 320), ("decode_attention[B=16,S=32768]",
                                            16, 32768),
             ("decode_attention[B=1,S=32768]", 1, 32768))
@@ -64,6 +77,37 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def digest(t) -> str:
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def d2_rows(torch, gen, dev, rows: dict, digests: dict) -> None:
+    from repro_torch.kernels.kernel_matrix import ops as km_ops
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+    for name, kind, shape in D2_ROWS:
+        if kind == "sym":
+            x = randn(*shape)
+
+            def fn():
+                return km_ops.sq_dists(x, x, symmetric=True)
+        elif kind == "cross":
+            b, n, m, d = shape
+            x, z = randn(b, n, d), randn(b, m, d)
+
+            def fn():
+                return km_ops.sq_dists(x, z)
+        else:
+            n, m, d = shape
+            x, z = randn(n, d), randn(m, d)
+
+            def fn():
+                return km_ops.kernel_matrix(x, z, 0.7 * d ** 0.5)
+        rows[name] = cuda_ms(torch, fn, 20)
+        digests[name] = digest(fn())
 
 
 def decode_steps(torch, dev) -> dict:
@@ -116,7 +160,8 @@ def main() -> int:
     from repro_torch.models.attention import quantize_kv
     import torch.nn.functional as F
 
-    runtime.build(("cd_solver", "decode_attention", "svm_predict", "assign"))
+    runtime.build(("kernel_matrix", "cd_solver", "decode_attention",
+                   "svm_predict", "assign"))
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     rows, digests = {}, {}
@@ -147,12 +192,14 @@ def main() -> int:
         print(json.dumps({"label": args.label, "card": card(), "ms": rows}))
         return 0
 
+    d2_rows(torch, gen, dev, rows, digests)
     for name, (c, m, k, d, p) in (("svm_predict_cells", (256, 8, 2048, 54, 7)),
                                   ("svm_predict_cells[LM head]", LM_HEAD)):
         xt, sv, co = randn(c, m, d), randn(c, k, d), randn(c, k, p)
         ga = (torch.rand(c, p, generator=gen, device=dev) + 0.5) * d ** 0.5
         rows[name] = cuda_ms(torch, lambda: sp_ops.svm_predict_cells(
             xt, sv, co, ga), 50)
+        digests[name] = digest(sp_ops.svm_predict_cells(xt, sv, co, ga))
     x, sv, co = randn(8192, 54), randn(2048, 54), randn(2048, 7)
     rows["svm_predict"] = cuda_ms(torch, lambda: sp_ops.svm_predict(
         x, sv, co, 0.7 * 54 ** 0.5), 20)
@@ -162,8 +209,7 @@ def main() -> int:
         cen = (x[torch.randint(0, n, (c,), generator=gen, device=dev)]
                + 0.5 * randn(c, d))
         rows[name] = cuda_ms(torch, lambda: as_ops.assign(x, cen), 20)
-        owners = as_ops.assign(x, cen).cpu().numpy()
-        digests[name] = hashlib.sha256(owners.tobytes()).hexdigest()[:16]
+        digests[name] = digest(as_ops.assign(x, cen))
     del x, sv, co, cen
 
     s, f, n, p = 16, 5, 1824, 70

@@ -8,9 +8,9 @@ The kernels live as CUDA C++ under ``repro_torch/csrc/``, one shared
 library per source with a plain C interface, bound through ``ctypes``.
 Each library is compiled by ``nvcc`` for ``sm_90a`` at first use into
 ``build/kernels/`` of the checkout (listed in ``.gitignore``) and rebuilt
-when its source is newer than the library.  Nothing is compiled when a
-module is imported, so the CPU tests import every module without a
-toolchain.
+when its source, or a header shared by the sources, is newer than the
+library.  Nothing is compiled when a module is imported, so the CPU tests
+import every module without a toolchain.
 """
 from __future__ import annotations
 
@@ -115,9 +115,12 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """Missing, or older than its source or any shared header."""
     lib = _lib_path(name)
-    return (not lib.exists()
-            or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+    if not lib.exists():
+        return True
+    srcs = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in srcs)
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
@@ -172,6 +175,25 @@ def sm_count(device: torch.device) -> int:
         n = torch.cuda.get_device_properties(device).multi_processor_count
         _SM_COUNT[device.index] = n
     return n
+
+
+def smem_stride(width: int, v: int) -> int:
+    """Shared row stride (words) of a chunk ``width`` wide, read v floats
+    a row by consecutive threads: a multiple of v with an odd quotient,
+    so a warp's loads hit distinct banks."""
+    ld = width
+    while ld % v or (ld // v) % 2 == 0:
+        ld += 1
+    return ld
+
+
+def copy_width(d: int, data_ptr: int) -> int:
+    """Floats a cp.async copy of a row-major table moves: 4 where rows and
+    the table are 16-byte aligned, 2 where 8-byte, else 1 (d 54: 2)."""
+    for v in (4, 2):
+        if d % v == 0 and data_ptr % (4 * v) == 0:
+            return v
+    return 1
 
 
 def stream_handle(device: torch.device) -> ctypes.c_void_p:

@@ -32,6 +32,7 @@ from typing import Dict, NamedTuple
 import torch
 
 from repro_torch.kernels import runtime
+from repro_torch.kernels.runtime import copy_width, smem_stride
 from repro_torch.kernels.kernel_matrix.ops import KINDS
 from repro_torch.kernels.svm_predict import ref
 
@@ -83,25 +84,6 @@ def _round4(n: int) -> int:
     return -(-n // 4) * 4
 
 
-def _ld(width: int, v: int) -> int:
-    """Shared row stride (words) of a chunk ``width`` wide, read v floats
-    a row by consecutive threads: a multiple of v with an odd quotient,
-    so a warp's loads hit distinct banks."""
-    ld = width
-    while ld % v or (ld // v) % 2 == 0:
-        ld += 1
-    return ld
-
-
-def copy_width(d: int, data_ptr: int) -> int:
-    """Floats a cp.async copy of the SV table moves: 4 where rows and the
-    table are 16-byte aligned, 2 where 8-byte, else 1 (d 54: 2)."""
-    for v in (4, 2):
-        if d % v == 0 and data_ptr % (4 * v) == 0:
-            return v
-    return 1
-
-
 def predict_splits(c: int, m: int, k: int, p: int, n_sm: int) -> int:
     """Blocks that share one slot's SV tiles: 1 while the (slot, row tile,
     column block) units alone give every SM a block; else as many as put
@@ -135,7 +117,7 @@ def predict_plan(c: int, m: int, k: int, d: int, p: int, n_sm: int,
     rows = _rows_per_block(p)
     x_bytes = 4 * _round4(rows * d)
     for dk in CHUNKS:
-        ld = _ld(min(dk, d), v)
+        ld = smem_stride(min(dk, d), v)
         bulk = (aligned and d <= dk and ld == d and p <= _P_BLOCK
                 and math.gcd(p, 32) <= BULK_BANK_WAYS
                 and (k * d) % 4 == 0 and (k * p) % 4 == 0)

@@ -24,8 +24,13 @@ Gauss-Seidel epoch (B4, B5) bitwise where n is off and below its
 bf16 kernel over 16 kv tiles (its TMA ring wraps) and at gemma3-4b's local
 layers (D = 256, window 1024), and a misaligned view refused; B2 with one
 gamma per row bitwise equal to its plain version where rows straddle
-16-byte chunks (N % 8 = 1, 7) and where they do not; B1 and B3 at the SVM head's d = 2048;
-greedy generation at the smoke configs through the kernels against the
+16-byte chunks (N % 8 = 1, 7) and where they do not; B1 and B3 at the
+SVM head's d = 2048; B1 and B1-sym on every path of their launch plan
+(few and many query rows, TMA spans and per-thread copies of tables
+that are not 16-byte aligned, whole and chunked features, d 1 to 2048,
+n and m at 1, 127, 129 and 1825, more slots than SMs) and their bitwise
+invariants (B1-sym(x) equals B1(x, x), a slot alone equals the same
+slot in a batch, B7 equals B2 over B1); greedy generation at the smoke configs through the kernels against the
 plain path; for the nearest-center kernel (B6) a center table larger than
 shared memory, tables just under and over the resident limit, C and d off
 every tile, d odd, duplicated centers, one row and one center; for the
@@ -59,13 +64,32 @@ def _rand(gen, *shape, scale=1.0):
     return torch.randn(*shape, generator=gen) * scale
 
 
+def _table(gen, dev, b, m, d, offset=0, scale=3.0):
+    """(b, m, d) on ``dev``, ``offset`` floats into its allocation: offset
+    1 leaves the table only 4-byte aligned."""
+    flat = _rand(gen, b * m * d + offset, scale=scale).to(dev)
+    return flat[offset:].view(b, m, d)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,n,m,d", [(1, 1, 1, 1), (3, 13, 300, 54),
-                                     (2, 40, 129, 33), (5, 8, 2048, 7)])
-def test_sq_dists_kernel_matches_plain(cuda, b, n, m, d):
+@pytest.mark.parametrize("b,n,m,d,offset", [
+    (1, 1, 1, 1, 0), (3, 13, 300, 54, 0), (2, 40, 129, 33, 0),
+    (5, 8, 2048, 7, 0),
+    # few query rows (z streamed): the serving wave by the TMA unit (256
+    # slots), per-thread copies of an unaligned table at the ragged edge,
+    # 16-byte copies in chunks of 64 features, d 2048
+    (256, 8, 2048, 54, 0), (3, 8, 1825, 54, 1), (2, 16, 129, 300, 0),
+    (2, 9, 127, 2048, 0), (140, 5, 300, 54, 1),
+    # many query rows (the register tile): staged whole just past the
+    # streamed regime and unaligned, streamed features, d 1, d 2048, more
+    # slots than SMs, n and m off the 128-row tile and off 4
+    (2, 17, 1825, 54, 1), (2, 129, 127, 300, 0), (1, 1825, 129, 1, 0),
+    (2, 127, 1825, 2048, 0), (140, 20, 130, 7, 0), (3, 600, 1824, 54, 0)])
+def test_sq_dists_kernel_matches_plain(cuda, b, n, m, d, offset):
     gen = torch.Generator().manual_seed(b * 1000 + n)
     x = _rand(gen, b, n, d, scale=3.0).to(cuda)
-    z = _rand(gen, b, m, d, scale=3.0).to(cuda)
+    z = _table(gen, cuda, b, m, d, offset)
+    assert (z.data_ptr() % 16 == 0) == (offset == 0)
     before = km_ops.launches["sq_dists"]
     got = km_ops.sq_dists(x, z)
     want = km_ref.sq_dists_ref(x, z)
@@ -189,9 +213,11 @@ from repro_torch.kernels.cd_solver import ref as cd_ref  # noqa: E402
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [1, 127, 129, 1824])
-@pytest.mark.parametrize("d", [1, 54, 300])
+@pytest.mark.parametrize("k", [1, 127, 129, 1824, 1825])
+@pytest.mark.parametrize("d", [1, 54, 300, 7, 2048])
 def test_sq_dists_sym_kernel_is_symmetric_and_matches_plain(cuda, k, d):
+    """Whole-staged (d <= 104) and streamed features, diagonal and
+    mirrored tiles, n off the 128-row tile and off 4 (scalar stores)."""
     gen = torch.Generator().manual_seed(k * 7 + d)
     b = 3 if k < 1000 else 2
     x = _rand(gen, b, k, d, scale=2.0).to(cuda)
@@ -208,6 +234,61 @@ def test_sq_dists_sym_kernel_is_symmetric_and_matches_plain(cuda, k, d):
     assert float((got - want).abs().max()) <= 64 * EPS * scale
     one = km_ops.sq_dists(x[0], x[0], symmetric=True)     # unbatched
     assert torch.equal(one, got[0])
+
+
+# (invariant, shape): every D² value is one ascending fp32 FMA chain a
+# pair, whichever kernel, tile, copy path or slot computes it
+_D2_INVARIANTS = [
+    # B1-sym(x) == B1(x, x): the training wave, B1 on its streamed path
+    # (n <= 16), streamed features, d 1
+    ("sym_is_cross", (16, 1824, 54)), ("sym_is_cross", (3, 12, 54)),
+    ("sym_is_cross", (2, 300, 2048)), ("sym_is_cross", (3, 129, 7)),
+    ("sym_is_cross", (3, 127, 1)),
+    # one slot alone (its table aligned otherwise: another copy path) ==
+    # the same slot inside a batch of more slots than SMs
+    ("slot_alone", (140, 8, 2048, 54)), ("slot_alone", (140, 40, 300, 54)),
+    ("slot_alone", (3, 16, 1825, 300)), ("slot_alone_sym", (140, 200, 54)),
+    # B7 == B2(B1): one pass computes what B1 then B2 compute
+    *[("gram_is_epilogue", (kind, n, m, d))
+      for kind in ("gauss_rbf", "laplacian")
+      for n, m, d in ((1, 130, 3), (300, 257, 54), (2048, 2048, 54),
+                      (9, 1, 1))],
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("invariant,shape", _D2_INVARIANTS)
+def test_d2_kernels_bitwise_invariants(cuda, invariant, shape):
+    gen = torch.Generator().manual_seed(
+        len(invariant) * 1000 + sum(v for v in shape if isinstance(v, int)))
+    if invariant == "sym_is_cross":
+        b, n, d = shape
+        x = _rand(gen, b, n, d, scale=2.0).to(cuda)
+        got = km_ops.sq_dists(x, x, symmetric=True)
+        assert torch.equal(got, km_ops.sq_dists(x, x))
+    elif invariant == "slot_alone":
+        b, n, m, d = shape
+        x = _rand(gen, b, n, d).to(cuda)
+        z = _table(gen, cuda, b, m, d)
+        got = km_ops.sq_dists(x, z)
+        for s in (0, 1, b - 1):
+            assert torch.equal(km_ops.sq_dists(x[s:s + 1], z[s:s + 1])[0],
+                               got[s])
+    elif invariant == "slot_alone_sym":
+        b, n, d = shape
+        x = _rand(gen, b, n, d).to(cuda)
+        got = km_ops.sq_dists(x, x, symmetric=True)
+        for s in (0, 1, b - 1):
+            assert torch.equal(km_ops.sq_dists(x[s], x[s], symmetric=True),
+                               got[s])
+    else:
+        kind, n, m, d = shape
+        x = _rand(gen, n, d).to(cuda)
+        z = _rand(gen, m, d).to(cuda)
+        gamma = 0.7 * d ** 0.5
+        got = km_ops.kernel_matrix(x, z, gamma, kind=kind)
+        two = km_ops.gram_from_d2(km_ops.sq_dists(x, z), gamma, kind=kind)
+        assert torch.equal(got, two)
 
 
 def _cd_problem(gen, s, f, n, p, pad):
@@ -616,9 +697,6 @@ def test_gram_kernel_matches_plain(cuda, kind, n, m, d):
     assert km_ops.launches["gram"] == before + 1
     assert got.shape == (n, m)
     assert bool(((got - want).abs() <= _gram_bound(x, z, gamma, kind)).all())
-    # one pass computes what B1 then B2 compute, value for value
-    two = km_ops.gram_from_d2(km_ops.sq_dists(x, z), gamma, kind=kind)
-    assert torch.equal(got, two)
 
 
 @pytest.mark.gpu

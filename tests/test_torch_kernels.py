@@ -759,6 +759,68 @@ def test_assign_resident_or_streamed(c, d, resident):
     assert ta_ops.assign_plan(300, c, d, 132).grid == (2 if resident else 5)
 
 
+@pytest.mark.parametrize("n,m,d,v,aligned,rows,bulk,dk", [
+    (8, 2048, 54, 2, True, True, True, 64),      # the serving wave: TMA
+    (8, 2048, 54, 2, False, True, False, 64),    # z not 16-byte aligned
+    (16, 2048, 54, 2, True, True, True, 64),     # the most rows streamed
+    (17, 2048, 54, 2, True, False, False, 54),   # the tile; n d % 4 != 0
+    (20, 2048, 54, 2, True, False, True, 54),    # the tile by the TMA unit
+    (8, 2047, 54, 2, True, True, False, 64),     # m d % 4 != 0
+    (8, 2048, 56, 4, True, True, False, 64),     # stride 56 / 4 even
+    (8, 2048, 7, 1, True, True, True, 64),       # stride 7 odd
+    (13, 704, 2048, 4, True, True, False, 64),   # chunks of 64
+    (1, 1, 1, 1, True, True, False, 64),         # 1 x 1 x 1: m d % 4 != 0
+    (8, 16, 0, 1, True, False, False, 1),        # no features: the tile
+    (416, 1824, 54, 2, True, False, True, 54),   # the fit's test phase
+    (416, 1824, 54, 2, False, False, False, 54),  # unaligned: copies
+    (417, 1824, 54, 2, True, False, False, 54),  # n d % 4 != 0
+    (600, 1824, 56, 4, True, False, False, 32),  # d 56: chunks, stride 34
+    (800, 800, 2048, 4, True, False, False, 32),  # the LM head's d
+    (800, 800, 7, 1, True, False, False, 7),     # d odd: one pad feature
+])
+def test_sq_dists_plan_by_shape(n, m, d, v, aligned, rows, bulk, dk):
+    """B1's launch plan: up to ROWS_MAX query rows stream the z table (by
+    the TMA unit where a tile is one aligned span read conflict-free at
+    its own stride), more take the register tile, whose two row blocks
+    are staged whole up to d = TILE_WHOLE (by the TMA unit where each is
+    one aligned span at a stride of 2 mod 4) and streamed in chunks
+    beyond."""
+    plan = tk_ops.sq_dists_plan(n, m, d, v, aligned)
+    assert (plan.rows, plan.bulk, plan.dk) == (rows, bulk, dk)
+    if rows:
+        assert plan.ld % v == 0 and (plan.ld // v) % 2 == 1
+        assert plan.ld == d if bulk else plan.ld >= min(dk, d)
+        stage = -(-128 * plan.ld // 4) * 4
+        assert plan.smem == 4 * (8 * d + tk_ops.ROWS_STAGES * stage)
+    else:
+        assert plan == tk_ops.tile_plan(n, m, d, v, aligned)
+        assert plan.ld % 4 == 2 and plan.ld >= plan.dk and plan.v <= 2
+        assert plan.ld == d if bulk else plan.ld - plan.dk <= 3
+        dkp = plan.dk + plan.dk % 2        # raw rows, then feature-major
+        assert plan.smem == 4 * 2 * 128 * (plan.ld + dkp)
+
+
+@pytest.mark.parametrize("d", list(range(0, 140)) + [300, 2048, 4096,
+                                                      16384, 60000])
+def test_sq_dists_plans_fit_shared_memory(d):
+    """Every plan fits a block's shared memory; the register tile fits two
+    blocks an SM (one block's stores overlap the other's FMAs)."""
+    sm_bytes = 233472                      # an SM's shared memory (228 KB)
+    for v in (1, 2, 4):
+        if d % v:
+            continue
+        tile = tk_ops.tile_plan(1824, 1824, d, v, True)
+        assert 2 * (tile.smem + tk_ops._STATIC + 1024) <= sm_bytes
+        assert (tile.dk == max(d, 1)) == (d <= tk_ops.TILE_WHOLE)
+        plan = tk_ops.sq_dists_plan(8, 2048, d, v, True)
+        assert plan.smem + tk_ops._STATIC <= tk_ops.SMEM_MAX
+        # the tile only where not even 4-feature chunks fit beside the 8
+        # resident x rows
+        smallest = (4 * 8 * d + tk_ops.ROWS_STAGES * 4 * 128 * 5
+                    + tk_ops._STATIC)
+        assert plan.rows or smallest > tk_ops.SMEM_MAX or d == 0
+
+
 def test_import_leaves_no_jax_and_no_reference_modules():
     """Importing every module of the port pulls in neither jax nor any
     module of the JAX package."""
