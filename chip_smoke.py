@@ -36,7 +36,21 @@ kernels from ``src/repro_torch/csrc/`` into ``build/kernels/`` and then:
      every wave counted, its stage times, FISTA iterations and test error
      through ``decision_function`` and through the bank served by
      ``SVMEngine``; drives ``cd_epochs`` (B5's entry point) on one fitted
-     cell;
+     cell; then the staged session (``staged_small``: an ``nplSVM``
+     session at n 1008 on the CPU and on the card, with the same plans,
+     argmin and npl winners, moved sets and ``stats``, and re-solved
+     decisions within 5e-3; ``staged``: Covertype's binary form at the
+     training cell's widths and settings, ``nplSVM`` with 5 weights, then
+     ``select`` under npl at alphas 0.05 and 0.01 (one B1 a gamma group),
+     roc (no re-solve) and argmin (the cache bitwise), the held-out test,
+     save and load of both results and the bank under
+     ``build/chip_smoke_staged/`` (removed at the start and end; the
+     loaded bank serves the same bits), ``engine()`` serving 8192 requests
+     with ``monitor()`` attached, a drifted batch on 3 cells that
+     ``drifted_cells()`` must name, ``refresh_drifted`` on a labelled
+     feedback pool touching exactly those slots, ``swap_bank`` and serving
+     again within ``predict_bound`` of the plain reference; every step's
+     launches exact);
   6. the LM path at stablelm-1.6b's full width (seed-initialised, bf16):
      holds flash attention (B9) and fused decode attention (B10) against
      their plain versions (every mask kind, GQA, head_dim 64 and 256, bf16
@@ -48,7 +62,10 @@ kernels from ``src/repro_torch/csrc/`` into ``build/kernels/`` and then:
      held-out sequences and serves them through ``EmbedServe``; generates
      64 tokens for 8 prompts of 256 with a bf16 and an int8 cache, and at
      the smoke configs in f32 checks the tokens through the kernels equal
-     the plain path's; each run's launches are counted on their own;
+     the plain path's; gemma3-4b at full width in bf16 over 2 sequences of
+     2048 tokens (past its 1024 window): pooled rows and the prefill's and
+     first decode step's logits against the plain attention path within
+     3e-2; each run's launches are counted on their own;
   7. cell construction at UCI Covertype's full size (covtype_like rows,
      580,986 x 54, written to a memmap under ``build/chip_smoke_cells/``,
      removed at the start and the end of the phase): holds the
@@ -116,6 +133,39 @@ FISTA_PROFILE_ITERS = 20
 # surfaces of the CPU and the card fit: at most this share of a column's
 # validation samples may change sides (see small_fit_parity)
 FLIP_SHARE = 0.01
+
+# staged session: Covertype's binary form (LIBSVM's covtype.binary, two
+# classes) at Covertype's widths, Neyman-Pearson selection
+# (nplSVM: false alarms on class -1 at most STAGED_ALPHA, the default
+# weight grid of 5: P = 10 lambdas x 5 weights = 50) with the training
+# cell's settings; rows from covtype_like with 2 classes, 32004 trained and
+# 8000 held out as in the training phase; artifacts under STAGED_DIR
+STAGED_KEYS = dict(VORONOI="recursive", CELL_SIZE=2000, FOLDS=5,
+                   GRID_CHOICE=0, TOLERANCE=1e-3, MAX_ITERATIONS=1000,
+                   SOLVER_POLISH=2, WAVE_SLOTS=16)
+STAGED_ALPHA, STAGED_ALPHA_2 = 0.05, 0.01
+# re-solve calls (one per winning gamma group; each launches B1 and B2
+# once and B4 SOLVER_POLISH times) at this cell: the selections and the
+# refresh are deterministic on the card (measured on an H100)
+STAGED_RESOLVE_CALLS = {"select_npl": 5, "select_npl_2": 7,
+                        "select_npl_again": 5, "refresh": 4}
+STAGED_DIR = ROOT / "build" / "chip_smoke_staged"
+# the CPU-vs-card session (n ~ 1000, cells of 500, 3 folds)
+STAGED_SMALL_KEYS = dict(VORONOI="recursive", CELL_SIZE=500, FOLDS=3,
+                         TOLERANCE=1e-3, MAX_ITERATIONS=1000, SOLVER_POLISH=2)
+# re-solved decisions of two runs: both stop FISTA at a KKT residual of
+# 1e-3 of the box, products summed in another order (test_torch_session)
+RESOLVE_TOL = 5e-3
+# the drifted batch: the DRIFT_CELLS cells with the most held-out traffic,
+# their queries moved DRIFT_SIGMA standard deviations (scaled units) away
+# from the cell's center on DRIFT_FEATURES features, served DRIFT_REPEAT
+# times in a monitor pane of their own (panes of DRIFT_WINDOW_S seconds)
+DRIFT_CELLS, DRIFT_FEATURES, DRIFT_SIGMA, DRIFT_REPEAT = 3, 12, 3.0, 2
+DRIFT_WINDOW_S = 1.0
+# C7: gemma3-4b at its published widths (hf:google/gemma-3-4b-pt: 34
+# layers, d_model 2560, head_dim 256, a 1024-token window on 28 layers) in
+# bf16, seed-initialised; 2 sequences of 2048 tokens (past the window)
+GEMMA_ARCH, GEMMA_B, GEMMA_T = "gemma3-4b", 2, 2048
 
 # LM slice: stablelm-1.6b at full width (hf:stabilityai/stablelm-2-1_6b: 24
 # layers, d_model 2048, 32 heads of 64, d_ff 5632, vocab 100352, bf16),
@@ -357,21 +407,116 @@ def require_launches(label: str, counts: dict, expect: dict) -> None:
                            f"expected {want}")
 
 
-@contextlib.contextmanager
-def recorded_d2(km_ops, calls: list):
-    """Inside, every ``km_ops.sq_dists`` call also appends its operands
-    (x, z, symmetric) to ``calls``, so that a path's own B1 and B1-sym
-    launches can be timed at their shapes; the counts stay the wrapper's."""
-    inner = km_ops.sq_dists
+def _snap(v):
+    """A copy of ``v`` that later in-place writes cannot reach."""
+    if hasattr(v, "detach"):
+        return v.detach().clone()
+    if isinstance(v, (tuple, list)):
+        return type(v)(_snap(a) for a in v)
+    if isinstance(v, dict):
+        return {k: _snap(a) for k, a in v.items()}
+    return v
 
-    def rec(x, z, symmetric=False):
-        calls.append((x, z, symmetric))
-        return inner(x, z, symmetric=symmetric)
-    km_ops.sq_dists = rec
+
+@contextlib.contextmanager
+def recorded(mod, name: str, calls: list, keep: int = None, device=None,
+             snap: bool = True):
+    """Inside, every call of ``mod.name`` also appends ``(args, kwargs,
+    out)`` to ``calls``: copies taken before and after the call (``snap``),
+    else the arguments themselves and no output.  Only the first ``keep``
+    calls, and with ``device`` only calls whose first argument lies there.
+    So a path's own launches can be replayed against their plain versions
+    or timed at their shapes; the counts stay the wrapper's."""
+    inner = getattr(mod, name)
+
+    def rec(*args, **kwargs):
+        take = ((keep is None or len(calls) < keep)
+                and (device is None or args[0].device == device))
+        if not take:
+            return inner(*args, **kwargs)
+        if not snap:
+            calls.append((args, kwargs, None))
+            return inner(*args, **kwargs)
+        before = _snap((args, kwargs))
+        out = inner(*args, **kwargs)
+        calls.append((*before, _snap(out)))
+        return out
+    setattr(mod, name, rec)
     try:
         yield calls
     finally:
-        km_ops.sq_dists = inner
+        setattr(mod, name, inner)
+
+
+def replay_kernels(torch, label: str, rec: dict, expect: dict) -> dict:
+    """A path's recorded launches (``rec``: lists of ``recorded`` calls of
+    "sq_dists", "gram_from_d2" and the B4 driver "cd", ``cd_ops._epochs``)
+    against their plain versions on the same operands on the card: B1
+    within 64 ulps of the largest |x|^2 + |z|^2 (B1-sym also bitwise
+    symmetric), B2 within 8 ulps of K <= 1 (one bf16 ulp on a bf16 write),
+    B4 bitwise equal to the plain exact sweep.  ``expect``: kernel -> the
+    count of launches that must have been replayed.  Returns each
+    kernel's worst error and that count."""
+    from repro_torch.kernels.cd_solver.ref import cd_wave_epoch_ref
+    from repro_torch.kernels.kernel_matrix.ref import (gram_from_d2_ref,
+                                                       sq_dists_ref)
+    eps = float(np.finfo(np.float32).eps)
+    errs, n = collections.defaultdict(float), collections.Counter()
+
+    def note(name, err, tol, **extra):
+        errs[name] = max(errs[name], check(f"{label}: {name}", err, tol,
+                                           **extra))
+        n[name] += 1
+
+    for args, kw, out in rec.get("sq_dists", []):
+        x, z = args[:2]
+        sym = bool(kw.get("symmetric", args[2] if len(args) > 2 else False))
+        want = sq_dists_ref(x, z, symmetric=sym)
+        tol = 64 * eps * float((x * x).sum(-1).max() + (z * z).sum(-1).max())
+        if sym and not torch.equal(out, out.transpose(-1, -2)):
+            raise Mismatch(f"{label}: sq_dists_sym not bitwise symmetric")
+        note("sq_dists_sym" if sym else "sq_dists",
+             float((out - want).abs().max()), tol, shape=list(out.shape))
+    for args, kw, out in rec.get("gram_from_d2", []):
+        d2, gamma = args[:2]
+        kind = kw.get("kind", args[2] if len(args) > 2 else "gauss_rbf")
+        dout = kw.get("out_dtype", args[3] if len(args) > 3 else "f32")
+        if d2.dim() == 3:
+            want = gram_from_d2_ref(d2[:, None], gamma[:, :, None, None],
+                                    kind, dout)
+        else:
+            want = gram_from_d2_ref(d2, gamma, kind, dout)
+        note("gram_from_d2", float((out.float() - want.float()).abs().max()),
+             2.0 ** -8 if dout == "bf16" else 8 * eps, shape=list(out.shape))
+    for (k, c, g, lo, hi, epochs, _), _, (oc, og) in rec.get("cd", []):
+        for _ in range(epochs):
+            c, g = cd_wave_epoch_ref(k, c, g, lo, hi)
+        same = bool(torch.equal(oc, c) and torch.equal(og, g))
+        note("cd_wave_epoch", float(max((oc - c).abs().max(),
+                                        (og - g).abs().max())), 0.0,
+             shape=list(oc.shape), epochs=epochs, bitwise=same)
+        if not same:
+            raise Mismatch(f"{label}: cd_wave_epoch not bitwise the plain "
+                           f"sweep")
+    if dict(n) != expect:
+        raise Mismatch(f"{label}: replayed {dict(n)}, expected {expect}")
+    return {"max_abs_err": dict(errs), "replayed": dict(n)}
+
+
+@contextlib.contextmanager
+def recorded_kernels(dev, keep: int = None):
+    """``recorded`` over B1 (and B1-sym), B2 and B4's driver at once, on
+    the card's operands: yields the dict ``replay_kernels`` takes."""
+    from repro_torch.kernels.cd_solver import ops as cd_ops
+    from repro_torch.kernels.kernel_matrix import ops as km_ops
+    rec = {"sq_dists": [], "gram_from_d2": [], "cd": []}
+    with contextlib.ExitStack() as st:
+        for mod, name, key in ((km_ops, "sq_dists", "sq_dists"),
+                               (km_ops, "gram_from_d2", "gram_from_d2"),
+                               (cd_ops, "_epochs", "cd")):
+            st.enter_context(recorded(mod, name, rec[key], keep=keep,
+                                      device=dev))
+        yield rec
 
 
 def wave_problem(torch, x_w, mask_w, n_folds: int, n_cols: int, seed: int):
@@ -620,7 +765,7 @@ def full_fit(torch, dev, data, LiquidSVM, SVMTrainerConfig, tables,
     # operands kept for the kernel table
     from repro_torch.kernels.kernel_matrix import ops as km_ops
     zero_counts(tables)
-    with recorded_d2(km_ops, []) as calls:
+    with recorded(km_ops, "sq_dists", [], snap=False) as calls:
         dec_df = model.decision_function(xt)
         err_df = model.error(xt, yt)
     test_counts = read_counts(tables)
@@ -629,7 +774,8 @@ def full_fit(torch, dev, data, LiquidSVM, SVMTrainerConfig, tables,
             if k not in ("sq_dists", "gram_from_d2")):
         raise Mismatch(f"decision_function launched {test_counts}; it "
                        f"launches B1 and B2 only")
-    return model, fit_counts, test_counts, dec_df, err_df, calls[0][:2]
+    return (model, fit_counts, test_counts, dec_df, err_df,
+            calls[0][0][:2])
 
 
 def serve_trained(torch, dev, model, xt, yt, dec_df, err_df, SVMEngine,
@@ -730,33 +876,490 @@ def fista_profile(torch, prob):
                                  max_iters=FISTA_PROFILE_ITERS, l_est=l_est)
 
     run()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # the kernels' own rows: an operator's row repeats its kernels' time
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    dev_ms = sum(dev_us(e) for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -dev_us(e))[:6]
     emit({"phase": "fista_profile", "iters": FISTA_PROFILE_ITERS,
-          "wall_ms": wall_ms, "device_ms": dev_ms,
-          "device_busy_share": dev_ms / wall_ms if dev_ms else None,
-          "top_kernels_ms": {e.key[:60]: dev_us(e) / 1e3 for e in top},
+          **_profile(torch, run, top=6),
           "kc_product_ms": cuda_ms(torch, lambda: cd_ops.slot_matmul(kk, c0),
                                    iters=10)})
 
 
 # ------------------------------------------------------------ LM slice
+def _np_rule(select_mod, tr, rule: str, alpha: float):
+    """A rule's winners over a TrainResult's surface (the select stage's
+    own call), for comparing two runs' winners."""
+    ctx = select_mod.SelectContext(
+        scenario=tr.config.scenario,
+        weights=np.asarray(tr.config.weights, np.float32),
+        taus=np.asarray(tr.config.taus, np.float32), alpha=alpha)
+    return select_mod.get_rule(rule)(tr.surface(), ctx)
+
+
+def _moved(sel, tr) -> np.ndarray:
+    return (sel.gamma != tr.gamma) | (sel.lam != tr.lam)
+
+
+def _binary(y: np.ndarray) -> np.ndarray:
+    return np.where(y == 0, -1.0, 1.0).astype(np.float32)
+
+
+def staged_small(torch, dev, nplSVM, covtype_like, covtype_like_heldout,
+                 select_mod):
+    """An nplSVM session at n ~ 1000 on the CPU and on the card: the same
+    plans, the same argmin and npl winners, the same moved set and
+    ``stats`` counts (iterations aside), re-solved decisions within
+    RESOLVE_TOL of the largest."""
+    x, y = covtype_like(n=SMALL_N, d=DIM, n_classes=2, seed=SMALL_SEED)
+    xt, _ = covtype_like_heldout(2000, n=SMALL_N, d=DIM, n_classes=2,
+                                 seed=SMALL_SEED, new_seed=HELDOUT_SEED)
+    y = _binary(y)
+    runs = {}
+    for label, device in (("cpu", "cpu"), ("card", dev)):
+        sess = nplSVM(x, y, constraint=STAGED_ALPHA, device=device,
+                      **STAGED_SMALL_KEYS)
+        t0 = time.perf_counter()
+        tr = sess.train()
+        t1 = time.perf_counter()
+        sel = sess.select()
+        t2 = time.perf_counter()
+        runs[label] = (tr, sel, t1 - t0, t2 - t1, sel.decision_function(xt))
+    (ta, sa, _, _, da), (tb, sb, _, _, db) = runs["cpu"], runs["card"]
+    for field in ("indices", "mask", "owner", "centers"):
+        if not np.array_equal(getattr(ta.plan, field),
+                              getattr(tb.plan, field)):
+            raise Mismatch(f"staged_small: cell plans differ in {field}")
+    arg_a = select_mod.argmin_winners(ta.surf_loss)
+    arg_b = select_mod.argmin_winners(tb.surf_loss)
+    npl_a = _np_rule(select_mod, ta, "npl", STAGED_ALPHA)
+    npl_b = _np_rule(select_mod, tb, "npl", STAGED_ALPHA)
+    same_argmin = all(np.array_equal(u, v) for u, v in zip(arg_a, arg_b))
+    same_npl = (np.array_equal(npl_a.g_idx, npl_b.g_idx)
+                and np.array_equal(npl_a.l_idx, npl_b.l_idx)
+                and np.array_equal(npl_a.extras["np_weight_idx"],
+                                   npl_b.extras["np_weight_idx"]))
+    same_moved = bool(np.array_equal(_moved(sa, ta), _moved(sb, tb)))
+    counts = ("winners_moved", "columns_resolved", "resolve_calls",
+              "grid_columns")
+    same_stats = all(sa.stats[k] == sb.stats[k] for k in counts)
+    scale = max(1.0, float(np.abs(da).max()))
+    err = float(np.abs(da - db).max())
+    ok = (same_argmin and same_npl and same_moved and same_stats
+          and err <= RESOLVE_TOL * scale)
+    emit({"phase": "staged_small", "n": SMALL_N, "cells": ta.plan.n_cells,
+          "k_max": ta.plan.k_max, "weights": list(ta.config.weights),
+          "cpu_train_s": runs["cpu"][2], "card_train_s": runs["card"][2],
+          "cpu_select_s": runs["cpu"][3], "card_select_s": runs["card"][3],
+          "plans_equal": True, "argmin_winners_equal": same_argmin,
+          "npl_winners_equal": same_npl, "moved_equal": same_moved,
+          "stats_cpu": sa.stats, "stats_card": sb.stats,
+          "decisions_max_abs_err": err, "tol": RESOLVE_TOL * scale,
+          "ok": ok})
+    if not ok:
+        raise Mismatch("staged_small: the CPU and the card disagree "
+                       "(see the phase line)")
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def _drifted_batch(bank, eng, xq, targets):
+    """Queries of ``targets`` moved DRIFT_SIGMA (scaled units) away from
+    their cell's center on DRIFT_FEATURES features; only rows that still
+    route to their cell are kept.  Returns raw rows and their row ids."""
+    xs = (xq - bank.feat_mean) / bank.feat_std
+    owner = eng.route(xs)
+    feats = np.arange(DRIFT_FEATURES)
+    rows, ids = [], []
+    for c in targets:
+        sel = np.flatnonzero(owner == c)
+        moved = xs[sel].copy()
+        side = np.sign(moved[:, feats] - bank.centers[c, feats])
+        moved[:, feats] += DRIFT_SIGMA * np.where(side == 0, 1.0, side)
+        keep = eng.route(moved.astype(np.float32)) == c
+        if keep.sum() < 8:
+            raise Mismatch(f"drifted batch: only {int(keep.sum())} moved "
+                           f"rows of cell {c} still route to it")
+        rows.append(moved[keep] * bank.feat_std + bank.feat_mean)
+        ids.append(sel[keep])
+    return np.concatenate(rows).astype(np.float32), np.concatenate(ids)
+
+
+def staged(torch, dev, nplSVM, covtype_like, covtype_like_heldout, tables,
+           refs, session_mod, ModelBank, refresh_drifted):
+    """The whole staged session at full width: train, select under npl
+    (two alphas), roc and argmin, test, save and load of both results and
+    the bank, serving with a health monitor, a drifted batch, the refresh
+    of exactly the drifted slots and a hot swap.  Each step's launches are
+    counted on their own and held to the counts the code fixes."""
+    x, y = covtype_like(n=TRAIN_N, d=DIM, n_classes=2, seed=SEED)
+    xt, yt = covtype_like_heldout(HELDOUT_N, n=TRAIN_N, d=DIM, n_classes=2,
+                                  seed=SEED, new_seed=HELDOUT_SEED)
+    y, yt = _binary(y), _binary(yt)
+    sess = nplSVM(x, y, constraint=STAGED_ALPHA, device=dev, **STAGED_KEYS)
+    cfg = sess.config
+    out = {"n": int(x.shape[0]), "heldout": int(xt.shape[0]),
+           "weights": list(cfg.weights)}
+    paths = {}
+
+    def timed(label, fn):
+        zero_counts(tables)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[f"{label}_s"] = time.perf_counter() - t0
+        paths[label] = read_counts(tables)
+        return res
+
+    def resolves(label, st):
+        """A select (or refresh) launches B1 and B2 once and B4
+        ``cd_polish`` times per re-solve call, and nothing else."""
+        n = st["resolve_calls"]
+        if n != STAGED_RESOLVE_CALLS[label]:
+            raise Mismatch(f"{label}: {n} re-solve calls, expected "
+                           f"{STAGED_RESOLVE_CALLS[label]}")
+        require_launches(label, paths[label], {
+            "sq_dists": n, "gram_from_d2": n,
+            "cd_wave_epoch": cfg.cd_polish * n})
+
+    # the fit's first B1-sym, B2 and B4 launches are kept for their replay
+    with recorded_kernels(dev, keep=1) as fit_rec:
+        tr = timed("fit", sess.train)
+    n_waves = -(-tr.packed.n_slots // cfg.n_slots_per_wave)
+    n_gamma = tr.gammas_cells.shape[1]
+    require_launches("staged fit", paths["fit"], {
+        "sq_dists_sym": n_waves, "gram_from_d2": n_gamma * n_waves,
+        "cd_wave_epoch": cfg.cd_polish * n_gamma * n_waves})
+    out["fit_replay"] = replay_kernels(torch, "staged fit", fit_rec, {
+        "sq_dists_sym": 1, "gram_from_d2": 1, "cd_wave_epoch": 1})
+    out.update(cells=tr.plan.n_cells, k_max=tr.plan.k_max,
+               slots=tr.packed.n_slots, waves=n_waves,
+               columns=int(tr.lambdas.size * len(cfg.weights)))
+
+    sel = timed("select_npl", sess.select)
+    resolves("select_npl", sel.stats)
+    if sel.rule != "npl" or sel.stats["winners_moved"] == 0:
+        raise Mismatch(f"staged: npl moved no winner ({sel.stats})")
+    sel_2 = timed("select_npl_2",
+                  lambda: sess.select("npl", alpha=STAGED_ALPHA_2))
+    resolves("select_npl_2", sel_2.stats)
+    sel_roc = timed("select_roc", lambda: sess.select("roc"))
+    require_launches("select_roc", paths["select_roc"], {})
+    if sel_roc.stats["resolve_calls"] != 0:
+        raise Mismatch(f"staged: roc re-solved ({sel_roc.stats})")
+    sel_arg = timed("select_argmin", lambda: sess.select("argmin"))
+    require_launches("select_argmin", paths["select_argmin"], {})
+    if not (np.array_equal(sel_arg.coefs, tr.coefs)
+            and sel_arg.stats["resolve_calls"] == 0):
+        raise Mismatch("staged: argmin does not return to the cache bitwise")
+    # the moved columns only: every other column keeps the cached model
+    keep = ~_moved(sel, tr)
+    if not np.array_equal(np.moveaxis(sel.coefs, 1, -1)[keep],
+                          np.moveaxis(tr.coefs, 1, -1)[keep]):
+        raise Mismatch("staged: npl changed a column it did not move")
+    # back to the session's own rule (npl at STAGED_ALPHA) for the test,
+    # the bank and serving: the same work as the first select
+    sel_again = timed("select_npl_again", sess.select)
+    resolves("select_npl_again", sel_again.stats)
+    out["reselect_bitwise"] = bool(np.array_equal(sel_again.coefs,
+                                                  sel.coefs))
+    sel = sel_again
+    out["select_replay"] = resolve_replay(torch, dev, sess, sel)
+    out["select_profile"] = _profile(torch, sess.select)
+    for label, st in (("npl", sel.stats), ("npl_2", sel_2.stats),
+                      ("roc", sel_roc.stats), ("argmin", sel_arg.stats)):
+        out[f"stats_{label}"] = st
+
+    with recorded_kernels(dev) as test_rec:
+        res = timed("test", lambda: sess.test(xt, yt))
+    require_launches("staged test", paths["test"],
+                     {"sq_dists": 1, "gram_from_d2": 1})
+    out["test_replay"] = replay_kernels(torch, "staged test", test_rec,
+                                        {"sq_dists": 1, "gram_from_d2": 1})
+    out.update(heldout_error=res.error,
+               heldout_false_alarm=res.details["false_alarm"],
+               heldout_detection=res.details["detection"],
+               validation_false_alarm=float(
+                   sel.extras["np_fa"][0, sel.default_sub]),
+               validation_detection=float(
+                   sel.extras["np_det"][0, sel.default_sub]),
+               np_weight=float(cfg.weights[sel.default_sub]))
+    if not 0.0 < res.details["detection"] <= 1.0:
+        raise Mismatch(f"staged test: detection {res.details}")
+
+    # save and load: the CLI's layout (select/ refers to train/)
+    shutil.rmtree(STAGED_DIR, ignore_errors=True)
+    bank0 = sel.to_bank()
+    t0 = time.perf_counter()
+    tr.save(str(STAGED_DIR / "train"))
+    sel.save(str(STAGED_DIR / "select"), train_ref="../train")
+    bank0.save(str(STAGED_DIR / "bank"))
+    t1 = time.perf_counter()
+    tr_l = session_mod.TrainResult.load(str(STAGED_DIR / "train"),
+                                        device=dev)
+    sel_l = session_mod.SelectResult.load(str(STAGED_DIR / "select"),
+                                          device=dev)
+    bank_l = ModelBank.load(str(STAGED_DIR / "bank"))
+    t2 = time.perf_counter()
+    out.update(save_s=t1 - t0, load_s=t2 - t1, bytes={
+        k: _dir_bytes(STAGED_DIR / k) for k in ("train", "select", "bank")})
+    for k in session_mod.TrainResult._ARRAYS:
+        if not np.array_equal(getattr(tr_l, k), getattr(tr, k)):
+            raise Mismatch(f"staged: loaded TrainResult.{k} differs")
+    if not (np.array_equal(sel_l.coefs, sel.coefs)
+            and sel_l.default_sub == sel.default_sub):
+        raise Mismatch("staged: loaded SelectResult differs")
+    q = np.resize(xt, (N_REQ, DIM))
+    dec_saved = serve(_engine_on(sess, bank0, dev), q)[0]
+    if not np.array_equal(dec_saved, serve(_engine_on(sess, bank_l, dev),
+                                           q)[0]):
+        raise Mismatch("staged: the loaded bank's decisions differ")
+
+    # serving with the health monitor, then the drifted batch
+    eng = sess.engine()
+    serve(eng, q)                                      # warm the shapes
+    eng = sess.engine()
+    bank0 = eng.bank
+    mon = sess.monitor(eng, drift_window_s=DRIFT_WINDOW_S)
+    timed("serve", lambda: serve(eng, q))
+    out["rps_before_swap"] = N_REQ / out["serve_s"]
+    require_launches("staged serve", paths["serve"],
+                     {"svm_predict_cells": N_REQ // WAVE})
+    before = mon.drifted_cells()
+    xs = (xt - bank0.feat_mean) / bank0.feat_std
+    traffic = np.bincount(eng.route(xs), minlength=bank0.n_cells)
+    targets = sorted(int(c) for c in np.argsort(-traffic,
+                                                kind="stable")[:DRIFT_CELLS])
+    drifted_x, drifted_ids = _drifted_batch(bank0, eng, xt, targets)
+    # the in-distribution traffic moves to the previous pane; a cell with
+    # rows in the current pane is scored on those
+    time.sleep(DRIFT_WINDOW_S * 1.2)
+    for _ in range(DRIFT_REPEAT):
+        serve(eng, drifted_x)
+    health = mon.health()
+    drifted = mon.drifted_cells()
+    out.update(drift_targets=targets, drifted_cells=drifted,
+               drifted_rows=int(drifted_x.shape[0]),
+               drift_scores={str(c): health["drift"]["scores"].get(c)
+                             for c in targets},
+               max_other_score=max([v for c, v in
+                                    health["drift"]["scores"].items()
+                                    if c not in targets] or [0.0]),
+               health_status=health["status"])
+    if before or drifted != targets:
+        raise Mismatch(f"staged: drifted_cells {drifted} (before the "
+                       f"batch: {before}); the batch moved {targets}")
+
+    # refresh exactly the drifted slots from a labelled feedback pool (the
+    # drifted rows with their labels, and the held-out rows)
+    x_feed = np.concatenate([drifted_x, xt])
+    y_feed = np.concatenate([yt[drifted_ids], yt])
+    bank1, info = timed("refresh", lambda: refresh_drifted(
+        tr, sel, x_feed, y_feed, drifted, base_version=eng.bank.version))
+    resolves("refresh", info)
+    out["refresh"] = info
+    if bank1 is None or bank1.version != bank0.version + 1:
+        raise Mismatch(f"staged: refresh gave no newer bank ({info})")
+    def same_slot(c: int) -> bool:
+        """Slot c's live table rows, coefficients and gammas bitwise (the
+        padded row count follows the largest slot)."""
+        k = int(bank0.sv_count[c])
+        return (int(bank1.sv_count[c]) == k
+                and np.array_equal(bank0.sv[c, :k], bank1.sv[c, :k])
+                and np.array_equal(bank0.coefs[c, :k], bank1.coefs[c, :k])
+                and np.array_equal(bank0.gammas[c], bank1.gammas[c]))
+    touched = [c for c in range(bank0.n_cells) if not same_slot(c)]
+    out["refreshed_slots"] = touched
+    if touched != drifted:
+        raise Mismatch(f"staged: the refresh changed slots {touched}; "
+                       f"drifted: {drifted}")
+
+    eng.swap_bank(bank1)
+    mon.reset_cells(drifted)
+    dec1 = timed("serve_swapped", lambda: serve(eng, q)[0])
+    out["rps_after_swap"] = N_REQ / out["serve_swapped_s"]
+    require_launches("staged serve after the swap", paths["serve_swapped"],
+                     {"svm_predict_cells": N_REQ // WAVE})
+    want, bnd = plain_decisions(bank1, q, False, dev, **refs)
+    check_bound("staged[refreshed engine] vs plain", dec1, want, bnd)
+    unchanged = ~np.isin(eng.route((q - bank0.feat_mean) / bank0.feat_std),
+                         drifted)
+    out["queries_on_untouched_cells"] = int(unchanged.sum())
+    out["launches"] = paths
+    emit({"phase": "staged", **out})
+    shutil.rmtree(STAGED_DIR, ignore_errors=True)
+    return paths
+
+
+def resolve_replay(torch, dev, sess, sel) -> dict:
+    """One more select under the session's rule with every re-solve call
+    recorded: the same coefficients bitwise as ``sel``; every call's B1,
+    B2 and B4 launches against their plain versions (``replay_kernels``);
+    and the call with the fewest cells solved again on the CPU through
+    ``solve_columns_batched`` on the same operands, whose fold-mean
+    columns must lie within RESOLVE_TOL of each column's box width of the
+    card's (the box at the smallest fold training set, as
+    test_torch_session holds the two packages), and their decisions on
+    the cells' rows within RESOLVE_TOL of the largest."""
+    from repro_torch.core import cv as cv_mod
+    from repro_torch.core import kernel_fns
+    from repro_torch.kernels import runtime
+    solves = []
+    with recorded_kernels(dev) as rec, \
+            recorded(cv_mod, "solve_columns_batched", solves):
+        again = sess.select()
+    n = sel.stats["resolve_calls"]
+    if not (np.array_equal(again.coefs, sel.coefs) and len(solves) == n):
+        raise Mismatch("staged: a repeated select re-solved other columns "
+                       "or made other calls")
+    res = replay_kernels(torch, "staged select", rec, {
+        "sq_dists": n, "gram_from_d2": n, "cd_wave_epoch": n})
+    args, _, (mean, _, _) = min(solves, key=lambda r: r[0][0].shape[0])
+    cpu = [a.cpu() if hasattr(a, "cpu") else a for a in args]
+    t0 = time.perf_counter()
+    with runtime.full_fp32():
+        want = cv_mod.solve_columns_batched(*cpu)[0]
+    cpu_s = time.perf_counter() - t0
+    mask, lam, sub, cfg = cpu[3], cpu[5], cpu[6], cpu[10]
+    f = cfg.n_folds
+    n_eff = torch.clamp(torch.floor(mask.sum(-1) * (f - 1) / f) - 1,
+                        min=1.0)
+    box = torch.clamp(sub, min=1.0) / (2.0 * lam * n_eff[:, None])
+    check_bound("staged select: a re-solve on the CPU vs the card",
+                mean.cpu(), want, RESOLVE_TOL * box[:, None].expand_as(want),
+                shape=list(want.shape))
+    # and the columns' decisions on the cells' rows, as staged_small
+    # holds them: within RESOLVE_TOL of the largest
+    kk = kernel_fns.get_spec(cfg.kernel).fn(cpu[0], cpu[0], cpu[4])
+    dec_card, dec_cpu = kk @ mean.cpu(), kk @ want
+    scale = max(1.0, float(dec_cpu.abs().max()))
+    err = check("staged select: re-solved decisions, CPU vs card",
+                float((dec_card - dec_cpu).abs().max()), RESOLVE_TOL * scale,
+                shape=list(dec_cpu.shape))
+    res.update(cpu_resolve_cells=int(want.shape[0]),
+               cpu_resolve_columns=int(want.shape[-1]),
+               cpu_resolve_s=cpu_s, cpu_vs_card_decisions_max_abs_err=err,
+               cpu_vs_card_coefs_max_abs_err=float(
+                   (mean.cpu() - want).abs().max()))
+    return res
+
+
+def _profile(torch, fn, per: int = 1, top: int = 8,
+             host_top: int = 0) -> dict:
+    """One call of ``fn`` under ``torch.profiler``, every time and count
+    divided by ``per`` (the steps ``fn`` takes): wall ms, the device's
+    busy ms and share (a lower bound: the profiler slows the host), the
+    kernel launches, the host operator calls, the ``top`` kernels by
+    device time and, with ``host_top``, that many host operators by
+    their own time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # the kernels' own rows: an operator's row repeats its kernels' time
+    ev = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in ev if e.device_type == cuda]
+    host = [e for e in ev if e.device_type != cuda]
+    dev_ms = sum(dev_us(e) for e in kernels) / 1e3
+    res = {"wall_ms": wall_ms / per, "device_ms": dev_ms / per,
+           "device_busy_share": dev_ms / wall_ms,
+           "kernel_launches": sum(e.count for e in kernels) / per,
+           "host_op_calls": sum(e.count for e in host
+                                if e.key.startswith("aten::")) / per,
+           "top_kernels_ms": {
+               e.key[:60]: dev_us(e) / 1e3 / per
+               for e in sorted(kernels, key=lambda e: -dev_us(e))[:top]}}
+    if host_top:
+        res["top_host_ops_ms"] = {
+            e.key[:60]: e.self_cpu_time_total / 1e3 / per
+            for e in sorted(host, key=lambda e: -e.self_cpu_time_total)
+            [:host_top]}
+    return res
+
+
+def _engine_on(sess, bank, dev):
+    """An engine on ``bank`` with the session's serve keys."""
+    from repro_torch.serve import SVMEngine
+    return SVMEngine(bank, **{"device": dev, **sess.serve_kwargs})
+
+
+def lm_gemma_long(torch, dev, tables):
+    """C7: gemma3-4b at full width in bf16 over sequences past its local
+    window: pooled rows and the prefill's and first decode step's logits
+    through B9/B10 against the plain attention path on the card, at the
+    stablelm tolerances; reports the share of each tolerance used."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.embed import EmbeddingExtractor
+    from repro_torch.serve import engine
+    from repro_torch.serve.kv_cache import pad_cache
+    cfg = get_arch(GEMMA_ARCH).config
+    toks = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (GEMMA_B, GEMMA_T)).astype(np.int32)
+    t0 = time.perf_counter()
+    ex = EmbeddingExtractor(cfg, batch_size=GEMMA_B, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    plain_cfg = dataclasses.replace(cfg, attn_impl="ref")
+    plain = EmbeddingExtractor(plain_cfg, ex.params, batch_size=GEMMA_B,
+                               device=dev)
+    zero_counts(tables)
+    e_kern = ex(toks)
+    counts = read_counts(tables)
+    require_launches("gemma embed", counts,
+                     {"flash_attention": cfg.n_layers})
+    e_plain = plain(toks)
+    shares = {}
+    scale = float(np.abs(e_plain).max())
+    err = float(np.abs(e_kern.astype(np.float64) - e_plain).max())
+    check("gemma3-4b pooled rows vs plain attention", err,
+          LM_EMBED_TOL * scale, max_abs_value=scale)
+    shares["pooled"] = err / (LM_EMBED_TOL * scale)
+    del plain
+    prompt = torch.as_tensor(toks).to(dev)
+    zero_counts(tables)
+    logits, cache = engine.prefill_step(cfg, ex.params, prompt)
+    cache = pad_cache(cfg, cache, GEMMA_T + 1)
+    first = logits.argmax(-1)[:, None].to(torch.int32)
+    step1, _ = engine.serve_step(cfg, ex.params, first, cache, GEMMA_T)
+    torch.cuda.synchronize()
+    gen_counts = read_counts(tables)
+    require_launches("gemma prefill + one step", gen_counts,
+                     {"flash_attention": cfg.n_layers,
+                      "decode_attention": cfg.n_layers})
+    del cache
+    logits_p, cache_p = engine.prefill_step(plain_cfg, ex.params, prompt)
+    cache_p = pad_cache(plain_cfg, cache_p, GEMMA_T + 1)
+    step1_p, _ = engine.serve_step(plain_cfg, ex.params, first, cache_p,
+                                   GEMMA_T)
+    del cache_p
+    for label, got, want in (("prefill", logits, logits_p),
+                             ("first decode step", step1, step1_p)):
+        scale = float(want.abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        check(f"gemma3-4b {label} logits vs plain", err,
+              LM_LOGIT_TOL * scale, max_abs_logit=scale)
+        shares[label] = err / (LM_LOGIT_TOL * scale)
+    emit({"phase": "lm_gemma_long", "arch": cfg.name,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "head_dim": cfg.head_dim, "window": cfg.window,
+          "params": cfg.param_count(), "dtype": str(cfg.dtype),
+          "batch": GEMMA_B, "seq_len": GEMMA_T, "init_s": init_s,
+          "tolerance_share_used": shares, "ok": True})
+    del ex, logits, logits_p, step1, step1_p, e_kern, e_plain
+    torch.cuda.empty_cache()
+    return {name: counts[name] + gen_counts[name] for name in counts}
+
+
 def attn_tol(want) -> float:
     """Kernel vs plain attention on one card: f32 sums of the same products
     in another order, 2e-5 on values ~1.  In bf16 the kernel also rounds P
@@ -1003,12 +1606,12 @@ def lm_svm_head(torch, dev, ex, src_tr, src_ho, corpus, tables, refs):
     zero_counts(tables)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with recorded_d2(km_ops, []) as calls:
+    with recorded(km_ops, "sq_dists", [], snap=False) as calls:
         sess = SVM(src_tr, None, cfg, device=dev)
         sel = sess.train().select()
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    fit_d2 = next(x for x, _, sym in calls if sym)
+    fit_d2 = next(a[0] for a, kw, _ in calls if kw.get("symmetric"))
     fit_counts = read_counts(tables)
     if fit_counts["flash_attention"] or fit_counts["decode_attention"]:
         raise Mismatch(f"SVM fit ran the backbone: {fit_counts}")
@@ -1156,52 +1759,23 @@ def lm_decode_profile(torch, dev, cfg, params, prompt, steps: int = 4):
     logits, cache = engine.prefill_step(cfg, params, prompt)
     cache = pad_cache(cfg, cache, GEN_PROMPT + GEN_NEW)
     tok = logits.argmax(-1)[:, None].to(torch.int32)
-    pos = GEN_PROMPT
-    for _ in range(2):
-        logits, cache = engine.serve_step(cfg, params, tok, cache, pos)
-        pos += 1
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            logits, cache = engine.serve_step(cfg, params, tok, cache, pos)
-            pos += 1
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    state = {"cache": cache, "pos": GEN_PROMPT}
+
+    def run(n):
+        for _ in range(n):
+            _, state["cache"] = engine.serve_step(cfg, params, tok,
+                                                  state["cache"],
+                                                  state["pos"])
+            state["pos"] += 1
+
+    run(2)
+    prof = _profile(torch, lambda: run(steps), per=steps, host_top=10)
     t0 = time.perf_counter()
-    for _ in range(steps):
-        logits, cache = engine.serve_step(cfg, params, tok, cache, pos)
-        pos += 1
+    run(steps)
     torch.cuda.synchronize()
-    plain_wall_ms = (time.perf_counter() - t0) * 1e3
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    ev = prof.key_averages()
-    kernels = [e for e in ev
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_ms = sum(dev_us(e) for e in kernels) / 1e3
-    host = sorted((e for e in ev
-                   if e.device_type != torch.autograd.DeviceType.CUDA),
-                  key=lambda e: -e.self_cpu_time_total)[:10]
-    emit({"phase": "lm_decode_profile", "steps": steps,
-          "wall_ms_per_step": wall_ms / steps,
-          "unprofiled_wall_ms_per_step": plain_wall_ms / steps,
-          "device_ms_per_step": dev_ms / steps,
-          "device_busy_share": dev_ms / wall_ms,
-          "top_kernels_ms_per_step": {
-              e.key[:60]: dev_us(e) / 1e3 / steps
-              for e in sorted(kernels, key=lambda e: -dev_us(e))[:8]},
-          "top_host_ops_ms_per_step": {
-              e.key[:60]: e.self_cpu_time_total / 1e3 / steps for e in host},
-          "host_op_calls_per_step": sum(
-              e.count for e in ev
-              if e.device_type != torch.autograd.DeviceType.CUDA
-              and e.key.startswith("aten::")) / steps})
+    emit({"phase": "lm_decode_profile", "steps": steps, "per_step": prof,
+          "unprofiled_wall_ms_per_step":
+              (time.perf_counter() - t0) * 1e3 / steps})
 
 
 def lm_smoke_tokens(torch, dev, tables):
@@ -1742,6 +2316,10 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.assign import ops as as_ops
+    from repro_torch.api import nplSVM
+    from repro_torch.api import session as session_mod
+    from repro_torch.core import select as select_mod
+    from repro_torch.serve.refresh import refresh_drifted
     tables = (km_ops.launches, sp_ops.launches, cd_ops.launches,
               fa_ops.launches, dec_ops.launches, as_ops.launches)
 
@@ -2005,8 +2583,15 @@ def main() -> int:
                                 err_df, SVMEngine, tables, refs)
     b5_counts = b5_entry(torch, dev, model, tables)
     fista_profile(torch, prob)
+    del model
+    staged_small(torch, dev, nplSVM, covtype_like, covtype_like_heldout,
+                 select_mod)
+    staged_paths = staged(torch, dev, nplSVM, covtype_like,
+                          covtype_like_heldout, tables, refs, session_mod,
+                          ModelBank, refresh_drifted)
     train_paths = {"fit": fit_counts, "test": test_counts,
-                   "trained_bank": bank_counts, "cd_epochs": b5_counts}
+                   "trained_bank": bank_counts, "cd_epochs": b5_counts,
+                   **{f"staged_{k}": v for k, v in staged_paths.items()}}
     emit({"phase": "train_launches", "per_path": train_paths})
     launches = {name: launches.get(name, 0)
                 + sum(n[name] for n in train_paths.values())
@@ -2024,8 +2609,10 @@ def main() -> int:
     gen_counts = lm_generate(torch, dev, lm_cfg, ex.params, prompt, tables)
     lm_decode_profile(torch, dev, lm_cfg, ex.params, prompt)
     lm_smoke_tokens(torch, dev, tables)
+    gemma_counts = lm_gemma_long(torch, dev, tables)
     lm_paths = {"embed": embed_counts, "svm_fit": fit_counts_lm,
-                "embed_serve": serve_counts_lm, "generate": gen_counts}
+                "embed_serve": serve_counts_lm, "generate": gen_counts,
+                "gemma_long": gemma_counts}
     emit({"phase": "lm_launches", "per_path": lm_paths})
     launches = {name: launches.get(name, 0)
                 + sum(n[name] for n in lm_paths.values())

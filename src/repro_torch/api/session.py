@@ -1,30 +1,41 @@
 """Staged train -> select -> test sessions (the JAX package's
-``api/session.py``), the argmin part.
+``api/session.py``).
 
     sess = SVM(x, y, config)            # device=None: the current card
     tr   = sess.train()                 # TrainResult: models + CV surface
-    sel  = sess.select()                # SelectResult (argmin rule)
-    res  = sel.test(x_test, y_test)     # TestResult
+    sel  = sess.select("npl", alpha=.05)   # SelectResult: one targeted wave
+    res  = sess.test(x_test, y_test)    # TestResult: streamed errors
 
 ``train()`` scales the data, builds the cell plan (numpy, bit-identical to
 the reference's), packs the cells into slots and solves them in waves on
 the device (``distributed.cell_trainer``), retaining the validation
-surface.  ``select()`` applies the CV-loss argmin, which reuses the models
-the train stage cached, so nothing is re-solved.  ``SelectResult`` owns
-the test phase and the hand-off to the serving engine (``to_bank``).
+surface.  ``select(rule)`` applies a :mod:`repro_torch.core.select` rule
+over the surface and re-solves ONLY the (task, sub) columns whose winning
+grid coordinates moved off the train-time argmin: every moved cell that
+shares a winning gamma index goes into one batched re-solve
+(``core.cv.solve_columns_batched``), warm-started from its cached argmin
+model.  Under "argmin" nothing is re-solved, so ``train() ->
+select("argmin")`` gives the fused fit's models bitwise.
 
-Not ported yet: the re-solve of moved winners (``solve_columns_at``, which
-only the ``npl`` / ``roc`` rules need), ``save`` / ``load``, the string
-config keys and the CLI.
+Stage artifacts persist through ``repro_torch.train.checkpoint`` in the
+JAX package's format (``save`` / ``load``): each package loads the
+other's ``TrainResult``, ``SelectResult`` and ``ModelBank`` directories,
+so the stages can run as separate processes (``python -m
+repro_torch.cli``) and a server cold-starts from the select output.
+``SelectResult`` owns the test phase and the hand-off to the serving
+engine (``to_bank``); ``SVM.engine()`` / ``SVM.monitor()`` build the
+engine and its health monitor with the session's serve and monitor keys.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.cells.builder import CellPlan
 from repro_torch.core import cv as cv_mod
 from repro_torch.core import grids, kernel_fns, prng
@@ -38,13 +49,91 @@ from repro_torch.pipeline.cell_stream import build_cells_stream
 from repro_torch.pipeline.dataset import (ArraySource, ChunkSource,
                                           ScaledSource, as_source)
 from repro_torch.tasks.builder import TaskSet, combine_decisions, make_tasks
+from repro_torch.train import checkpoint as ckpt_mod
 from repro_torch.train.svm_trainer import SVMTrainerConfig
+
+_TRAIN_FORMAT = "svm_train_result_v1"
+_SELECT_FORMAT = "svm_select_result_v1"
 
 # scenario -> the selection rule its select() stage defaults to
 _DEFAULT_RULES = {"npsvm": "npl", "quantile": "quantile",
                   "expectile": "expectile"}
 
 Device = Union[None, str, torch.device]
+
+
+# ----------------------------------------------------------- serialization
+def _cfg_to_json(cfg) -> dict:
+    return dataclasses.asdict(cfg)
+
+
+def _cfg_from_json(cls, d: dict):
+    """A config dataclass from its saved dict.  Fields the port does not
+    have are dropped: the reference's CVConfig also records ``cache_d2``,
+    its switch to the uncached baseline scan (the port's scan always
+    caches D², and a re-solve builds its own Gram either way)."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    kw = {k: v for k, v in d.items() if k in names}
+    for k in ("taus", "weights"):
+        if kw.get(k) is not None:
+            kw[k] = tuple(kw[k])
+    return cls(**kw)
+
+
+def _ctx_tree(plan: CellPlan, packed: PackedCells, scaler: Scaler,
+              tasks: TaskSet) -> Dict[str, np.ndarray]:
+    """The shared stage context (routing + scaling + tasks) as a flat tree.
+    Index arrays are stored int32, as the reference stores them (its
+    32-bit restore would narrow int64 leaves), and widened on load."""
+    return {
+        "plan_indices": plan.indices, "plan_mask": plan.mask,
+        "plan_owner": np.asarray(plan.owner, np.int32),
+        "plan_centers": plan.centers,
+        "plan_coarse_of": plan.coarse_of,
+        "packed_order": np.asarray(packed.order, np.int32),
+        "packed_slot_of_cell": np.asarray(packed.slot_of_cell, np.int32),
+        "scaler_mean": np.asarray(scaler.mean),
+        "scaler_std": np.asarray(scaler.std),
+        "tasks_labels": tasks.labels, "tasks_task_mask": tasks.task_mask,
+        "tasks_classes": np.asarray(tasks.classes, np.float32),
+        "tasks_pairs": np.asarray(tasks.pairs, np.int32),
+        "tasks_taus": np.asarray(tasks.taus, np.float32),
+        "tasks_weights": np.asarray(tasks.weights, np.float32),
+    }
+
+
+def _ctx_from_tree(t: Dict[str, np.ndarray], extra: dict):
+    plan = CellPlan(indices=t["plan_indices"], mask=t["plan_mask"],
+                    owner=np.asarray(t["plan_owner"], np.int32),
+                    centers=t["plan_centers"],
+                    coarse_of=t["plan_coarse_of"])
+    packed = PackedCells(order=np.asarray(t["packed_order"], np.int64),
+                         slot_of_cell=np.asarray(t["packed_slot_of_cell"],
+                                                 np.int64),
+                         n_devices=int(extra["packed_n_devices"]),
+                         slots_per_device=int(
+                             extra["packed_slots_per_device"]))
+    scaler = Scaler(mean=t["scaler_mean"], std=t["scaler_std"])
+    tasks = TaskSet(kind=extra["tasks_kind"], labels=t["tasks_labels"],
+                    task_mask=t["tasks_task_mask"], classes=t["tasks_classes"],
+                    pairs=t["tasks_pairs"], taus=t["tasks_taus"],
+                    weights=t["tasks_weights"])
+    return plan, packed, scaler, tasks
+
+
+def _ctx_extra(config, cv_cfg, tasks: TaskSet, packed: PackedCells) -> dict:
+    return {"config": _cfg_to_json(config), "cv_cfg": _cfg_to_json(cv_cfg),
+            "tasks_kind": tasks.kind,
+            "packed_n_devices": int(packed.n_devices),
+            "packed_slots_per_device": int(packed.slots_per_device)}
+
+
+def _load_tree(ckpt_dir: str, want_format: str):
+    got = ckpt_mod.peek_manifest(ckpt_dir)["extra"].get("format")
+    if got != want_format:
+        raise ValueError(f"{ckpt_dir} is not a {want_format} checkpoint "
+                         f"(format={got!r})")
+    return ckpt_mod.restore_self_describing(ckpt_dir)
 
 
 @dataclasses.dataclass
@@ -58,7 +147,10 @@ class TestResult:
 @dataclasses.dataclass
 class TrainResult:
     """Everything the train stage produced: cell models at the CV-loss
-    argmin plus the retained validation surface and the staged cells."""
+    argmin plus the retained validation surface and the staged cells
+    needed to re-solve the columns a different rule moves.  ``select``
+    is re-runnable; ``save`` / ``load`` make the stage a process
+    boundary."""
     config: SVMTrainerConfig
     cv_cfg: cv_mod.CVConfig
     scaler: Scaler
@@ -80,7 +172,8 @@ class TrainResult:
     surf_loss: np.ndarray      # (slots, G, T, L, S)
     surf_fa: np.ndarray
     surf_det: np.ndarray
-    iters: np.ndarray          # (slots, G, F) box-QP iterations
+    iters: Optional[np.ndarray]  # (slots, G, F) box-QP iterations (None:
+                                 # loaded from a reference checkpoint)
     n: int
     d: int
     device: torch.device = torch.device("cpu")
@@ -100,11 +193,24 @@ class TrainResult:
 
     def select(self, rule: Optional[str] = None, **rule_kwargs
                ) -> "SelectResult":
-        """Apply a selection rule over the retained surface.  The ported
-        rules (argmin and its aliases) pick the train-time winners, whose
-        models are cached: nothing is re-solved."""
+        """Apply a selection rule over the retained surface.
+
+        Columns whose winning (gamma, lambda) equals the train-time argmin
+        keep the cached models bitwise; the rest are re-solved by
+        :func:`repro_torch.core.cv.resolve_group`, one call for
+        all moved cells sharing a winning gamma-grid index, each cell's
+        columns padded to T*S by repeating its first (so ``solver_iters``
+        counts the same work as the reference's), each warm-started from
+        its cell's cached argmin model of the same column.  ``stats``
+        reports how little was solved (``resolve_calls`` calls,
+        ``solver_iters`` box-QP iterations summed over cells and folds).
+        """
         cfg = self.config
         rule = rule or _DEFAULT_RULES.get(cfg.scenario, "argmin")
+        if rule in ("npl", "roc") and self.cv_cfg.solver != "hinge":
+            raise ValueError(f"rule {rule!r} needs the hinge solver "
+                             f"(validation FA/detection counts); "
+                             f"got {self.cv_cfg.solver!r}")
         ctx = select_mod.SelectContext(
             scenario=cfg.scenario,
             weights=np.asarray(cfg.weights, np.float32),
@@ -115,33 +221,101 @@ class TrainResult:
             raise TypeError(f"unknown select() options {sorted(rule_kwargs)}")
         surface = self.surface()
         res = select_mod.get_rule(rule)(surface, ctx)
+
         base_g, base_l = select_mod.argmin_winners(self.surf_loss)
-        nonempty = self.mask_cells.sum(-1) > 0
+        nonempty = self.mask_cells.sum(-1) > 0                 # (slots,)
         need = (((res.g_idx != base_g) | (res.l_idx != base_l))
-                & nonempty[:, None, None])
-        if need.any():
-            raise NotImplementedError(
-                f"rule {rule!r} moved {int(need.sum())} winners off the "
-                f"train-time argmin; their re-solve (solve_columns_at) is "
-                f"not ported yet")
+                & nonempty[:, None, None])                     # (slots, T, S)
+
+        coefs = self.coefs.copy()
+        gamma, lam = self.gamma.copy(), self.lam.copy()
+        val = self.val_loss.copy()
+        if self.cv_cfg.solver in ("quantile", "expectile"):
+            sub_grid = np.asarray(cfg.taus, np.float32)
+        else:
+            sub_grid = np.asarray(cfg.weights, np.float32)
         stats = {"rule": rule, "grid_columns": surface.grid_columns,
-                 "winners_moved": 0, "columns_resolved": 0,
-                 "resolve_calls": 0, "solver_iters": 0}
+                 "winners_moved": int(need.sum()),
+                 "columns_resolved": 0, "resolve_calls": 0,
+                 "solver_iters": 0}
+
+        m_resolved = obs.metrics.counter("select.columns_resolved")
+        dev = self.device
+        groups: Dict[int, list] = {}
+        for c in np.flatnonzero(need.any(axis=(1, 2))):
+            for g in np.unique(res.g_idx[c][need[c]]):
+                groups.setdefault(int(g), []).append(int(c))
+        for g, cells in sorted(groups.items()):
+            ts_of = [np.argwhere(need[c] & (res.g_idx[c] == g))  # (m, 2)
+                     for c in cells]
+            with obs.tracer.span("select.resolve", dev) as sp:
+                sp.set(gamma_idx=int(g), cells=len(cells),
+                       columns=int(sum(len(ts) for ts in ts_of)))
+                # warm start: each cell's cached argmin model of the same
+                # (task, sub) column
+                outs, n_iters = cv_mod.resolve_group(
+                    self.x_cells[cells], self.y_cells[cells],
+                    self.tmask_cells[cells], self.mask_cells[cells],
+                    self.fold_keys[cells], self.gammas_cells[cells, g],
+                    ts_of, self.lambdas[res.l_idx[cells]], sub_grid,
+                    self.coefs[cells], self.cv_cfg, dev)
+            for c, ts, out in zip(cells, ts_of, outs):
+                for j, (t, s) in enumerate(ts):
+                    coefs[c, :, t, s] = out[:, j]
+                    gamma[c, t, s] = self.gammas_cells[c, g]
+                    lam[c, t, s] = self.lambdas[res.l_idx[c, t, s]]
+                    val[c, t, s] = self.surf_loss[c, g, t,
+                                                  res.l_idx[c, t, s], s]
+                stats["columns_resolved"] += len(ts)
+                m_resolved.inc(len(ts))
+            stats["resolve_calls"] += 1
+            stats["solver_iters"] += n_iters
+
         return SelectResult(
             rule=rule, config=cfg, cv_cfg=self.cv_cfg, scaler=self.scaler,
             plan=self.plan, packed=self.packed, tasks=self.tasks,
             x_cells=self.x_cells, mask_cells=self.mask_cells,
-            coefs=self.coefs.copy(), gamma=self.gamma.copy(),
-            lam=self.lam.copy(), tau=self.tau.copy(),
-            val_loss=self.val_loss.copy(), extras=dict(res.extras),
-            stats=stats, device=self.device)
+            coefs=coefs, gamma=gamma, lam=lam, tau=self.tau.copy(),
+            val_loss=val, extras=dict(res.extras), stats=stats,
+            device=self.device)
+
+    # ------------------------------------------------------ persistence
+    _ARRAYS = ("lambdas", "gammas_cells", "fold_keys", "x_cells",
+               "mask_cells", "y_cells", "tmask_cells", "coefs", "gamma",
+               "lam", "tau", "val_loss", "surf_loss", "surf_fa", "surf_det")
+
+    def save(self, ckpt_dir: str) -> str:
+        """One checkpoint step in the reference's format (``iters`` rides
+        along as one more leaf, which the reference ignores)."""
+        tree = {k: getattr(self, k) for k in self._ARRAYS}
+        if self.iters is not None:
+            tree["iters"] = np.asarray(self.iters, np.int32)
+        tree.update(_ctx_tree(self.plan, self.packed, self.scaler, self.tasks))
+        extra = _ctx_extra(self.config, self.cv_cfg, self.tasks, self.packed)
+        extra.update(format=_TRAIN_FORMAT, n=int(self.n), d=int(self.d))
+        return ckpt_mod.save_checkpoint(ckpt_dir, 0, tree, extra=extra,
+                                        keep_last=0)
+
+    @classmethod
+    def load(cls, ckpt_dir: str, device: Device = None) -> "TrainResult":
+        """A TrainResult saved by either package; ``device=None``: its
+        re-solves run on the current card."""
+        tree, extra = _load_tree(ckpt_dir, _TRAIN_FORMAT)
+        plan, packed, scaler, tasks = _ctx_from_tree(tree, extra)
+        return cls(config=_cfg_from_json(SVMTrainerConfig, extra["config"]),
+                   cv_cfg=_cfg_from_json(cv_mod.CVConfig, extra["cv_cfg"]),
+                   scaler=scaler, plan=plan, packed=packed, tasks=tasks,
+                   n=int(extra["n"]), d=int(extra["d"]),
+                   iters=tree.get("iters"),
+                   device=runtime.resolve_device(device),
+                   **{k: tree[k] for k in cls._ARRAYS})
 
 
 @dataclasses.dataclass
 class SelectResult:
     """One selection outcome: final per-cell models + rule extras.  Owns
-    the test phase (``decision_function`` / ``predict`` / ``test``) and
-    the serving hand-off (``to_bank``)."""
+    the test phase (``decision_function`` / ``predict`` / ``test``), the
+    serving hand-off (``to_bank``) and persistence (``save`` / ``load``)."""
     rule: str
     config: SVMTrainerConfig
     cv_cfg: cv_mod.CVConfig
@@ -269,18 +443,101 @@ class SelectResult:
             routing=routing, version=version)
 
 
+    # ------------------------------------------------------ persistence
+    _ARRAYS = ("x_cells", "mask_cells", "coefs", "gamma", "lam", "tau",
+               "val_loss")
+    _CELL_ARRAYS = ("x_cells", "mask_cells")   # the O(n·d) staged rows
+
+    def save(self, ckpt_dir: str, train_ref: Optional[str] = None) -> str:
+        """Persist the selection outcome.  ``train_ref`` (a path relative
+        to ``ckpt_dir``, e.g. ``"../train"``) skips re-writing the staged
+        cell rows and records a reference to the TrainResult checkpoint
+        that holds them (the CLI's layout)."""
+        skip = self._CELL_ARRAYS if train_ref is not None else ()
+        tree = {k: getattr(self, k) for k in self._ARRAYS if k not in skip}
+        tree.update(_ctx_tree(self.plan, self.packed, self.scaler, self.tasks))
+        tree.update({f"extra_{k}": np.asarray(v)
+                     for k, v in self.extras.items()})
+        extra = _ctx_extra(self.config, self.cv_cfg, self.tasks, self.packed)
+        extra.update(format=_SELECT_FORMAT, rule=self.rule, stats=self.stats,
+                     train_ref=train_ref)
+        return ckpt_mod.save_checkpoint(ckpt_dir, 0, tree, extra=extra,
+                                        keep_last=0)
+
+    @classmethod
+    def load(cls, ckpt_dir: str, device: Device = None) -> "SelectResult":
+        """A SelectResult saved by either package; ``device=None``: its
+        test phase runs on the current card."""
+        tree, extra = _load_tree(ckpt_dir, _SELECT_FORMAT)
+        plan, packed, scaler, tasks = _ctx_from_tree(tree, extra)
+        extras = {k[len("extra_"):]: v for k, v in tree.items()
+                  if k.startswith("extra_")}
+        if extra.get("train_ref"):                 # cells live in train/
+            ref = os.path.normpath(os.path.join(ckpt_dir, extra["train_ref"]))
+            ref_tree, _ = _load_tree(ref, _TRAIN_FORMAT)
+            for k in cls._CELL_ARRAYS:
+                tree[k] = ref_tree[k]
+        return cls(rule=extra["rule"],
+                   config=_cfg_from_json(SVMTrainerConfig, extra["config"]),
+                   cv_cfg=_cfg_from_json(cv_mod.CVConfig, extra["cv_cfg"]),
+                   scaler=scaler, plan=plan, packed=packed, tasks=tasks,
+                   extras=extras, stats=dict(extra.get("stats", {})),
+                   device=runtime.resolve_device(device),
+                   **{k: tree[k] for k in cls._ARRAYS})
+
+
 class SVM:
     """A staged session over one training set (an (n, d) array or a
     ChunkSource).  ``y=None`` takes the labels from a source that carries
     them (``repro_torch.embed.LabeledSource``, or an ``EmbeddingSource``
     built with ``labels=``).  ``device=None`` trains on the current card
-    and raises without one; ``device="cpu"`` runs the plain PyTorch path."""
+    and raises without one; ``device="cpu"`` runs the plain PyTorch path.
+
+    String config keys (``repro_torch.api.config``) may be passed
+    directly: ``SVM(x, y, FOLDS=3, NPL_CONSTRAINT=0.01)``.  Select-stage
+    keys become ``select()`` defaults, serve and monitor keys carry
+    through to :meth:`engine` and :meth:`monitor`, observability keys
+    configure ``repro_torch.obs``, and ``EMBED_ARCH`` (with the other
+    ``EMBED_*`` keys) flags ``x`` as a token corpus, embedded lazily
+    through ``repro_torch.embed.embed_source`` on the session's device.
+    """
 
     def __init__(self, x, y: Optional[np.ndarray] = None,
                  config: Optional[SVMTrainerConfig] = None,
-                 device: Device = None):
-        self.config = config or SVMTrainerConfig()
+                 device: Device = None,
+                 select_rule: Optional[str] = None,
+                 select_kwargs: Optional[dict] = None,
+                 serve_kwargs: Optional[dict] = None,
+                 monitor_kwargs: Optional[dict] = None,
+                 **config_keys):
+        cfg = config or SVMTrainerConfig()
         self.device = runtime.resolve_device(device)
+        sel_kw = dict(select_kwargs or {})
+        srv_kw = dict(serve_kwargs or {})
+        mon_kw = dict(monitor_kwargs or {})
+        if config_keys:
+            from repro_torch.api.config import (apply_keys, split_embed_keys,
+                                                split_monitor_keys,
+                                                split_obs_keys,
+                                                split_serve_keys)
+            config_keys, key_obs = split_obs_keys(config_keys)
+            if key_obs:
+                obs.configure(**key_obs)
+            config_keys, key_emb = split_embed_keys(config_keys)
+            if key_emb:
+                from repro_torch.embed import embed_source
+                x = embed_source(x, device=self.device, **key_emb)
+            config_keys, key_mon = split_monitor_keys(config_keys)
+            mon_kw = {**key_mon, **mon_kw}
+            config_keys, key_srv = split_serve_keys(config_keys)
+            srv_kw = {**key_srv, **srv_kw}
+            cfg, key_sel = apply_keys(cfg, config_keys)
+            sel_kw.update(key_sel)
+        self.config = cfg
+        self.select_rule = select_rule
+        self.select_kwargs = sel_kw
+        self.serve_kwargs = srv_kw
+        self.monitor_kwargs = mon_kw
         self._x, self._y = x, y
         self.train_result: Optional[TrainResult] = None
         self.select_result: Optional[SelectResult] = None
@@ -406,7 +663,42 @@ class SVM:
 
     def select(self, rule: Optional[str] = None, **rule_kwargs
                ) -> SelectResult:
+        """Pick hyper-parameters over the retained surface (re-runnable);
+        the session's select keys are the defaults."""
         if self.train_result is None:
             raise RuntimeError("call train() before select()")
-        self.select_result = self.train_result.select(rule, **rule_kwargs)
+        merged = {**self.select_kwargs, **rule_kwargs}
+        self.select_result = self.train_result.select(
+            rule or self.select_rule, **merged)
         return self.select_result
+
+    def test(self, x_test, y_test,
+             chunk_size: Optional[int] = None) -> TestResult:
+        """Streamed scenario error; selects with the session's default
+        rule first if select() has not been called."""
+        if self.select_result is None:
+            self.select()
+        return self.select_result.test(x_test, y_test, chunk_size=chunk_size)
+
+    def engine(self, **engine_kwargs):
+        """Compact the selection into a bank and build an ``SVMEngine`` on
+        the session's device.  Serve keys given at construction
+        (``SERVE_OVERLAP``, ``DEADLINE_MS``, ``MAX_QUEUE``) carry through;
+        explicit ``engine_kwargs`` win.  ``SWAP_POLL_MS`` is the CLI serve
+        loop's bank watcher, which a session has not: it is dropped."""
+        if self.select_result is None:
+            self.select()
+        from repro_torch.serve.svm_engine import SVMEngine
+        srv = {k: v for k, v in self.serve_kwargs.items()
+               if k != "swap_poll_ms"}
+        return SVMEngine(self.select_result.to_bank(),
+                         **{"device": self.device, **srv, **engine_kwargs})
+
+    def monitor(self, engine, **monitor_kwargs):
+        """Attach a :class:`repro_torch.serve.monitor.HealthMonitor` to an
+        engine.  Monitor keys given at construction (``SLO_P99_MS``,
+        ``DRIFT_WINDOW``, ``DRIFT_REFRESH_THRESHOLD``) carry through;
+        explicit ``monitor_kwargs`` win."""
+        from repro_torch.serve.monitor import HealthMonitor
+        return HealthMonitor(engine,
+                             **{**self.monitor_kwargs, **monitor_kwargs})

@@ -33,6 +33,7 @@ from repro_torch.core.solvers import base as qp
 from repro_torch.core.solvers import expectile as exp_solver
 from repro_torch.core.solvers import least_squares as ls_solver
 from repro_torch.core.solvers import quantile as q_solver
+from repro_torch.kernels import runtime
 from repro_torch.kernels.cd_solver import ops as cd_ops
 
 
@@ -45,6 +46,8 @@ class CVConfig:
     tol: float = 1e-3
     max_iters: int = 1000
     val_loss: str = "auto"          # auto: 0-1 for hinge, mse for ls, ...
+    shared_lipschitz: bool = True   # one L per slot and gamma (False: per
+                                    # fold, from the fold's masked Gram)
     gram_dtype: str = "f32"         # f32 | bf16 Gram for hinge/quantile
     keep_surface: bool = False      # also count validation false alarms
                                     # and detections (hinge)
@@ -152,7 +155,8 @@ def _solve_columns(k_full: torch.Tensor, y_cols: torch.Tensor,
 
     k_full (S, n, n); y_cols (S, 1, n, P); train_cols (S, F, n, P) (1 =
     in the column's training set); n_eff_cols (S, F, P); c0 (S, F, n, P);
-    l_est (S,) per slot.  Returns ``(c, iters)``: c
+    l_est (S,) per slot or (S, F) per fold; lam_c, sub_c (P,) shared by
+    the slots, or (S, 1, P) per slot.  Returns ``(c, iters)``: c
     (S, F, n, P) and the box-QP iterations (S, F) (0 for the direct
     ls/expectile solves).  ``cfg.cd_polish > 0`` appends that many Gauss-Seidel epochs
     after the box QP, warm-started from its iterate (B4)."""
@@ -162,14 +166,15 @@ def _solve_columns(k_full: torch.Tensor, y_cols: torch.Tensor,
     if cfg.solver in ("hinge", "quantile"):
         cost = 1.0 / (2.0 * lam_c * torch.clamp(n_eff_cols, min=1.0))
         cost = cost[..., None, :]                                # (S,F,1,P)
+        sub_n = sub_c[..., None, :]              # (1, P) or (S, 1, 1, P)
         if cfg.solver == "hinge":
-            w = torch.where(y_cols > 0, sub_c, torch.ones_like(sub_c))
+            w = torch.where(y_cols > 0, sub_n, torch.ones_like(sub_n))
             edge = y_cols * cost * w * train_cols
             lo = torch.clamp(edge, max=0.0)
             hi = torch.clamp(edge, min=0.0)
         else:
-            lo = cost * (sub_c - 1.0) * train_cols
-            hi = cost * sub_c * train_cols
+            lo = cost * (sub_n - 1.0) * train_cols
+            hi = cost * sub_n * train_cols
         y_eff = y_cols * train_cols
         with obs.tracer.span("train.fista", dev):
             res = qp.box_qp_batched(k_full, y_eff, lo, hi, c0=c0,
@@ -197,6 +202,20 @@ def _solve_columns(k_full: torch.Tensor, y_cols: torch.Tensor,
         taus = sub_c.expand_as(lam_n)
         return exp_solver.irls_path(km, y, taus, lam_n, tm, c0), zero_iters
     raise ValueError(cfg.solver)
+
+
+def _lipschitz(k_full: torch.Tensor, train_folds: torch.Tensor,
+               cfg: CVConfig) -> torch.Tensor:
+    """The FISTA step's L: (S,) from each slot's K (lambda_max(M K M) <=
+    lambda_max(K) for a 0/1 mask M, so one L per slot is a valid step for
+    every fold), or (S, F) from each fold's masked Gram
+    (``shared_lipschitz=False``, the baseline)."""
+    if cfg.shared_lipschitz:
+        return qp.power_iteration_l(k_full)
+    s, f, n = train_folds.shape
+    mt = train_folds.to(torch.float32)
+    km = k_full[:, None] * mt[..., :, None] * mt[..., None, :]   # (S,F,n,n)
+    return qp.power_iteration_l(km.reshape(s * f, n, n)).reshape(s, f)
 
 
 def cv_cell(x: torch.Tensor, y_tasks: torch.Tensor, task_mask: torch.Tensor,
@@ -258,9 +277,7 @@ def cv_cell(x: torch.Tensor, y_tasks: torch.Tensor, task_mask: torch.Tensor,
         l_est = None
         if needs_l:
             with obs.tracer.span("train.fista", dev):
-                # lambda_max(M K M) <= lambda_max(K) for a 0/1 mask M: one L
-                # per slot is a valid step for every fold
-                l_est = qp.power_iteration_l(k_full)
+                l_est = _lipschitz(k_full, train_folds, cfg)
         coefs, iters = _solve_columns(k_full, y_cols, tr_cols, lam_c,
                                       sub_c, n_eff_cols, cfg, c0_all, l_est)
         with obs.tracer.span("train.select", dev):
@@ -308,3 +325,120 @@ def cv_cell(x: torch.Tensor, y_tasks: torch.Tensor, task_mask: torch.Tensor,
                       fa_grid=torch.stack(fa_all, 1),
                       det_grid=torch.stack(det_all, 1),
                       iters=torch.stack(it_all, 1))
+
+
+def solve_columns_batched(x: torch.Tensor, y_tasks: torch.Tensor,
+                          task_mask: torch.Tensor, mask: torch.Tensor,
+                          gamma: torch.Tensor, lam_cols: torch.Tensor,
+                          sub_cols: torch.Tensor, task_cols: torch.Tensor,
+                          fold_keys: np.ndarray, c0: Optional[torch.Tensor],
+                          cfg: CVConfig):
+    """Targeted re-solve of given columns at one gamma per cell, all
+    folds, for a group of cells in one batch: the select stage's "one
+    targeted wave" for every moved cell that shares a gamma-grid index.
+
+    x (C, n, d); y_tasks, task_mask (C, T, n); mask (C, n); gamma (C,);
+    lam_cols, sub_cols, task_cols (C, P'); fold_keys (C, 2) uint32, each
+    cell's training key, so the folds (and the models the surface scored)
+    are the train stage's.  ``c0`` warm-starts the solve, box-clipped per
+    column: (C, n, P') one start shared by every fold (the cached argmin
+    model of the same column), or (C, F, n, P') per-fold starts (a
+    previous solve's fold coefficients: the re-solve then collapses to a
+    KKT check).  The Gram is the full kernel of each cell with itself (B1
+    and its epilogue, one launch each for the group), not the train scan's
+    symmetric D², as in the reference.
+
+    Returns ``(fold-mean coefs (C, n, P'), box-QP iterations summed over
+    the folds (C,), per-fold coefs (C, F, n, P'))``.
+    """
+    dev = x.device
+    c, n, _ = x.shape
+    f = cfg.n_folds
+    p_cols = lam_cols.shape[1]
+    y_strat = y_tasks[:, 0] if cfg.solver == "hinge" else None
+    val_folds = make_fold_masks(fold_keys, mask, f, cfg.fold_scheme, y_strat)
+    train_folds = ~val_folds & (mask > 0)[:, None, :]             # (C, F, n)
+    tc = task_cols.to(device=dev, dtype=torch.int64)[:, :, None].expand(
+        c, p_cols, n)
+    y_cols = torch.gather(y_tasks, 1, tc).transpose(1, 2)[:, None]
+    colmask = (torch.gather(task_mask, 1, tc).transpose(1, 2)
+               * mask[:, :, None])[:, None]                       # (C,1,n,P')
+
+    spec = kernel_fns.get_spec(cfg.kernel)
+    k_full = spec.fn(x, x, gamma.to(device=dev, dtype=torch.float32))
+    if cfg.gram_dtype == "bf16" and cfg.solver in ("hinge", "quantile"):
+        k_full = k_full.to(torch.bfloat16)
+    l_est = None
+    if cfg.solver in ("hinge", "quantile"):
+        l_est = _lipschitz(k_full, train_folds, cfg)
+    if c0 is None:
+        c0 = torch.zeros((c, f, n, p_cols), device=dev)
+    elif c0.dim() == 3:
+        # one shared start (the nearest cached grid column, solved at a
+        # possibly different (gamma, lambda)) for every fold; the solver
+        # clips it into each column's box
+        c0 = c0.to(torch.float32)[:, None].expand(c, f, n, p_cols)
+    else:
+        c0 = c0.to(torch.float32)
+    tr_cols = train_folds.to(torch.float32)[..., None] * colmask  # (C,F,n,P')
+    n_eff_cols = tr_cols.sum(dim=-2)                              # (C, F, P')
+    coefs, iters = _solve_columns(
+        k_full, y_cols, tr_cols, lam_cols.to(dev, torch.float32)[:, None],
+        sub_cols.to(dev, torch.float32)[:, None], n_eff_cols, cfg, c0, l_est)
+    return coefs.sum(dim=1) * (1.0 / f), iters.sum(dim=1), coefs
+
+
+def solve_columns_at(x: torch.Tensor, y_tasks: torch.Tensor,
+                     task_mask: torch.Tensor, mask: torch.Tensor,
+                     gamma, lam_cols: torch.Tensor, sub_cols: torch.Tensor,
+                     task_cols: torch.Tensor, fold_key: np.ndarray,
+                     cfg: CVConfig, c0: Optional[torch.Tensor] = None):
+    """:func:`solve_columns_batched` for one cell: x (n, d), y_tasks,
+    task_mask (T, n), mask (n,), a scalar gamma, (P',) columns, a (2,)
+    key, c0 (n, P') or (F, n, P').  Returns ``(coefs (n, P'), iterations
+    (), fold coefs (F, n, P'))``."""
+    g = torch.as_tensor(gamma, dtype=torch.float32, device=x.device)
+    mean, iters, folds = solve_columns_batched(
+        x[None], y_tasks[None], task_mask[None], mask[None], g.reshape(1),
+        lam_cols[None], sub_cols[None], task_cols[None],
+        np.asarray(fold_key, np.uint32).reshape(1, 2),
+        None if c0 is None else c0[None], cfg)
+    return mean[0], iters[0], folds[0]
+
+
+def resolve_group(x: np.ndarray, y_tasks: np.ndarray, task_mask: np.ndarray,
+                  mask: np.ndarray, fold_keys: np.ndarray, gamma: np.ndarray,
+                  cols: list, lam: np.ndarray, sub_grid: np.ndarray,
+                  c0: np.ndarray, cfg: CVConfig, device: torch.device):
+    """The re-solve's column layout, shared by the select stage and the
+    drift refresh: re-solve the (task, sub) columns ``cols[i]`` ((m_i, 2)
+    indices) of each cell i of a group at its gamma ``gamma[i]``, in one
+    :func:`solve_columns_batched` call on ``device``.
+
+    Each cell's columns are padded to T*S by repeating its first (one
+    width whatever moved, so the iterations count the same work as the
+    reference's) and warm-started from ``c0`` at the same (task, sub),
+    box-clipped in the solver.  x (C, k, d); y_tasks, task_mask (C, T, k);
+    mask (C, k); fold_keys (C, 2); gamma (C,); lam (C, T, S) every
+    column's lambda; sub_grid (S,) the weights or taus; c0 (C, k, T, S).
+    Returns ``(per cell its (k, m_i) new columns, box-QP iterations
+    summed over cells and folds)``.
+    """
+    n_cols = lam.shape[1] * lam.shape[2]
+    pads = [np.concatenate([ts, np.repeat(ts[:1], n_cols - len(ts), axis=0)])
+            for ts in cols]
+    lam_b = np.stack([lam[i][p[:, 0], p[:, 1]] for i, p in enumerate(pads)])
+    c0_b = np.stack([c0[i][:, p[:, 0], p[:, 1]] for i, p in enumerate(pads)])
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32)).to(device)
+
+    with runtime.full_fp32():
+        out, iters, _ = solve_columns_batched(
+            f32(x), f32(y_tasks), f32(task_mask), f32(mask), f32(gamma),
+            f32(lam_b), f32(np.stack([sub_grid[p[:, 1]] for p in pads])),
+            torch.as_tensor(np.stack([p[:, 0] for p in pads])).to(device),
+            np.asarray(fold_keys), f32(c0_b), cfg)
+        out = out.cpu().numpy()                            # (C, k, T*S)
+    return [out[i, :, :len(ts)] for i, ts in enumerate(cols)], \
+        int(iters.sum())

@@ -137,6 +137,22 @@ class EmbedCache:
         return cls(os.path.join(os.fspath(root), fingerprint[:12]),
                    fingerprint, **kw)
 
+    @classmethod
+    def open(cls, path: Union[str, os.PathLike]) -> dict:
+        """Read an existing cache's metadata (no validation beyond JSON
+        and the format tag).  The CLI uses this to rebuild an extractor
+        from a stage artifact."""
+        meta_path = os.path.join(os.fspath(path), _META)
+        if not os.path.exists(meta_path):
+            raise EmbedCacheError(f"{path}: not an embed cache "
+                                  f"(no {_META})")
+        with open(meta_path) as f:
+            meta = json.load(f)
+        if meta.get("format") != _CACHE_FORMAT:
+            raise EmbedCacheError(f"{path}: not an embed cache "
+                                  f"(format={meta.get('format')!r})")
+        return meta
+
     # ------------------------------------------------------------- blocks
     def _shard_path(self, j: int) -> str:
         return os.path.join(self.path, f"shard_{j:05d}.npz")

@@ -261,9 +261,14 @@ def streaming_mean_std(source: ChunkSource, chunk_size: int = DEFAULT_CHUNK
 
 
 def as_source(x) -> ChunkSource:
-    """Coerce an ndarray or a source into a ChunkSource."""
+    """Coerce ndarray / ``.npy`` path / ``.npz`` shard list / source into a
+    ChunkSource."""
     if isinstance(x, ChunkSource):
         return x
     if isinstance(x, np.ndarray):
         return ArraySource(x)
+    if isinstance(x, (str, os.PathLike)):
+        return MemmapSource(x)
+    if isinstance(x, (list, tuple)):
+        return ShardedNpzSource(x)
     raise TypeError(f"cannot make a ChunkSource from {type(x)!r}")

@@ -28,10 +28,12 @@ Layout (C = number of cells, P = n_tasks * n_sub, column p = t * n_sub + s
   sv_count  (C,)        live rows per cell (rows beyond carry zero coefs)
   centers   (C, d)      Voronoi routing centers (empty slots pushed to inf)
 
-A bank built by the JAX package converts with
-``repro_torch.serve.convert.bank_from_reference``; a trained model
-compacts into one through ``SelectResult.to_bank``.  Saving and loading
-banks are not ported yet.
+A trained model compacts into one through ``SelectResult.to_bank``.
+``bank.save(dir)`` / ``ModelBank.load(dir)`` go through
+``repro_torch.train.checkpoint`` in the JAX package's format
+(``svm_model_bank_v1``), so a server of either package cold-starts from a
+bank the other saved; in memory, ``repro_torch.serve.convert`` takes over
+the reference's arrays.
 """
 from __future__ import annotations
 
@@ -41,7 +43,9 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.core.svm import TrainedSVM
 from repro_torch.distributed.planner import _round_up
+from repro_torch.train import checkpoint as ckpt_mod
 
 Table = Union[np.ndarray, torch.Tensor]
 
@@ -133,6 +137,7 @@ class ModelBank:
                               # center; None for banks that predate it.
 
     # the non-array fields, in the JAX package's checkpoint meta order
+    FORMAT = "svm_model_bank_v1"
     META_KEYS = ("kernel", "n_tasks", "n_sub", "scenario", "raw_sv_total",
                  "default_sub", "routing", "version", "route_baseline")
 
@@ -171,6 +176,16 @@ class ModelBank:
     def with_version(self, version: int) -> "ModelBank":
         """Same bank, new version tag (arrays shared, not copied)."""
         return dataclasses.replace(self, version=int(version))
+
+    def route_baseline_arrays(self):
+        """(q50, q90, n) f64/int arrays from the recorded baseline, or
+        ``None`` when the bank predates drift baselines."""
+        rb = self.route_baseline
+        if not rb:
+            return None
+        return (np.asarray(rb["q50"], np.float64),
+                np.asarray(rb["q90"], np.float64),
+                np.asarray(rb["n"], np.int64))
 
     # ---------------------------------------------------------- construction
     @classmethod
@@ -275,7 +290,59 @@ class ModelBank:
             version=int(version), route_baseline=route_baseline,
         )
 
+    @classmethod
+    def from_trained(cls, model: TrainedSVM, **kwargs) -> "ModelBank":
+        """Single-cell bank from one working-set model; its routing center
+        is the mean of the live rows."""
+        sv = model.sv_x.detach().cpu().numpy().astype(np.float32)
+        mask = model.sv_mask.detach().cpu().numpy().astype(np.float32)
+        coefs = model.coefs.detach().cpu().numpy().astype(np.float32)
+        gamma = model.gamma.detach().cpu().numpy().astype(np.float32)
+        denom = max(float(mask.sum()), 1.0)
+        center = (sv * mask[:, None]).sum(0, keepdims=True) / denom
+        kwargs.setdefault("kernel", model.kernel)
+        return cls.from_cells(sv[None], mask[None], coefs[None],
+                              gamma[None], center, **kwargs)
+
     # -------------------------------------------------------------- adapters
+    def cell_model(self, c: int, device: Union[str, torch.device] = "cpu"
+                   ) -> TrainedSVM:
+        """One cell as a TrainedSVM (the per-cell oracle view), f32 on
+        ``device``."""
+        k = int(self.sv_count[c])
+        sv, coefs = self.cell_arrays_f32(device)
+        z = torch.zeros((self.n_tasks, self.n_sub), device=device)
+        gamma = torch.as_tensor(np.asarray(self.gammas[c], np.float32)
+                                .reshape(self.n_tasks, self.n_sub))
+        return TrainedSVM(
+            sv_x=sv[c, :k], sv_mask=torch.ones((k,), device=device),
+            coefs=coefs[c, :k].reshape(k, self.n_tasks, self.n_sub),
+            gamma=gamma.to(device), lam=z, tau=z, val_loss=z,
+            kernel=self.kernel)
+
+    # --------------------------------------------------------- serialization
+    def save(self, ckpt_dir: str, step: int = 0) -> str:
+        """Atomic checkpoint write; a server cold-starts from this alone."""
+        tree = {f.name: getattr(self, f.name)
+                for f in dataclasses.fields(self)
+                if f.name not in self.META_KEYS}
+        extra = {k: getattr(self, k) for k in self.META_KEYS}
+        extra["format"] = self.FORMAT
+        return ckpt_mod.save_checkpoint(ckpt_dir, step, tree, extra=extra)
+
+    @classmethod
+    def load(cls, ckpt_dir: str, step: Optional[int] = None) -> "ModelBank":
+        """A bank saved by either package; meta keys it predates take the
+        field defaults."""
+        extra = ckpt_mod.peek_manifest(ckpt_dir, step)["extra"]
+        if extra.get("format") != cls.FORMAT:
+            raise ValueError(f"{ckpt_dir} is not a model-bank checkpoint "
+                             f"(format={extra.get('format')!r})")
+        arrays, extra = ckpt_mod.restore_self_describing(ckpt_dir, step)
+        defaults = {f.name: f.default for f in dataclasses.fields(cls)}
+        meta = {k: extra.get(k, defaults[k]) for k in cls.META_KEYS}
+        return cls(**arrays, **meta)
+
     def cell_arrays_f32(self, device: Union[str, torch.device]
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(sv, coefs) as f32 tensors on ``device`` — the compute dtype."""

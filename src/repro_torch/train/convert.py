@@ -10,13 +10,12 @@ decisions on one model.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Dict, Union
 
 import numpy as np
 import torch
 
-from repro_torch.api.session import SelectResult
+from repro_torch.api.session import SelectResult, _cfg_from_json
 from repro_torch.cells.builder import CellPlan
 from repro_torch.core import cv as cv_mod
 from repro_torch.data.scaling import Scaler
@@ -30,15 +29,6 @@ ARRAYS = ("x_cells", "mask_cells", "coefs", "gamma", "lam", "tau",
           "classes", "pairs")
 
 
-def _config(cls, d: dict):
-    names = {f.name for f in dataclasses.fields(cls)}
-    kw = {k: v for k, v in d.items() if k in names}
-    for k in ("taus", "weights"):
-        if kw.get(k) is not None:
-            kw[k] = tuple(kw[k])
-    return cls(**kw)
-
-
 def select_result_from_reference(
         arrays: Dict[str, np.ndarray], meta: dict,
         device: Union[None, str, torch.device] = None) -> SelectResult:
@@ -49,8 +39,8 @@ def select_result_from_reference(
     if missing:
         raise ValueError(f"select_result_from_reference: missing arrays "
                          f"{missing}")
-    config = _config(SVMTrainerConfig, meta["config"])
-    cv_cfg = _config(cv_mod.CVConfig, meta.get("cv_cfg", {}))
+    config = _cfg_from_json(SVMTrainerConfig, meta["config"])
+    cv_cfg = _cfg_from_json(cv_mod.CVConfig, meta.get("cv_cfg", {}))
     order = np.asarray(arrays["order"], np.int64)
     centers = np.asarray(arrays["centers"], np.float32)
     slot_of = np.full(centers.shape[0], -1, np.int64)

@@ -2,7 +2,8 @@
 package's ``train/svm_trainer.py``).
 
 ``LiquidSVM(config, device=None).fit(x, y)`` is ``SVM.train()`` followed
-by ``select()`` with the CV-loss argmin; the test-phase methods and
+by ``select()`` with the CV-loss argmin (the validation-surface
+Neyman-Pearson rule for ``scenario="npsvm"``); the test-phase methods and
 ``to_bank()`` delegate to the resulting ``SelectResult``.  It trains on
 the current CUDA card unless the caller passes ``device="cpu"``, and
 raises when there is no card.
@@ -63,8 +64,8 @@ class LiquidSVM:
     def fit(self, x, y: np.ndarray, ckpt_dir: Optional[str] = None
             ) -> "LiquidSVM":
         """Fit from an (n, d) array or a ChunkSource: ``SVM.train()`` +
-        ``select()`` (argmin; the ``npsvm`` scenario's NPL rule is not
-        ported yet and raises)."""
+        ``select("argmin")`` (scenario ``npsvm``: the ``"npl"`` rule, whose
+        rates come from the retained validation surface)."""
         from repro_torch.api.session import SVM
         cfg = self.config
         sess = SVM(x, y, config=cfg, device=self.device)
@@ -78,6 +79,10 @@ class LiquidSVM:
         self.coefs, self.gamma = sel.coefs, sel.gamma
         self.lam, self.tau = sel.lam, sel.tau
         self.val_loss = sel.val_loss
+        if cfg.scenario == "npsvm":
+            self.np_fa = np.asarray(sel.extras["np_fa"])[0]
+            self.np_det = np.asarray(sel.extras["np_det"])[0]
+            self.np_weight_idx = sel.default_sub
         self._fitted = True
         return self
 

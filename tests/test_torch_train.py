@@ -769,9 +769,10 @@ def test_liquid_svm_needs_a_card_or_cpu(monkeypatch):
 
 
 def test_unported_paths_raise():
+    """Per-wave checkpoints (``ckpt_dir``) are the one training path not
+    ported; the npl / roc rules are (``test_torch_session.py``)."""
     x, y = covtype_like(n=120, d=3, n_classes=2, seed=0)
     m = LiquidSVM(SVMTrainerConfig(scenario="ova"), device=CPU)
     with pytest.raises(NotImplementedError):
         m.fit(x, y, ckpt_dir="unused")
-    with pytest.raises(NotImplementedError):
-        t_select.get_rule("npl")
+    assert t_select.get_rule("npl") is t_select.rule_npl
