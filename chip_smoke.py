@@ -50,7 +50,14 @@ kernels from ``src/repro_torch/csrc/`` into ``build/kernels/`` and then:
      ``drifted_cells()`` must name, ``refresh_drifted`` on a labelled
      feedback pool touching exactly those slots, ``swap_bank`` and serving
      again within ``predict_bound`` of the plain reference; every step's
-     launches exact);
+     launches exact); then kill-anywhere resume (``wave_resume``: the
+     staged cell's binary form cut to 9000 rows in 3 waves of 3 slots,
+     fitted with a checkpoint directory, killed under ``faults.armed`` at
+     the start of wave 2, after wave 1's solve and mid-write of wave 2's
+     checkpoint and run again, and run once over a copy with a flipped
+     shard byte: the fit's arrays, the held-out decisions and an npl
+     select bitwise the uninterrupted run's, the restored / solved /
+     corrupt wave counters and the launches exact);
   6. the LM path at stablelm-1.6b's full width (seed-initialised, bf16):
      holds flash attention (B9) and fused decode attention (B10) against
      their plain versions (every mask kind, GQA, head_dim 64 and 256, bf16
@@ -65,7 +72,14 @@ kernels from ``src/repro_torch/csrc/`` into ``build/kernels/`` and then:
      the plain path's; gemma3-4b at full width in bf16 over 2 sequences of
      2048 tokens (past its 1024 window): pooled rows and the prefill's and
      first decode step's logits against the plain attention path within
-     3e-2; each run's launches are counted on their own;
+     3e-2; the dense-attention families: B9 and B10 at head dims 8, 80
+     and 160 against their plain versions, stablelm-12b at full width
+     (2 x 2048 tokens embedded, prefill and first-step logits against the
+     plain attention path, 8 tokens generated with bf16 and int8 caches),
+     hubert-xlarge at full width (``encode`` and pooled rows over 4 x 1024
+     frames against the plain path), internvl2's and command-r's smoke
+     configs on the card against the CPU; each run's launches are counted
+     on their own;
   7. cell construction at UCI Covertype's full size (covtype_like rows,
      580,986 x 54, written to a memmap under ``build/chip_smoke_cells/``,
      removed at the start and the end of the phase): holds the
@@ -162,6 +176,17 @@ RESOLVE_TOL = 5e-3
 # times in a monitor pane of their own (panes of DRIFT_WINDOW_S seconds)
 DRIFT_CELLS, DRIFT_FEATURES, DRIFT_SIGMA, DRIFT_REPEAT = 3, 12, 3.0, 2
 DRIFT_WINDOW_S = 1.0
+# kill-anywhere resume (A3): the staged cell's binary form at the training
+# cell's widths and settings (d 54, recursive cells of 2000, 5 folds, the
+# 10 x 10 grid, SOLVER_POLISH 2, nplSVM with 5 weights), cut to RESUME_N
+# rows (7 cells) in waves of RESUME_WAVE slots: 3 waves; killed at
+# RESUME_KILLS (site, hit) and rerun, and once rerun over a complete
+# directory with one shard's byte flipped (RESUME_CORRUPT_WAVE)
+RESUME_N, RESUME_HELDOUT, RESUME_WAVE = 9000, 2000, 3
+RESUME_KILLS = (("trainer.wave.start", 2), ("trainer.wave.solved", 1),
+                ("checkpoint.save.pre_rename", 2))
+RESUME_CORRUPT_WAVE = 1
+RESUME_DIR = ROOT / "build" / "chip_smoke_resume"
 # C7: gemma3-4b at its published widths (hf:google/gemma-3-4b-pt: 34
 # layers, d_model 2560, head_dim 256, a 1024-token window on 28 layers) in
 # bf16, seed-initialised; 2 sequences of 2048 tokens (past the window)
@@ -188,6 +213,34 @@ LONG_B9, LONG_B10, LONG_B10_ONE = (1, 4096), (16, 32768), (1, 32768)
 # that follow carry such flips (PERF.md, LM slice)
 LM_EMBED_TOL = 3e-2
 LM_LOGIT_TOL = 3e-2
+# the dense-attention families: stablelm-12b at its published widths
+# (hf:stabilityai/stablelm-2-12b: 40 layers, d_model 5120, 32 heads of 160,
+# 8 kv heads, d_ff 13824, vocab 100352, bf16; ~24 GB), 2 sequences of 2048
+# tokens embedded and then FAM_NEW tokens generated with bf16 and int8
+# caches; hubert-xlarge at its published widths (arXiv:2106.07447: 48
+# layers, d_model 1280, 16 heads of 80, bidirectional, frames of 512
+# features), 4 sequences of 1024 frames through encode and the extractor;
+# internvl2-76b and command-r-plus-104b (76 B and 104 B: beyond one card)
+# at their smoke configs, the card against the CPU
+FAM_12B, FAM_B, FAM_T, FAM_NEW = "stablelm-12b", 2, 2048, 8
+FAM_HUBERT, FAM_HB, FAM_HT = "hubert-xlarge", 4, 1024
+FAM_SMOKE = ("internvl2-76b", "command-r-plus-104b")
+# f32 smoke configs, card against CPU: the same products summed in another
+# order through a dozen ops (test_torch_lm measured 7.7e-7 relative on the
+# CPU against the reference); 1e-4 of the largest |value|
+FAM_SMOKE_TOL = 1e-4
+# hubert-xlarge's bf16 logits at every position (4 x 1024 x 504): the
+# plain path moves them by 110-112 % of LM_LOGIT_TOL when only its own f32
+# sums run in another order (keys permuted), and the kernel path lies at
+# 1.01-1.05 x that floor (measured on one H100 by lm_families, which
+# measures the floor under FAM_PERMUTATIONS in every run); so the 48-layer
+# bf16 encode is held within the larger of LM_LOGIT_TOL and
+# FAM_NOISE_FACTOR x the larger floor, and its first FAM_DEPTHS[0] layers
+# (54 % of LM_LOGIT_TOL) within LM_LOGIT_TOL; the other depths are
+# reported; in f32 the same model is held within FAM_SMOKE_TOL
+FAM_PERMUTATIONS = (SEED, SEED + 1)
+FAM_NOISE_FACTOR = 1.25
+FAM_DEPTHS = (12, 24, 36)
 
 # cell-construction slice: UCI Covertype at full size (581,012 rows of 54
 # features, 7 classes; covtype_like rounds n down to 580,986), the spatial
@@ -1190,7 +1243,7 @@ def staged(torch, dev, nplSVM, covtype_like, covtype_like_heldout, tables,
     return paths
 
 
-def resolve_replay(torch, dev, sess, sel) -> dict:
+def resolve_replay(torch, dev, sess, sel, label: str = "staged") -> dict:
     """One more select under the session's rule with every re-solve call
     recorded: the same coefficients bitwise as ``sel``; every call's B1,
     B2 and B4 launches against their plain versions (``replay_kernels``);
@@ -1209,9 +1262,9 @@ def resolve_replay(torch, dev, sess, sel) -> dict:
         again = sess.select()
     n = sel.stats["resolve_calls"]
     if not (np.array_equal(again.coefs, sel.coefs) and len(solves) == n):
-        raise Mismatch("staged: a repeated select re-solved other columns "
-                       "or made other calls")
-    res = replay_kernels(torch, "staged select", rec, {
+        raise Mismatch(f"{label}: a repeated select re-solved other "
+                       f"columns or made other calls")
+    res = replay_kernels(torch, f"{label} select", rec, {
         "sq_dists": n, "gram_from_d2": n, "cd_wave_epoch": n})
     args, _, (mean, _, _) = min(solves, key=lambda r: r[0][0].shape[0])
     cpu = [a.cpu() if hasattr(a, "cpu") else a for a in args]
@@ -1224,7 +1277,7 @@ def resolve_replay(torch, dev, sess, sel) -> dict:
     n_eff = torch.clamp(torch.floor(mask.sum(-1) * (f - 1) / f) - 1,
                         min=1.0)
     box = torch.clamp(sub, min=1.0) / (2.0 * lam * n_eff[:, None])
-    check_bound("staged select: a re-solve on the CPU vs the card",
+    check_bound(f"{label} select: a re-solve on the CPU vs the card",
                 mean.cpu(), want, RESOLVE_TOL * box[:, None].expand_as(want),
                 shape=list(want.shape))
     # and the columns' decisions on the cells' rows, as staged_small
@@ -1232,7 +1285,7 @@ def resolve_replay(torch, dev, sess, sel) -> dict:
     kk = kernel_fns.get_spec(cfg.kernel).fn(cpu[0], cpu[0], cpu[4])
     dec_card, dec_cpu = kk @ mean.cpu(), kk @ want
     scale = max(1.0, float(dec_cpu.abs().max()))
-    err = check("staged select: re-solved decisions, CPU vs card",
+    err = check(f"{label} select: re-solved decisions, CPU vs card",
                 float((dec_card - dec_cpu).abs().max()), RESOLVE_TOL * scale,
                 shape=list(dec_cpu.shape))
     res.update(cpu_resolve_cells=int(want.shape[0]),
@@ -1241,6 +1294,177 @@ def resolve_replay(torch, dev, sess, sel) -> dict:
                cpu_vs_card_coefs_max_abs_err=float(
                    (mean.cpu() - want).abs().max()))
     return res
+
+
+def _resume_bits(sess, tr, xt):
+    """Everything a resumed fit promises bitwise: the fit's arrays, the
+    held-out decisions of its argmin selection, and an npl selection
+    (re-solving moved winners from the back-filled slots) with its
+    held-out decisions and stats.  Returns them and that selection."""
+    out = {k: getattr(tr, k) for k in (
+        "coefs", "gamma", "lam", "tau", "val_loss", "surf_loss", "surf_fa",
+        "surf_det", "iters", "x_cells", "mask_cells", "gammas_cells")}
+    sel = sess.select("npl")
+    out.update(npl_coefs=sel.coefs, npl_heldout=sel.decision_function(xt),
+               npl_stats=sel.stats)
+    arg = sess.select("argmin")
+    out["heldout"] = arg.decision_function(xt)
+    return out, sel
+
+
+def _same_bits(a, b) -> bool:
+    if isinstance(a, dict):
+        return a == b
+    return a.dtype == b.dtype and a.shape == b.shape and bool(
+        np.array_equal(a.view(np.uint8), b.view(np.uint8)))
+
+
+def wave_resume(torch, dev, nplSVM, covtype_like, covtype_like_heldout,
+                tables):
+    """Kill-anywhere resume on the card (A3): one uninterrupted fit with a
+    checkpoint directory, then for each of RESUME_KILLS a fit killed under
+    ``faults.armed`` at that site and hit and run again over its own
+    directory, and one run over a copy of the complete directory with a
+    byte of one wave's shard flipped.  Every rerun must equal the
+    uninterrupted run bitwise (``_resume_bits``), count exactly the waves
+    it restored, solved and found corrupt, and launch the training
+    kernels for its solved waves only.  Every run's first solved wave
+    (B1-sym, B2, B4) and the uninterrupted run's npl re-solves
+    (``resolve_replay``) are replayed against their plain versions: a
+    bitwise rerun alone cannot catch a wrong kernel, both sides run it.
+    Reports the checkpoint write s a wave, the restore s a wave and the
+    bytes of a wave."""
+    from repro_torch import obs
+    from repro_torch.distributed import cell_trainer
+    from repro_torch.testing import faults
+    from repro_torch.train import checkpoint as ckpt_mod
+    x, y = covtype_like(n=RESUME_N, d=DIM, n_classes=2, seed=SEED)
+    xt, _ = covtype_like_heldout(RESUME_HELDOUT, n=RESUME_N, d=DIM,
+                                 n_classes=2, seed=SEED,
+                                 new_seed=HELDOUT_SEED)
+    y = _binary(y)
+    keys = dict(STAGED_KEYS, WAVE_SLOTS=RESUME_WAVE)
+    names = ("train.waves_solved", "train.waves_restored",
+             "train.corrupt_waves")
+    shutil.rmtree(RESUME_DIR, ignore_errors=True)
+    times = {"save": [], "restore": []}
+    save0, restore0 = ckpt_mod.save_checkpoint, cell_trainer._restore_wave
+
+    def timed_save(*a, **kw):
+        t0 = time.perf_counter()
+        out = save0(*a, **kw)
+        times["save"].append(time.perf_counter() - t0)
+        return out
+
+    def timed_restore(*a, **kw):
+        t0 = time.perf_counter()
+        out = restore0(*a, **kw)
+        times["restore"].append(time.perf_counter() - t0)
+        return out
+
+    def fit(ck):
+        sess = nplSVM(x, y, constraint=STAGED_ALPHA, device=dev, **keys)
+        c0 = [obs.metrics.counter(n).value for n in names]
+        zero_counts(tables)
+        with recorded_kernels(dev, keep=1) as rec:
+            tr = sess.train(ckpt_dir=str(ck))
+            torch.cuda.synchronize()
+        counts = read_counts(tables)
+        last["rec"] = rec
+        return sess, tr, [obs.metrics.counter(n).value - c
+                          for n, c in zip(names, c0)], counts
+
+    def replay_first_wave(label):
+        """The first solved wave of the last fit: one of each launch."""
+        return replay_kernels(torch, f"resume[{label}] first solved wave",
+                              last.pop("rec"), {"sq_dists_sym": 1, "gram_from_d2": 1,
+                                    "cd_wave_epoch": 1})
+
+    def expect_launches(label, tr, counts, solved):
+        g = tr.gammas_cells.shape[1]
+        require_launches(label, counts, {
+            "sq_dists_sym": solved, "gram_from_d2": g * solved,
+            "cd_wave_epoch": tr.config.cd_polish * g * solved})
+
+    ckpt_mod.save_checkpoint, cell_trainer._restore_wave = (timed_save,
+                                                            timed_restore)
+    paths, runs, last = {}, {}, {}
+    try:
+        ref_dir = RESUME_DIR / "uninterrupted"
+        t0 = time.perf_counter()
+        sess, tr, waves, counts = fit(ref_dir)
+        fit_s = time.perf_counter() - t0
+        n_waves = -(-tr.packed.n_slots // RESUME_WAVE)
+        if n_waves < 3 or waves != [n_waves, 0, 0]:
+            raise Mismatch(f"wave_resume: {n_waves} waves, counters {waves}")
+        expect_launches("resume uninterrupted", tr, counts, n_waves)
+        paths["uninterrupted"] = counts
+        replayed = {"uninterrupted": replay_first_wave("uninterrupted")}
+        want, sel = _resume_bits(sess, tr, xt)
+        replayed["npl select"] = resolve_replay(torch, dev, sess, sel,
+                                                "wave_resume")
+        wave_bytes = [_dir_bytes(ref_dir / f"step_{w:08d}")
+                      for w in range(n_waves)]
+        cases = [(f"{site}@{hit}", site, hit) for site, hit in RESUME_KILLS]
+        cases.append((f"corrupt wave {RESUME_CORRUPT_WAVE}", None, None))
+        for label, site, hit in cases:
+            ck = RESUME_DIR / label.replace(" ", "_").replace("@", "_")
+            if site is None:
+                shutil.copytree(ref_dir, ck)
+                shard = ck / f"step_{RESUME_CORRUPT_WAVE:08d}" / "shard_0.npz"
+                with np.load(shard) as z:
+                    arrays = {k: z[k].copy() for k in z.files}
+                arrays["leaf_0"][0] ^= 0xFF        # the zip stays valid
+                np.savez(shard, **arrays)
+                expect = [1, n_waves - 1, 1]
+            else:
+                killed = False
+                try:
+                    with faults.armed(site, at_hit=hit):
+                        fit(ck)
+                except faults.InjectedFault:
+                    killed = True
+                if not killed:
+                    raise Mismatch(f"wave_resume: {label} never fired")
+                restored = hit - 1     # waves saved before the kill
+                expect = [n_waves - restored, restored, 0]
+            n_restore = len(times["restore"])
+            t0 = time.perf_counter()
+            sess, tr, waves, counts = fit(ck)
+            rerun_s = time.perf_counter() - t0
+            if waves != expect:
+                raise Mismatch(f"wave_resume[{label}]: counters "
+                               f"(solved, restored, corrupt) {waves}, "
+                               f"expected {expect}")
+            expect_launches(f"resume[{label}]", tr, counts, expect[0])
+            replayed[label] = replay_first_wave(label)
+            got, _ = _resume_bits(sess, tr, xt)
+            differ = [k for k in want if not _same_bits(got[k], want[k])]
+            if differ:
+                raise Mismatch(f"wave_resume[{label}]: {differ} differ from "
+                               f"the uninterrupted run's bits")
+            if ckpt_mod.list_steps(str(ck)) != list(range(n_waves)):
+                raise Mismatch(f"wave_resume[{label}]: steps "
+                               f"{ckpt_mod.list_steps(str(ck))} left")
+            paths[label] = counts
+            runs[label] = {"solved_restored_corrupt": waves,
+                           "rerun_s": rerun_s, "bitwise": True,
+                           "restore_s": times["restore"][n_restore:]}
+    finally:
+        ckpt_mod.save_checkpoint, cell_trainer._restore_wave = (save0,
+                                                                restore0)
+    shutil.rmtree(RESUME_DIR, ignore_errors=True)
+    emit({"phase": "wave_resume", "n": int(x.shape[0]),
+          "cells": tr.plan.n_cells, "k_max": tr.plan.k_max,
+          "slots": tr.packed.n_slots, "wave_slots": RESUME_WAVE,
+          "waves": n_waves, "uninterrupted_fit_s": fit_s,
+          "npl_columns_resolved": want["npl_stats"]["columns_resolved"],
+          "checkpoint_write_s_per_wave": float(np.mean(times["save"])),
+          "checkpoint_writes": len(times["save"]),
+          "restore_s_per_wave": float(np.mean(times["restore"])),
+          "wave_bytes": wave_bytes, "runs": runs, "replays": replayed,
+          "ok": True})
+    return paths
 
 
 def _profile(torch, fn, per: int = 1, top: int = 8,
@@ -1358,6 +1582,456 @@ def lm_gemma_long(torch, dev, tables):
     del ex, logits, logits_p, step1, step1_p, e_kern, e_plain
     torch.cuda.empty_cache()
     return {name: counts[name] + gen_counts[name] for name in counts}
+
+
+def lm_families_kernels(torch, dev):
+    """B9 and B10 at the head dims of the dense-attention families (8:
+    command-r's smoke config, bf16 on the CUDA-core kernel; 80: hubert; 160:
+    stablelm-12b) against their plain versions on the card: every mask
+    kind, ragged T and S, GQA groups 1, 2 and 4, bf16 and f32; B10 with
+    bf16 and int8 caches over partial and wrapped rings.  (The families'
+    own launches are replayed at their shapes by ``lm_families``.)"""
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    gen = torch.Generator().manual_seed(SEED + 1)
+    bf16, f32 = torch.bfloat16, torch.float32
+    errs = {}
+    for kind, win, b, t, s, h, hk, d, dt in (
+            ("causal", 0, 1, 300, 300, 32, 8, 160, bf16),
+            ("causal", 0, 2, 100, 260, 4, 2, 160, f32),
+            ("window", 70, 1, 200, 333, 8, 2, 160, bf16),
+            ("bidir", 0, 2, 130, 130, 16, 16, 80, bf16),
+            ("causal", 0, 1, 257, 257, 8, 2, 80, bf16),
+            ("window", 40, 2, 90, 150, 4, 1, 80, f32),
+            ("causal", 0, 2, 77, 77, 8, 2, 8, bf16),
+            ("bidir", 0, 1, 65, 33, 8, 8, 8, bf16),
+            ("window", 16, 1, 150, 150, 4, 2, 8, f32)):
+        q = torch.randn(b, t, h, d, generator=gen).to(dev, dt)
+        k = torch.randn(b, s, hk, d, generator=gen).to(dev, dt)
+        v = torch.randn(b, s, hk, d, generator=gen).to(dev, dt)
+        got = fa_ops.flash_attention(q, k, v, kind, win)
+        want = fa_ref.flash_attention_ref(q, k, v, kind, win)
+        torch.cuda.synchronize()
+        label = (f"flash_attention[{kind},w={win},B={b},T={t},S={s},H={h},"
+                 f"Hk={hk},D={d},{str(dt)[6:]}]")
+        e = check(label, float((got.float() - want.float()).abs().max()),
+                  attn_tol(want), kernel=fa_ops.kernel_name(dt, d))
+        if dt == bf16:
+            check_bound(label + "[elementwise]", got.float().cpu(),
+                        want.float().cpu(),
+                        attn_err_bound(fa_ref, q, k, v, kind, win, want).cpu())
+        errs[f"flash_attention,D={d}"] = max(
+            errs.get(f"flash_attention,D={d}", 0.0), e)
+    for b, s, hk, g, d, quant, pos, win in (
+            (2, 2048, 8, 4, 160, False, 2047, 0),
+            (2, 2048, 8, 4, 160, True, 2047, 0),
+            (3, 333, 2, 1, 160, True, 666, 0),
+            (1, 9000, 8, 2, 160, False, 9100, 1024),
+            (3, 300, 4, 2, 80, False, 120, 0),
+            (2, 1024, 16, 1, 80, True, 1500, 0),
+            (3, 100, 2, 4, 8, False, 99, 0),
+            (3, 100, 2, 4, 8, True, 250, 0),
+            (1, 5000, 2, 2, 8, True, 4999, 0)):
+        q = torch.randn(b, hk, g, d, generator=gen).to(dev, bf16)
+        k = torch.randn(b, s, hk, d, generator=gen)
+        v = torch.randn(b, s, hk, d, generator=gen)
+        ks = vs = None
+        if quant:
+            ks = k.abs().amax(-1, keepdim=True).div(127.0).clamp(min=1e-10)
+            vs = v.abs().amax(-1, keepdim=True).div(127.0).clamp(min=1e-10)
+            k = torch.round(k / ks).clamp(-127, 127).to(torch.int8)
+            v = torch.round(v / vs).clamp(-127, 127).to(torch.int8)
+            ks, vs = ks.to(dev), vs.to(dev)
+        k, v = (a.to(dev, torch.int8 if quant else bf16) for a in (k, v))
+        got = dec_ops.decode_attention_fused(q, k, v, pos, d ** -0.5, ks, vs,
+                                             window=win)
+        again = dec_ops.decode_attention_fused(q, k, v, pos, d ** -0.5, ks,
+                                               vs, window=win)
+        want = dec_ref.decode_attention_ref(q, k, v, pos, d ** -0.5, ks, vs,
+                                            win)
+        torch.cuda.synchronize()
+        label = (f"decode_attention[B={b},S={s},Hk={hk},G={g},D={d},"
+                 f"{'int8' if quant else 'bf16'},pos={pos},w={win}]")
+        e = check(label, float((got.float() - want.float()).abs().max()),
+                  attn_tol(want), run_to_run_equal=bool(torch.equal(got,
+                                                                    again)))
+        if not torch.equal(got, again):
+            raise Mismatch(f"{label}: two launches differ")
+        errs[f"decode_attention,D={d}"] = max(
+            errs.get(f"decode_attention,D={d}", 0.0), e)
+
+    emit({"phase": "lm_families_kernels", "max_abs_err": errs, "ok": True})
+    return errs
+
+
+def _tol_share(label: str, got, want, tol: float, floor: float = 0.0
+               ) -> float:
+    """``got`` against ``want`` within ``tol`` of the largest |want|, or
+    within ``floor`` where that is larger; returns the share of the
+    tolerance used."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise Mismatch(f"{label}: shape {got.shape} vs {want.shape} or "
+                       f"non-finite values")
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    bound = max(tol * scale, floor)
+    check(label, err, bound, max_abs_value=scale, relative_tol=tol,
+          floor=floor)
+    return err / bound
+
+
+@contextlib.contextmanager
+def _keys_permuted(torch, seed: int):
+    """The plain attention with its keys and values permuted along S: the
+    same function, its f32 sums in another order (bidirectional only)."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    inner = fa_ref.flash_attention_ref
+
+    def permuted(q, k, v, mask_kind="causal", window=0, scale=None):
+        if mask_kind != "bidir":
+            raise Mismatch("_keys_permuted: only bidirectional attention is "
+                           "invariant under a key permutation")
+        perm = torch.randperm(k.shape[1], generator=torch.Generator(
+            ).manual_seed(seed)).to(k.device)
+        return inner(q, k[:, perm], v[:, perm], mask_kind, window, scale)
+    fa_ref.flash_attention_ref = permuted
+    try:
+        yield
+    finally:
+        fa_ref.flash_attention_ref = inner
+
+# B9 / B10 wrappers by the name their launches are counted under
+ATTN_WRAPPERS = {"flash_attention": "flash_attention",
+                 "decode_attention": "decode_attention_fused"}
+
+
+def attn_replay(torch, family: str, what: str, name: str, call):
+    """One recorded B9 or B10 launch of a path (``recorded``: args, kwargs,
+    output) against its plain version on the same operands on the card,
+    within ``attn_tol`` (a bf16 B9 launch also value by value,
+    ``attn_err_bound``).  Returns the check's error and the launch's
+    timing case: (label, family, name, kernel, plain, SDPA or None,
+    bound)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    args, kw, got = call
+    if name == "flash_attention":
+        q, k, v = args
+        kind, win = kw.get("mask_kind", "causal"), kw.get("window", 0)
+        (b, t, h, d), s, hk = q.shape, k.shape[1], k.shape[2]
+        label = (f"flash_attention[{family} {what}: B={b},T={t},S={s},H={h},"
+                 f"Hk={hk},D={d},{kind},{str(q.dtype)[6:]}]")
+        want = fa_ref.flash_attention_ref(q, k, v, kind, win)
+        torch.cuda.synchronize()
+        err = check(label, float((got.float() - want.float()).abs().max()),
+                    attn_tol(want), kernel=fa_ops.kernel_name(q.dtype, d))
+        if q.dtype == torch.bfloat16:
+            check_bound(label + "[elementwise]", got.float().cpu(),
+                        want.float().cpu(),
+                        attn_err_bound(fa_ref, q, k, v, kind, win,
+                                       want).cpu())
+        lib = None
+        if kind in ("causal", "bidir"):
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            lib = (lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=kind == "causal", enable_gqa=h > hk))
+        tensor_cores = q.dtype == torch.bfloat16 and d >= 16
+        case = (lambda: fa_ops.flash_attention(q, k, v, mask_kind=kind,
+                                               window=win),
+                lambda: fa_ref.flash_attention_ref(q, k, v, kind, win), lib,
+                attn_bound(torch, b, t, s, h, hk, d, kind, win,
+                           q.element_size(), BF16_FLOP_PER_S if tensor_cores
+                           else FP32_FLOP_PER_S))
+        return err, (label, family, name, *case)
+    q, k, v, pos, scale = args
+    ks, vs = kw.get("k_scale"), kw.get("v_scale")
+    win = kw.get("window", 0)
+    (b, hk, g, d), s = q.shape, k.shape[1]
+    quant = k.dtype == torch.int8
+    nvis = min(pos + 1, s, win if win > 0 else s)
+    label = (f"decode_attention[{family} {what}: B={b},S={s},Hk={hk},G={g},"
+             f"D={d},{'int8' if quant else str(k.dtype)[6:]},pos={pos}]")
+    want = dec_ref.decode_attention_ref(q, k, v, pos, scale, ks, vs, win)
+    torch.cuda.synchronize()
+    err = check(label, float((got.float() - want.float()).abs().max()),
+                attn_tol(want))
+    lib = None
+    if not quant and pos < s:          # no wrap: keys 0..pos in order
+        kt, vt = (x[:, :pos + 1].transpose(1, 2).contiguous()
+                  for x in (k, v))
+        lib = (lambda: F.scaled_dot_product_attention(
+            q, kt, vt, scale=scale))
+    n_bytes = (2 * b * nvis * hk * d * k.element_size()
+               + (2 * b * nvis * hk * 4 if quant else 0)
+               + 2 * q.numel() * q.element_size())
+    case = (lambda: dec_ops.decode_attention_fused(q, k, v, pos, scale, ks,
+                                                   vs, window=win),
+            lambda: dec_ref.decode_attention_ref(q, k, v, pos, scale, ks, vs,
+                                                 win), lib,
+            bound(n_bytes, 4 * b * hk * g * nvis * d))
+    return err, (label, family, name, *case)
+
+
+def lm_families(torch, dev, tables):
+    """The dense-attention families on the card.  stablelm-12b at full
+    width: 2 x 2048 tokens through ``EmbeddingExtractor``, pooled rows, the
+    prefill's and the first decode step's logits against the plain
+    attention path (``attn_impl="ref"``) on the same weights, then greedy
+    generation of FAM_NEW tokens with bf16 and int8 caches.  hubert-xlarge
+    at full width: ``encode`` logits and the extractor's pooled rows over
+    4 x 1024 frames against the plain path.  internvl2 and command-r at
+    their smoke configs in f32: the card's prefill, three decode steps and
+    (command-r) greedy tokens against the CPU's on the same weights.
+    Every run's launches are exact, and the first B9 or B10 launch of the
+    runs named in ``record`` is replayed against its plain version at its
+    own shape (``attn_replay``).  Returns the launch counts of each run,
+    the replays' errors and their timing cases."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.embed import EmbeddingExtractor
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.layers import tree_map
+    from repro_torch.serve import engine
+    from repro_torch.serve.kv_cache import pad_cache
+    paths, out, errs, cases = {}, {}, {}, []
+    mods = {"flash_attention": fa_ops, "decode_attention": dec_ops}
+
+    def counted(label, fn, expect, record=()):
+        """``fn`` run once with its launches counted; ``record``: (kernel,
+        what) pairs whose first launch in the run is replayed."""
+        zero_counts(tables)
+        rec = {name: [] for name, _ in record}
+        with contextlib.ExitStack() as st:
+            for name in rec:
+                st.enter_context(recorded(mods[name], ATTN_WRAPPERS[name],
+                                          rec[name], keep=1, device=dev))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        paths[label] = read_counts(tables)
+        require_launches(label, paths[label], expect)
+        family = label.split(" ")[0]
+        for name, what in record:
+            e, case = attn_replay(torch, family, what, name, rec[name][0])
+            errs[case[0]] = e
+            cases.append(case)
+        return res, secs
+
+    # stablelm-12b, full width
+    cfg = get_arch(FAM_12B).config
+    plain_cfg = dataclasses.replace(cfg, attn_impl="ref")
+    toks = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (FAM_B, FAM_T)).astype(np.int32)
+    t0 = time.perf_counter()
+    ex = EmbeddingExtractor(cfg, batch_size=FAM_B, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ex(toks)                                      # warm the shapes
+    e_kern, embed_s = counted("stablelm-12b embed", lambda: ex(toks),
+                              {"flash_attention": cfg.n_layers})
+    e_plain = EmbeddingExtractor(plain_cfg, ex.params, batch_size=FAM_B,
+                                 device=dev)(toks)
+    shares = {"pooled": _tol_share("stablelm-12b pooled rows vs plain "
+                                   "attention", e_kern, e_plain,
+                                   LM_EMBED_TOL)}
+    prompt = torch.as_tensor(toks).to(dev)
+
+    def prefill_step1(c):
+        logits, cache = engine.prefill_step(c, ex.params, prompt)
+        cache = pad_cache(c, cache, FAM_T + 1)
+        first = logits.argmax(-1)[:, None].to(torch.int32)
+        step1, _ = engine.serve_step(c, ex.params, first, cache, FAM_T)
+        return logits, step1
+
+    (logits, step1), _ = counted(
+        "stablelm-12b prefill + one step", lambda: prefill_step1(cfg),
+        {"flash_attention": cfg.n_layers, "decode_attention": cfg.n_layers},
+        [("flash_attention", "prefill"), ("decode_attention", "step")])
+    logits_p, step1_p = prefill_step1(plain_cfg)
+    shares["prefill"] = _tol_share("stablelm-12b prefill logits vs plain",
+                                   logits.cpu(), logits_p.cpu(),
+                                   LM_LOGIT_TOL)
+    shares["first decode step"] = _tol_share(
+        "stablelm-12b first decode-step logits vs plain", step1.cpu(),
+        step1_p.cpu(), LM_LOGIT_TOL)
+    del logits, step1, logits_p, step1_p
+    gen_runs = {}
+    for kv in ("bf16", "int8"):
+        c = dataclasses.replace(cfg, kv_cache_dtype=kv)
+        (_, _), pre_s = counted(f"stablelm-12b prefill[{kv}]",
+                                lambda c=c: engine.prefill_step(
+                                    c, ex.params, prompt),
+                                {"flash_attention": c.n_layers})
+        toks_out, gen_s = counted(
+            f"stablelm-12b generate[{kv}]",
+            lambda c=c: engine.generate(c, ex.params, prompt, FAM_NEW),
+            {"flash_attention": c.n_layers,
+             "decode_attention": c.n_layers * (FAM_NEW - 1)},
+            [("decode_attention", "generate")] if kv == "int8" else ())
+        if (toks_out.shape != (FAM_B, FAM_T + FAM_NEW)
+                or int(toks_out.min()) < 0
+                or int(toks_out.max()) >= c.vocab):
+            raise Mismatch(f"stablelm-12b generate[{kv}]: bad tokens")
+        gen_runs[kv] = {"seconds": gen_s, "prefill_s": pre_s,
+                        "decode_ms_per_step":
+                            (gen_s - pre_s) * 1e3 / (FAM_NEW - 1)}
+    out[FAM_12B] = {
+        "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "head_dim": cfg.head_dim, "params": cfg.param_count(),
+        "dtype": str(cfg.dtype), "batch": FAM_B, "seq_len": FAM_T,
+        "init_s": init_s, "embed_s": embed_s,
+        "embed_tokens_per_s": FAM_B * FAM_T / embed_s,
+        "generate": gen_runs, "tolerance_share_used": shares,
+        "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    del ex, e_kern, e_plain, prompt
+    torch.cuda.empty_cache()
+
+    # hubert-xlarge, full width: frames through encode and the extractor
+    cfg = get_arch(FAM_HUBERT).config
+    plain_cfg = dataclasses.replace(cfg, attn_impl="ref")
+    frames = np.random.default_rng(SEED).standard_normal(
+        (FAM_HB, FAM_HT, cfg.d_frontend)).astype(np.float32)
+    ex = EmbeddingExtractor(cfg, batch_size=FAM_HB, seed=SEED, device=dev)
+    x = torch.as_tensor(frames).to(dev)
+    model_mod.encode(cfg, ex.params, x)           # warm the shapes
+    lg, enc_s = counted("hubert-xlarge encode",
+                        lambda: model_mod.encode(cfg, ex.params, x),
+                        {"flash_attention": cfg.n_layers},
+                        [("flash_attention", "encode")])
+    lg_p = model_mod.encode(plain_cfg, ex.params, x)
+    floors = []
+    for seed in FAM_PERMUTATIONS:
+        with _keys_permuted(torch, seed):
+            floors.append(float((model_mod.encode(plain_cfg, ex.params, x)
+                                 - lg_p).abs().max()))
+    scale = float(lg_p.abs().max())
+    shares = {"encode logits": _tol_share(
+        "hubert-xlarge encode logits vs plain", lg.cpu(), lg_p.cpu(),
+        LM_LOGIT_TOL, FAM_NOISE_FACTOR * max(floors))}
+    # the same comparison at the first layers of the 48, where the floor
+    # has not yet reached the tolerance: the first FAM_DEPTHS[0] held
+    # within LM_LOGIT_TOL
+    depth = {48: {"share_of_3e-2": float((lg - lg_p).abs().max())
+                  / (LM_LOGIT_TOL * scale),
+                  "mean_abs": float((lg - lg_p).abs().mean()),
+                  "plain_permuted_max_abs": floors}}
+    for n in FAM_DEPTHS:
+        c = dataclasses.replace(cfg, n_layers=n)
+        p_n = {**ex.params, "stack": tree_map(lambda a: a[:n],
+                                              ex.params["stack"])}
+        a = model_mod.encode(c, p_n, x)
+        b = model_mod.encode(dataclasses.replace(c, attn_impl="ref"), p_n, x)
+        depth[n] = {"share_of_3e-2": float((a - b).abs().max())
+                    / (LM_LOGIT_TOL * float(b.abs().max())),
+                    "mean_abs": float((a - b).abs().mean())}
+        if n == FAM_DEPTHS[0]:
+            shares[f"encode logits, first {n} layers"] = _tol_share(
+                f"hubert-xlarge encode logits, first {n} layers, vs plain",
+                a.cpu(), b.cpu(), LM_LOGIT_TOL)
+        del a, b
+    rows, rows_s = counted("hubert-xlarge embed", lambda: ex(frames),
+                           {"flash_attention": cfg.n_layers})
+    rows_p = EmbeddingExtractor(plain_cfg, ex.params, batch_size=FAM_HB,
+                                device=dev)(frames)
+    shares["pooled"] = _tol_share("hubert-xlarge pooled rows vs plain",
+                                  rows, rows_p, LM_EMBED_TOL)
+    # the same weights in f32 (exact): the kernel path (f32 B9 at D 80)
+    # against the plain path within f32 noise
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = tree_map(lambda a: a.float(), ex.params)
+    lg32, _ = counted("hubert-xlarge encode f32",
+                      lambda: model_mod.encode(cfg32, p32, x),
+                      {"flash_attention": cfg.n_layers},
+                      [("flash_attention", "encode")])
+    shares["encode logits f32"] = _tol_share(
+        "hubert-xlarge encode logits f32 vs plain", lg32.cpu(),
+        model_mod.encode(dataclasses.replace(cfg32, attn_impl="ref"), p32,
+                         x).cpu(), FAM_SMOKE_TOL)
+    del p32, lg32
+    out[FAM_HUBERT] = {
+        "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "head_dim": cfg.head_dim, "params": cfg.param_count(),
+        "batch": FAM_HB, "frames": FAM_HT, "d_frontend": cfg.d_frontend,
+        "encode_s": enc_s, "encode_frames_per_s": FAM_HB * FAM_HT / enc_s,
+        "embed_s": rows_s, "logits_shape": list(lg.shape),
+        "plain_reordered_max_abs_dev": floors, "by_depth": depth,
+        "tolerance_share_used": shares}
+    del ex, x, lg, lg_p
+    torch.cuda.empty_cache()
+
+    # the smoke configs of the configurations beyond one card, card vs CPU
+    cpu = torch.device("cpu")
+    for arch in FAM_SMOKE:
+        cfg = dataclasses.replace(get_arch(arch).smoke, dtype=torch.float32)
+        p_cpu = model_mod.init_params(cfg,
+                                      torch.Generator().manual_seed(SEED))
+        p_dev = tree_map(lambda a: a.to(dev), p_cpu)
+        rng = np.random.default_rng(SEED)
+        if cfg.input_kind == "tokens":
+            xs = rng.integers(0, cfg.vocab, (4, 24 + 3)).astype(np.int64)
+        else:
+            xs = rng.standard_normal((4, 24 + 3, cfg.d_frontend)
+                                     ).astype(np.float32)
+        shares = {}
+        results = {}
+        for where, p in (("card", p_dev), ("cpu", p_cpu)):
+            d_ = dev if where == "card" else cpu
+
+            def run(p=p, d_=d_):
+                x = torch.as_tensor(xs).to(d_)
+                logits, cache = engine.prefill_step(cfg, p, x[:, :24])
+                cache = pad_cache(cfg, cache, 27)
+                steps = [logits]
+                for j in range(3):
+                    lj, cache = engine.serve_step(cfg, p, x[:, 24 + j:25 + j],
+                                                  cache, 24 + j)
+                    steps.append(lj)
+                return [s_.cpu() for s_ in steps]
+            if where == "card":
+                results[where], _ = counted(
+                    f"{arch} smoke prefill + 3 steps", run,
+                    {"flash_attention": cfg.n_layers,
+                     "decode_attention": 3 * cfg.n_layers},
+                    [("flash_attention", "smoke prefill"),
+                     ("decode_attention", "smoke step")]
+                    if cfg.head_dim == 8 else ())
+            else:
+                results[where] = run()
+        for j, (a, b) in enumerate(zip(results["card"], results["cpu"])):
+            shares[f"step {j}"] = _tol_share(
+                f"{arch} smoke logits[{j}] card vs CPU", a.numpy(),
+                b.numpy(), FAM_SMOKE_TOL)
+        same = None
+        if cfg.input_kind == "tokens":
+            prompt = torch.as_tensor(xs[:, :24])
+            got, _ = counted(f"{arch} smoke generate",
+                             lambda: engine.generate(cfg, p_dev,
+                                                     prompt.to(dev), 12),
+                             {"flash_attention": cfg.n_layers,
+                              "decode_attention": 11 * cfg.n_layers})
+            want = engine.generate(cfg, p_cpu, prompt, 12)
+            same = bool(torch.equal(got.cpu(), want))
+            if not same:
+                raise Mismatch(f"{arch} smoke: greedy tokens on the card "
+                               f"differ from the CPU's")
+        out[arch] = {"config": cfg.name, "head_dim": cfg.head_dim,
+                     "input_kind": cfg.input_kind,
+                     "tolerance_share_used": shares,
+                     "greedy_tokens_identical": same}
+    emit({"phase": "lm_families", **out, "replayed_max_abs_err": errs,
+          "ok": True})
+    return paths, errs, cases
 
 
 def attn_tol(want) -> float:
@@ -1780,13 +2454,15 @@ def lm_decode_profile(torch, dev, cfg, params, prompt, steps: int = 4):
 
 def lm_smoke_tokens(torch, dev, tables):
     """At the smoke configs in f32: greedy tokens through B9/B10 equal the
-    plain path's, with a bf16 (here: f32) and an int8 cache."""
+    plain path's, with a bf16 (here: f32) and an int8 cache (stablelm-12b's
+    and command-r's smoke configs too: head_dim 16 and 8)."""
     import dataclasses
     from repro_torch.configs import get_arch
     from repro_torch.models import model as model_mod
     from repro_torch.serve import engine
     out = {}
-    for arch in ("stablelm-1.6b", "gemma3-4b"):
+    for arch in ("stablelm-1.6b", "gemma3-4b", "stablelm-12b",
+                 "command-r-plus-104b"):
         for kv in ("bf16", "int8"):
             cfg = dataclasses.replace(get_arch(arch).smoke,
                                       dtype=torch.float32, kv_cache_dtype=kv)
@@ -1811,13 +2487,15 @@ def lm_smoke_tokens(torch, dev, tables):
     emit({"phase": "lm_smoke_tokens", "identical": out, "ok": True})
 
 
-def attn_bound(torch, b, t, s, h, hk, d, kind, window, esize):
+def attn_bound(torch, b, t, s, h, hk, d, kind, window, esize,
+               peak: float = BF16_FLOP_PER_S):
     """B9's least time: q, k, v read and o written once, or 4 D operations
-    per visible (row, column) pair and head at the bf16 tensor-core peak."""
+    per visible (row, column) pair and head at ``peak`` (the bf16
+    tensor-core peak unless the kernel runs on CUDA cores)."""
     from repro_torch.kernels.flash_attention.ref import attention_mask
     pairs = int(attention_mask(t, s, kind, window).sum())
     return bound(esize * (2 * b * t * h * d + 2 * b * s * hk * d),
-                 4 * d * pairs * b * h, BF16_FLOP_PER_S)
+                 4 * d * pairs * b * h, peak)
 
 
 def lm_timing_cases(torch, dev, cfg):
@@ -2589,9 +3267,12 @@ def main() -> int:
     staged_paths = staged(torch, dev, nplSVM, covtype_like,
                           covtype_like_heldout, tables, refs, session_mod,
                           ModelBank, refresh_drifted)
+    resume_paths = wave_resume(torch, dev, nplSVM, covtype_like,
+                               covtype_like_heldout, tables)
     train_paths = {"fit": fit_counts, "test": test_counts,
                    "trained_bank": bank_counts, "cd_epochs": b5_counts,
-                   **{f"staged_{k}": v for k, v in staged_paths.items()}}
+                   **{f"staged_{k}": v for k, v in staged_paths.items()},
+                   **{f"resume[{k}]": v for k, v in resume_paths.items()}}
     emit({"phase": "train_launches", "per_path": train_paths})
     launches = {name: launches.get(name, 0)
                 + sum(n[name] for n in train_paths.values())
@@ -2610,9 +3291,12 @@ def main() -> int:
     lm_decode_profile(torch, dev, lm_cfg, ex.params, prompt)
     lm_smoke_tokens(torch, dev, tables)
     gemma_counts = lm_gemma_long(torch, dev, tables)
+    lm_families_kernels(torch, dev)
+    fam_paths, fam_errs, fam_cases = lm_families(torch, dev, tables)
     lm_paths = {"embed": embed_counts, "svm_fit": fit_counts_lm,
                 "embed_serve": serve_counts_lm, "generate": gen_counts,
-                "gemma_long": gemma_counts}
+                "gemma_long": gemma_counts,
+                **{f"families[{k}]": v for k, v in fam_paths.items()}}
     emit({"phase": "lm_launches", "per_path": lm_paths})
     launches = {name: launches.get(name, 0)
                 + sum(n[name] for n in lm_paths.values())
@@ -2813,6 +3497,24 @@ def main() -> int:
         "bound_ms": b2_train[0], "bound_by": b2_train[1],
         "library_ms": cuda_ms(torch, lambda: torch.exp(neg_t))}]
     del neg_t
+    # B9 and B10 at the families' own launches (``lm_families`` recorded
+    # and replayed them): launches over that family's runs, the error of
+    # the replay at the row's shape
+    fam_rows = []
+    for label, family, name, kern, plain, lib, (b_ms, b_by) in fam_cases:
+        fam_rows.append({
+            "name": label, "route": "cuda", "source": KERNELS[name][0],
+            "replaces": KERNELS[name][1],
+            "launches": sum(n[name] for k, n in fam_paths.items()
+                            if k.startswith(family)),
+            "max_abs_err": fam_errs[label],
+            "ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None if lib is None else cuda_ms(torch, lib)})
+    del fam_cases
+    emit({"phase": "lm_families_kernel_times", "rows": fam_rows,
+          "library": "torch.nn.functional.scaled_dot_product_attention",
+          "card": smi.splitlines()[0]})
     emit({"phase": "lm_kernel_times", "rows": lm_rows,
           "library": "torch.nn.functional.scaled_dot_product_attention",
           "card": smi.splitlines()[0]})

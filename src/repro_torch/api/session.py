@@ -29,6 +29,7 @@ engine and its health monitor with the session's serve and monitor keys.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -544,10 +545,9 @@ class SVM:
 
     def train(self, ckpt_dir: Optional[str] = None) -> TrainResult:
         """Solve the full fold x grid over all cells, wave by wave, and
-        retain the validation surface."""
-        if ckpt_dir is not None:
-            raise NotImplementedError("per-wave checkpoints (ckpt_dir) are "
-                                      "not ported yet")
+        retain the validation surface.  ``ckpt_dir`` checkpoints each wave
+        and restores the waves a killed run left there (matched on this
+        fit's fingerprint), bitwise equal to an uninterrupted fit."""
         cfg = self.config
         y = self._y
         if y is None:
@@ -601,6 +601,7 @@ class SVM:
         y_cells = np.zeros((n_slots, t_count, k), np.float32)
         tmask_cells = np.zeros((n_slots, t_count, k), np.float32)
         gam_cells = np.ones((n_slots, n_gamma), np.float32)
+        staged = np.zeros(n_slots, bool)
 
         def cell_gammas(x_c: np.ndarray, m: np.ndarray) -> np.ndarray:
             # per-cell gamma grid from the cell's median distance, on the
@@ -626,6 +627,7 @@ class SVM:
             keys_w = np.zeros((w, 2), np.uint32)
             keys_w[: max(min(hi, n_slots) - lo, 0)] = keys_all[lo:hi]
             for j, s in enumerate(range(lo, min(hi, n_slots))):
+                staged[s] = True
                 cid = packed.order[s]
                 if cid < 0:
                     continue
@@ -643,11 +645,24 @@ class SVM:
 
         lam_c, sub_c, task_c, n_lam, n_sub = cv_mod.grid_columns(
             base_grid, cv_cfg, t_count)
+        fingerprint = self._fingerprint(cv_cfg, plan, tasks, n, d)
         with runtime.full_fp32():
             (coefs, gamma, lam, tau, val, surf_loss, surf_fa, surf_det,
              iters) = train_cells_waves(
                 stage, n_slots, cfg.n_slots_per_wave, lam_c, sub_c, task_c,
-                cv_cfg, n_lam, n_sub, self.device)
+                cv_cfg, n_lam, n_sub, self.device, ckpt_dir=ckpt_dir,
+                fingerprint=fingerprint)
+
+        for s in np.flatnonzero(~staged):   # slots of restored waves
+            cid = packed.order[s]
+            if cid >= 0:
+                ids = plan.indices[cid]
+                m = plan.mask[cid]
+                x_cells[s] = xs_src.gather(ids)
+                mask_cells[s] = m
+                y_cells[s] = tasks.labels[:, ids] * m[None, :]
+                tmask_cells[s] = tasks.task_mask[:, ids] * m[None, :]
+                gam_cells[s] = cell_gammas(x_cells[s], m)
 
         self.train_result = TrainResult(
             config=cfg, cv_cfg=cv_cfg, scaler=scaler, plan=plan,
@@ -660,6 +675,23 @@ class SVM:
             iters=iters, n=n, d=d, device=self.device)
         self.select_result = None
         return self.train_result
+
+    def _fingerprint(self, cv_cfg: cv_mod.CVConfig, plan: CellPlan,
+                     tasks: TaskSet, n: int, d: int) -> str:
+        """Identity of this fit for wave-checkpoint resume: config, data
+        layout (the cell plan) and labels, so that a directory left by
+        another run is ignored, not restored.  The reference's recipe over
+        this package's config reprs (resume across packages is not
+        promised)."""
+        h = hashlib.blake2b(digest_size=16)
+        h.update(repr(self.config).encode())
+        h.update(repr(cv_cfg).encode())
+        h.update(np.int64([n, d]).tobytes())
+        h.update(np.ascontiguousarray(plan.indices).tobytes())
+        h.update(np.ascontiguousarray(plan.mask).tobytes())
+        h.update(np.ascontiguousarray(plan.centers).tobytes())
+        h.update(np.ascontiguousarray(tasks.labels).tobytes())
+        return h.hexdigest()
 
     def select(self, rule: Optional[str] = None, **rule_kwargs
                ) -> SelectResult:

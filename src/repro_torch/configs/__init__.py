@@ -1,9 +1,10 @@
 """Architecture registry: ``<arch-id>`` resolution for the LM path.
 
 Each entry maps an architecture id to its config module (CONFIG
-full-size, SMOKE reduced, SHAPES runnable cells).  Only the dense
-attention architectures are ported; the JAX package's other ids need
-mixers the port does not have yet, and ``get_arch`` names what is missing.
+full-size, SMOKE reduced, SHAPES runnable cells).  Every dense attention
+architecture is ported (token and embed front ends, causal and
+bidirectional); the JAX package's other ids need mixers the port does not
+have yet, and ``get_arch`` names what is missing.
 """
 from __future__ import annotations
 
@@ -17,15 +18,15 @@ from repro_torch.models.model import ModelConfig
 _MODULES: Dict[str, str] = {
     "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
     "gemma3-4b": "repro_torch.configs.gemma3_4b",
+    "stablelm-12b": "repro_torch.configs.stablelm_12b",
+    "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
+    "internvl2-76b": "repro_torch.configs.internvl2_76b",
+    "command-r-plus-104b": "repro_torch.configs.command_r_plus_104b",
 }
 
 # the JAX package's other architectures and what each needs first
 _NOT_PORTED: Dict[str, str] = {
     "rwkv6-1.6b": "the rwkv6 mixer and channel mix",
-    "stablelm-12b": "head_dim 160, which the attention kernels do not take",
-    "command-r-plus-104b": "FSDP parameter sharding over several cards",
-    "internvl2-76b": "the embed front end (input_kind='embed')",
-    "hubert-xlarge": "the embed front end and bidirectional encode",
     "qwen3-moe-235b-a22b": "the MoE mixer",
     "llama4-maverick-400b-a17b": "the MoE mixer",
     "jamba-v0.1-52b": "the mamba and MoE mixers",

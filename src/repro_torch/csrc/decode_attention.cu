@@ -38,8 +38,10 @@
 //     block barrier comes before the merge: the ring's barrier a tile and
 //     its trip through shared memory cost more than they hide there.
 //   * The compute: groups of L lanes take a key, each lane E elements (16
-//     for int8 at G <= 2, else 8), so a lane reads 16 bytes of bf16 or int8
-//     per key (32 of f32); every group keeps its own online softmax (max,
+//     for int8 at G <= 2 where 16 divides D, else 8), so a lane reads 16
+//     bytes of bf16 or int8 per key (32 of f32; 8 of int8 at D = 8); L is a
+//     power of two, and where D / E is not (D = 80, 160) the lanes past it
+//     are masked out of loads and sums; every group keeps its own online softmax (max,
 //     sum, accumulator) in registers, and a head's groups merge through
 //     shared memory once at the end in a fixed order, with one expf a
 //     group.  int8 becomes f32 through a byte permute into 2^23 + u and one
@@ -71,16 +73,23 @@ constexpr int NST_MAX = 6;          // ring stages when every tile fits
 constexpr int SPLIT_MAX = 64;       // the wrapper's cap on splits
 constexpr int G_MAX = 8;
 
+__host__ __device__ constexpr int pow2_ceil(int x) { return x <= 1 ? 1 : 2 * pow2_ceil((x + 1) / 2); }
+
 // Tile geometry of one (cache type, head dim, group, heads a block)
 // instance: NG groups of L lanes, HB heads side by side (a key's HB rows are
 // adjacent in the cache), so KS = NG / HB key slots a head, U keys a slot a
-// tile.
+// tile.  A key's D elements lie on its first LA lanes, E each; L is LA
+// rounded up to a power of two (the shuffle reductions and the groups
+// need one that divides the warp), so at D = 80 and 160 the lanes from LA
+// on load nothing and add zeros (bf16: 10 of 16, 20 of 32 lanes busy).
 template <typename CT, int D, int G, int HB>
 struct Tile {
   static constexpr int ES = sizeof(CT);
   static constexpr bool QUANT = ES == 1;
-  static constexpr int E = ES == 4 ? 8 : (QUANT && G > 2 ? 8 : 16 / ES);
-  static constexpr int L = D / E;              // lanes a key
+  static constexpr int E = ES == 4 ? 8 : (QUANT && G <= 2 && D % 16 == 0 ? 16 : 8);
+  static constexpr int LA = D / E;             // lanes that hold a key's elements
+  static constexpr int L = pow2_ceil(LA);      // lanes a key
+  static_assert(D % E == 0 && L <= 32, "head_dim must be a multiple of 8, at most 256");
   static constexpr int NG = THREADS / L;       // key groups a block
   static constexpr int KS = NG / HB;           // key slots a head
   static constexpr int U = ES == 4 ? 1 : 2;    // keys a slot a tile
@@ -88,6 +97,7 @@ struct Tile {
   static constexpr int ROW = D * ES;           // bytes of a key's row
   static constexpr int ROWB = HB * ROW;        // bytes of a key, HB heads
   static constexpr int KV = TK * ROWB;         // bytes of K (or V) a stage
+  static constexpr int CP = ROWB % 16 == 0 ? 16 : 8;   // bytes a copy (int8 D = 8: 8)
   static constexpr int STG = 2 * KV + (QUANT ? 8 * TK * HB : 0);
   static constexpr int MERGE = 4 * NG * G * (D + 3);
 };
@@ -100,6 +110,18 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16, %2;"
                ::"r"(d), "l"(src), "r"(valid ? 16 : 0)
                : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global.L2::128B [%0], [%1], 8, %2;"
+               ::"r"(d), "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+template <int CP>
+__device__ __forceinline__ void cp_async_row(void* dst, const void* src, bool valid) {
+  if constexpr (CP == 16) cp_async16(dst, src, valid);
+  else cp_async8(dst, src, valid);
 }
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool valid) {
@@ -261,6 +283,8 @@ decode_fwd_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
   const int hc = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
   const int nsp = gridDim.z;
   const int tid = threadIdx.x, lane = tid % L, grp = tid / L;
+  const bool act = lane < T::LA;                // a lane past LA holds nothing
+  const int le = act ? lane * E : 0;            // its first element (idle: 0)
   const int hh = grp % HB, ks = grp / HB;       // this group's head, slot
   const int hk0 = hc * HB;                      // the block's first head
   const int k_beg = sp * chunk;
@@ -269,10 +293,14 @@ decode_fwd_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
   const size_t row0 = (size_t)b * S;   // key s: ((row0 + s) Hk + hk) rows
 
   float qf[G][E], acc[G][E], m[G], l[G];
-  const QT* qb = q + ((size_t)b * Hk + hk0 + hh) * G * D + lane * E;
+  const QT* qb = q + ((size_t)b * Hk + hk0 + hh) * G * D + le;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     to_float<E>(qb + g * D, qf[g]);
+    if (!act) {                                // idle lanes add zeros
+#pragma unroll
+      for (int e = 0; e < E; ++e) qf[g][e] = 0.f;
+    }
     m[g] = NEG_INF;
     l[g] = 0.f;
 #pragma unroll
@@ -284,18 +312,18 @@ decode_fwd_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
     unsigned char* kd = smem + (t % nst) * T::STG;
     unsigned char* vd = kd + T::KV;
     const int base = k_beg + t * TK;
-    for (int c = tid; c < T::KV / 16; c += THREADS) {
-      const int kk = c / (T::ROWB / 16), part = c % (T::ROWB / 16);
+    for (int c = tid; c < T::KV / T::CP; c += THREADS) {
+      const int kk = c / (T::ROWB / T::CP), part = c % (T::ROWB / T::CP);
       const int kidx = base + kk;
       const bool ok = kidx < k_end;
       int s = s0 + kidx;
       if (s >= S) s -= S;
       const size_t off =
-          ok ? ((row0 + s) * Hk + hk0) * (size_t)T::ROW + part * 16 : 0;
-      cp_async16(kd + c * 16, reinterpret_cast<const unsigned char*>(kc) + off,
-                 ok);
-      cp_async16(vd + c * 16, reinterpret_cast<const unsigned char*>(vc) + off,
-                 ok);
+          ok ? ((row0 + s) * Hk + hk0) * (size_t)T::ROW + part * T::CP : 0;
+      cp_async_row<T::CP>(kd + c * T::CP,
+                          reinterpret_cast<const unsigned char*>(kc) + off, ok);
+      cp_async_row<T::CP>(vd + c * T::CP,
+                          reinterpret_cast<const unsigned char*>(vc) + off, ok);
     }
     if (T::QUANT) {            // scales: [TK][HB] for K, then for V
       float* sd = reinterpret_cast<float*>(vd + T::KV);
@@ -317,8 +345,8 @@ decode_fwd_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
     // loads, the next step's while it computes this one; no block barrier
     constexpr int UD = 64 / (E * (int)sizeof(CT));
     const int n_steps = (k_end - k_beg + NG * UD - 1) / (NG * UD);
-    const CT* kb = kc + (row0 * Hk + hk0) * D + lane * E;
-    const CT* vb = vc + (row0 * Hk + hk0) * D + lane * E;
+    const CT* kb = kc + (row0 * Hk + hk0) * D + le;
+    const CT* vb = vc + (row0 * Hk + hk0) * D + le;
     const size_t stride = (size_t)Hk * D;
     Rows<CT, E, UD> r[2];
     auto load = [&](Rows<CT, E, UD>& x, int it) {
@@ -327,7 +355,7 @@ decode_fwd_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
         const int kidx = k_beg + (it * NG + grp) * UD + u;
         int s = s0 + kidx;
         if (s >= S) s -= S;
-        const bool vis = kidx < k_end;
+        const bool vis = act && kidx < k_end;
         const uint4* kq =
             reinterpret_cast<const uint4*>(kb + (size_t)s * stride);
         const uint4* vq =
@@ -385,8 +413,8 @@ decode_fwd_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
         const int kk = u * KS + ks;
         const int o = kk * T::ROWB + hh * T::ROW;
         ok[u] = base + kk < k_end;
-        kp[u] = reinterpret_cast<const CT*>(kd + o) + lane * E;
-        vp[u] = reinterpret_cast<const CT*>(vd + o) + lane * E;
+        kp[u] = reinterpret_cast<const CT*>(kd + o) + le;
+        vp[u] = reinterpret_cast<const CT*>(vd + o) + le;
         ksu[u] = T::QUANT ? kss[kk * HB + hh] : 1.f;
         vsu[u] = T::QUANT ? kss[TK * HB + kk * HB + hh] : 1.f;
       }
@@ -410,9 +438,11 @@ decode_fwd_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
   float* wt = ls + NG * G;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    float* dst = accs + (grp * G + g) * D + lane * E;
+    float* dst = accs + (grp * G + g) * D + le;
+    if (act) {
 #pragma unroll
-    for (int e = 0; e < E; ++e) dst[e] = acc[g][e];
+      for (int e = 0; e < E; ++e) dst[e] = acc[g][e];
+    }
     if (lane == 0) {
       ms[grp * G + g] = m[g];
       ls[grp * G + g] = l[g];
@@ -557,30 +587,80 @@ cudaError_t dispatch_g(int G, const void* q, const void* k, const void* v,
   }
 }
 
-template <typename QT, typename CT, int HB>
-cudaError_t dispatch_d(int D, int G, const void* q, const void* k,
-                       const void* v, const float* ks, const float* vs,
-                       void* o, float* ws, int* cnt, int B, int S, int Hk,
-                       int s0, int nvis, int nsplit, int chunk, float scale,
-                       cudaStream_t st) {
-  switch (D) {
-    case 16: return dispatch_g<QT, CT, 16, HB>(G, DEC_ARGS);
-    case 64: return dispatch_g<QT, CT, 64, HB>(G, DEC_ARGS);
-    case 128: return dispatch_g<QT, CT, 128, HB>(G, DEC_ARGS);
-    case 256: return dispatch_g<QT, CT, 256, HB>(G, DEC_ARGS);
-    default: return cudaErrorInvalidValue;
+// Every instance of one head dim: the query and cache types at one head a
+// block, and for D 16 and 64 the blocks of 2 and 4 heads (bf16 queries).
+template <int D>
+cudaError_t dispatch_dim(int q_dtype, int cache_int8, int heads, int G,
+                         const void* q, const void* k, const void* v,
+                         const float* ks, const float* vs, void* o, float* ws,
+                         int* cnt, int B, int S, int Hk, int s0, int nvis,
+                         int nsplit, int chunk, float scale, cudaStream_t st) {
+  using BF = __nv_bfloat16;
+  if (heads > 1) {
+    if constexpr (D == 16 || D == 64) {
+      if (cache_int8)
+        return heads == 2 ? dispatch_g<BF, int8_t, D, 2>(G, DEC_ARGS)
+                          : dispatch_g<BF, int8_t, D, 4>(G, DEC_ARGS);
+      return dispatch_g<BF, BF, D, 2>(G, DEC_ARGS);
+    }
+    return cudaErrorInvalidValue;
   }
+  if (cache_int8)
+    return q_dtype == 0 ? dispatch_g<float, int8_t, D, 1>(G, DEC_ARGS)
+                        : dispatch_g<BF, int8_t, D, 1>(G, DEC_ARGS);
+  return q_dtype == 0 ? dispatch_g<float, float, D, 1>(G, DEC_ARGS)
+                      : dispatch_g<BF, BF, D, 1>(G, DEC_ARGS);
 }
 
 }  // namespace
 
+// The build compiles this file as one object a part, all started
+// together and then linked: runtime.build_parts counts the
+// "#if BUILD_PART ==" blocks below and passes -DBUILD_PART=p to part p.
+// Each part defines the instances of its head dims, part 0 also the entry
+// point, so every head dim of the switch is defined in exactly one block.
+#ifndef BUILD_PART
+#error "decode_attention.cu is built in parts: pass -DBUILD_PART=<part>"
+#endif
+#define DIM_PARAMS                                                            \
+  int q_dtype, int cache_int8, int heads, int G, const void *q,                \
+      const void *k, const void *v, const float *ks, const float *vs, void *o, \
+      float *ws, int *cnt, int B, int S, int Hk, int s0, int nvis,             \
+      int nsplit, int chunk, float scale, cudaStream_t st
+#define DIM_ARGS q_dtype, cache_int8, heads, G, DEC_ARGS
+#define DIM_DECL(D) cudaError_t dim_##D(DIM_PARAMS);
+#define DIM_DEF(D)                                                           \
+  cudaError_t decode_parts::dim_##D(DIM_PARAMS) {                              \
+    return dispatch_dim<D>(DIM_ARGS);                                          \
+  }
+namespace decode_parts {
+DIM_DECL(8) DIM_DECL(16) DIM_DECL(64) DIM_DECL(80) DIM_DECL(128)
+DIM_DECL(160) DIM_DECL(256)
+}  // namespace decode_parts
+
+// parts of about equal instance counts (D 16 and 64 add the multi-head ones)
+#if BUILD_PART == 0
+DIM_DEF(16)
+DIM_DEF(64)
+#endif
+#if BUILD_PART == 1
+DIM_DEF(8)
+DIM_DEF(80)
+DIM_DEF(128)
+#endif
+#if BUILD_PART == 2
+DIM_DEF(160)
+DIM_DEF(256)
+#endif
+
+#if BUILD_PART == 0
 // q (B, Hk, G, D) and o in q's type (q_dtype 0: f32, 1: bf16); caches
 // (B, S, Hk, D) in q's type, or int8 (cache_int8 = 1) with f32 scales
 // (B, S, Hk, 1); every operand 16-byte aligned.  The visible keys are the
 // ring positions s0, s0 + 1, .. (mod S), nvis of them, cut into nsplit
 // runs of chunk keys (the last may be shorter, none empty).  heads: kv
 // heads a block (1; 2 or 4 with an int8 cache, 2 with a bf16 one, for bf16
-// queries, D <= 64 and Hk a multiple).  nsplit > 1 needs
+// queries, D 16 or 64 and Hk a multiple).  nsplit > 1 needs
 // ws (B Hk nsplit G (D + 2) floats, no initial value) and cnt (B Hk / heads
 // ints, zero; left zero); nsplit <= 64.  Returns cudaGetLastError().
 extern "C" int decode_attention_fwd(const void* q, const void* k,
@@ -595,29 +675,20 @@ extern "C" int decode_attention_fwd(const void* q, const void* k,
   const float* vs = static_cast<const float*>(v_scale);
   float* ws = static_cast<float*>(ws_);
   int* cnt = static_cast<int*>(cnt_);
-  using BF = __nv_bfloat16;
   if (nsplit < 1 || nsplit > SPLIT_MAX || G > G_MAX || heads < 1 ||
-      Hk % heads || (heads > 1 && (D > 64 || q_dtype == 0)) ||
+      Hk % heads || (heads > 1 && ((D != 16 && D != 64) || q_dtype == 0)) ||
       (heads == 4 && !cache_int8) || heads > 4 || heads == 3)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e;
-  if (heads > 1) {           // bf16 queries, D <= 64: two or four heads
-    const bool d16 = D == 16;
-    if (D != 16 && D != 64) return (int)cudaErrorInvalidValue;
-    if (cache_int8)
-      e = heads == 2 ? (d16 ? dispatch_g<BF, int8_t, 16, 2>(G, DEC_ARGS)
-                            : dispatch_g<BF, int8_t, 64, 2>(G, DEC_ARGS))
-                     : (d16 ? dispatch_g<BF, int8_t, 16, 4>(G, DEC_ARGS)
-                            : dispatch_g<BF, int8_t, 64, 4>(G, DEC_ARGS));
-    else
-      e = d16 ? dispatch_g<BF, BF, 16, 2>(G, DEC_ARGS)
-              : dispatch_g<BF, BF, 64, 2>(G, DEC_ARGS);
-  } else if (cache_int8) {
-    e = q_dtype == 0 ? dispatch_d<float, int8_t, 1>(D, G, DEC_ARGS)
-                     : dispatch_d<BF, int8_t, 1>(D, G, DEC_ARGS);
-  } else {
-    e = q_dtype == 0 ? dispatch_d<float, float, 1>(D, G, DEC_ARGS)
-                     : dispatch_d<BF, BF, 1>(D, G, DEC_ARGS);
+  using namespace decode_parts;
+  switch (D) {
+    case 8: return (int)dim_8(DIM_ARGS);
+    case 16: return (int)dim_16(DIM_ARGS);
+    case 64: return (int)dim_64(DIM_ARGS);
+    case 80: return (int)dim_80(DIM_ARGS);
+    case 128: return (int)dim_128(DIM_ARGS);
+    case 160: return (int)dim_160(DIM_ARGS);
+    case 256: return (int)dim_256(DIM_ARGS);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)e;
 }
+#endif

@@ -40,9 +40,12 @@
 //     no visible column yet keeps p = 0.
 //   * q, k, v reach shared memory by TMA (cp.async.bulk.tensor.3d, tensor
 //     maps built per call through cudaGetDriverEntryPoint, so nothing
-//     links libcuda) in 64-column panels with the 128-byte swizzle that
-//     the wgmma descriptors name (D = 16: one 16-column panel, 32-byte
-//     swizzle).  The maps view q as (B, T, H * D) and k, v as (B, S,
+//     links libcuda) in panels as wide as the widest swizzle span that
+//     divides D, with the swizzle the wgmma descriptors name: 64 columns
+//     and 128-byte swizzle at D = 64, 128, 256; 32 columns and 64-byte
+//     swizzle at D = 160 (5 panels); 16 columns and 32-byte swizzle at
+//     D = 16 and 80 (1 and 5 panels).  A box never reaches past its head's
+//     last column into the next head's.  The maps view q as (B, T, H * D) and k, v as (B, S,
 //     Hk * D) with a box of (1, rows, 64): the public layouts are read in
 //     place, query head h reads kv head h / (H / Hk), and rows past T or
 //     S are zero-filled by TMA (S is a dimension of its own, so batch b's
@@ -53,16 +56,22 @@
 //   * The output goes through shared memory (the Q region, 16-byte chunks
 //     XOR-swizzled by row) and is stored in 16-byte rows; rows past T are
 //     never stored.
-//   Per head_dim (nvcc -Xptxas -v: no spills at any D): BK 64 at D <= 128
-//   (shared 8 / 16 KB of Q + 2 x 2 x 8 / 16 KB, 92 / 129 registers: 5 / 2
-//   blocks an SM; D = 16: 68 registers) and BK 32 at D = 256 (32 + 2 x 2 x
-//   16 KB = 96 KB, 170 registers, 2 blocks an SM; O alone is 128 f32
-//   registers a thread).  Tried and slower on the card (PERF.md):
+//   Per head_dim (nvcc -Xptxas -v: no spills at D <= 128 and 256): BK 64 at
+//   D <= 160 (shared 8 / 16 KB of Q + 2 x 2 x 8 / 16 KB, 92 / 129 registers
+//   at D 64 / 128: 5 / 2 blocks an SM; D = 16: 68 registers; D = 160: 20 +
+//   80 KB, O 80 registers a thread, 2 blocks an SM) and BK 32 at D = 256
+//   (32 + 2 x 2 x 16 KB = 96 KB, 170 registers, 2 blocks an SM; O alone is
+//   128 f32 registers a thread).  bf16 at D = 8 (below the 16-wide K step
+//   of a bf16 wgmma) runs the CUDA-core kernel below in bf16.  Tried and slower on the card (PERF.md):
 //   BK 32 or 3 stages at D = 64, 2 warpgroups sharing the ring, and
 //   issuing the next tile's S before this tile's softmax.
 //
 // f32 (flash_fwd_kernel): the f32 smoke configs' kernel, fp32 FMAs on the
-//   CUDA cores, where the products must not round to bf16 or TF32.
+//   CUDA cores, where the products must not round to bf16 or TF32; also
+//   bf16 at D = 8 (loaded to f32, P kept in f32, the output rounded once).
+//   Any multiple of 8: a thread's output columns are 4, 2 or 1 adjacent
+//   ones a group (D a multiple of 64, of 32, else), threads past D idle in
+//   P V at D = 8.
 //   * One block owns (batch, query head, 64 query rows) and loops over
 //     64-row kv tiles itself, keeping m, l and the accumulator in
 //     registers; the public layouts are read as they are; T and S need
@@ -97,6 +106,21 @@ __device__ __forceinline__ void load_vec(const float* src, float* dst) {
   *reinterpret_cast<float4*>(dst) = __ldg(reinterpret_cast<const float4*>(src));
 }
 
+// 8 bf16 values (16 bytes) as floats
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* src, float* dst) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(src));
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h2[i]);
+    dst[2 * i] = f.x;
+    dst[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void st1(float* p, float x) { *p = x; }
+__device__ __forceinline__ void st1(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+
 // W (1, 2 or 4) consecutive shared floats
 template <int W>
 __device__ __forceinline__ void lds(const float* src, float* out) {
@@ -111,10 +135,10 @@ __device__ __forceinline__ void lds(const float* src, float* out) {
   }
 }
 
-template <int W>
-__device__ __forceinline__ void store_w(float* dst, const float* v) {
+template <int W, typename T>
+__device__ __forceinline__ void store_w(T* dst, const float* v) {
 #pragma unroll
-  for (int e = 0; e < W; ++e) dst[e] = v[e];
+  for (int e = 0; e < W; ++e) st1(dst + e, v[e]);
 }
 
 // 64 rows [row0, row0 + 64) of one head into a (64, D + PAD) f32 tile;
@@ -144,9 +168,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   constexpr int LD = D + PAD;
   constexpr int LP = BK + PAD;
   // a thread's output columns: NJ groups of CW adjacent ones, at
-  // tx * CW + 16 * CW * jj (D / 16 columns per thread)
-  constexpr int CW = D >= 64 ? 4 : D / 16;
-  constexpr int NJ = D / (16 * CW);
+  // tx * CW + 16 * CW * jj, those below D (D = 8: threads tx < 8 only)
+  constexpr int CW = D % 64 == 0 ? 4 : D % 32 == 0 ? 2 : 1;
+  constexpr int NJ = (D + 16 * CW - 1) / (16 * CW);
+  constexpr bool FULL = D % (16 * CW) == 0;
+  static_assert(D % 8 == 0, "head_dim must be a multiple of 8");
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;           // BQ x LD
   float* ks = qs + BQ * LD;   // BK x LD
@@ -260,8 +286,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int cc = 0; cc < 4; ++cc) {
 #pragma unroll
         for (int jj = 0; jj < NJ; ++jj) {
+          const int col = tx * CW + 16 * CW * jj;
+          if (!FULL && col >= D) continue;
           float vv[CW];
-          lds<CW>(&vs[(c + cc) * LD + tx * CW + 16 * CW * jj], vv);
+          lds<CW>(&vs[(c + cc) * LD + col], vv);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const float p = cc == 0 ? pv[i].x : cc == 1 ? pv[i].y : cc == 2 ? pv[i].z : pv[i].w;
@@ -281,10 +309,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     T* orow = o + (((size_t)b * Tq + t) * H + h) * D;
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj) {
+      const int col = tx * CW + 16 * CW * jj;
+      if (!FULL && col >= D) continue;
       float out[CW];
 #pragma unroll
       for (int e = 0; e < CW; ++e) out[e] = acc[i][jj][e] / l;
-      store_w<CW>(orow + tx * CW + 16 * CW * jj, out);
+      store_w<CW>(orow + col, out);
     }
   }
 }
@@ -321,9 +351,12 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void*
                        int Tq, int S, int H, int Hk, int mask_kind, int window, float scale,
                        cudaStream_t st) {
   switch (D) {
+    case 8: return launch<T, 8>(q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
     case 16: return launch<T, 16>(q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
     case 64: return launch<T, 64>(q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
+    case 80: return launch<T, 80>(q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
     case 128: return launch<T, 128>(q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
+    case 160: return launch<T, 160>(q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
     case 256: return launch<T, 256>(q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
     default: return cudaErrorInvalidValue;
   }
@@ -333,14 +366,18 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void*
 // the tensor-core kernel's tiling per head_dim
 template <int D>
 struct TcCfg {
+  static_assert(D % 16 == 0 && D <= 256, "the wgmma kernel takes multiples of 16");
   static constexpr int BQ = 64;                    // query rows: one warpgroup
   static constexpr int BK = D == 256 ? 32 : 64;    // kv rows per tile
-  static constexpr int PW = D < 64 ? D : 64;       // panel width (columns)
+  // panel width (columns): the widest swizzle span that divides D, so a
+  // head's panels end at its last column (80: 5 x 16, 160: 5 x 32)
+  static constexpr int PW = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;
   static constexpr int ROWB = PW * 2;              // bytes of a panel row
   static constexpr int NS = 2;                     // ring stages
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;      // one K or one V tile
-  static constexpr int LAYOUT = PW == 64 ? 1 : 3;  // descriptor swizzle: 128 B, 32 B
+  // descriptor swizzle: 1 = 128 B, 2 = 64 B, 3 = 32 B (the panel row)
+  static constexpr int LAYOUT = PW == 64 ? 1 : PW == 32 ? 2 : 3;
   static constexpr int SMEM = Q_BYTES + NS * 2 * KV_BYTES + 8 * (NS + 1) + 1024;
 };
 
@@ -385,7 +422,7 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
 }
 
 // wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units), swizzle layout (1: 128 B, 3: 32 B)
+// byte offsets (16-byte units), swizzle layout (1: 128 B, 2: 64 B, 3: 32 B)
 __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
                                               int layout) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
@@ -519,6 +556,44 @@ __device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a, uint6
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs_n80(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n160(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
+      "{%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int scale_d) {
@@ -528,9 +603,13 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int
 
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
+  static_assert(N == 16 || N == 64 || N == 80 || N == 128 || N == 160 || N == 256,
+                "no wgmma wrapper for this N");
   if constexpr (N == 16) wgmma_rs_n16(d, a, db);
   else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (N == 80) wgmma_rs_n80(d, a, db);
   else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  else if constexpr (N == 160) wgmma_rs_n160(d, a, db);
   else wgmma_rs_n256(d, a, db);
 }
 
@@ -716,9 +795,11 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 
   // O / l through shared memory (the Q region): 16-byte chunk c of row r
-  // at r * 2D + 16 (c ^ (r % CH)), then 16-byte rows to device memory
+  // at r * 2D + 16 (c ^ (r % CH)), then 16-byte rows to device memory; CH
+  // is the largest power of two up to 8 dividing NCH, so c ^ (r % CH)
+  // stays inside the row
   constexpr int NCH = D / 8;  // 16-byte chunks a row
-  constexpr int CH = NCH < 8 ? NCH : 8;
+  constexpr int CH = NCH % 8 == 0 ? 8 : NCH % 4 == 0 ? 4 : NCH % 2 == 0 ? 2 : 1;
   __syncthreads();
   const float il0 = fmaxf(l0, 1e-30f), il1 = fmaxf(l1, 1e-30f);
 #pragma unroll
@@ -776,8 +857,9 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int 
   using C = TcCfg<D>;
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
-  const CUtensorMapSwizzle swz =
-      C::PW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUtensorMapSwizzle swz = C::PW == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : C::PW == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
   CUtensorMap qm, km, vm;
   if (!make_map(enc, &qm, q, B, Tq, H * D, C::PW, C::BQ, swz) ||
       !make_map(enc, &km, k, B, S, Hk * D, C::PW, C::BK, swz) ||
@@ -796,9 +878,13 @@ cudaError_t dispatch_tc(int D, const void* q, const void* k, const void* v, void
                         int Tq, int S, int H, int Hk, int mask_kind, int window, float scale,
                         cudaStream_t st) {
   switch (D) {
+    // bf16 K steps are 16 wide: D = 8 runs the CUDA-core kernel in bf16
+    case 8: return launch<__nv_bfloat16, 8>(q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
     case 16: return launch_tc<16>(q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
     case 64: return launch_tc<64>(q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
+    case 80: return launch_tc<80>(q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
     case 128: return launch_tc<128>(q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
+    case 160: return launch_tc<160>(q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
     case 256: return launch_tc<256>(q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
     default: return cudaErrorInvalidValue;
   }

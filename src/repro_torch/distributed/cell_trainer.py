@@ -6,11 +6,11 @@ wave of slots is one (S, k, ...) batch on the device, and
 ``core.cv.cv_cell`` solves the whole wave at once: the slot and fold axes
 are explicit leading axes of every launch (the reference vmaps them).
 With ``cfg.cd_polish > 0`` each gamma step ends in one Gauss-Seidel launch
-per epoch over every slot and fold of the wave (B4).
+per epoch over every slot and fold of the wave (B4).  ``ckpt_dir`` saves
+each solved wave and restores it on a re-run (kill-anywhere resume).
 
 Not ported yet: the device mesh (``mesh``: slots sharded over several
-cards) and per-wave checkpoints (``ckpt_dir``); both raise
-``NotImplementedError``.
+cards) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -22,6 +22,8 @@ import torch
 from repro_torch import obs
 from repro_torch.core import cv as cv_mod
 from repro_torch.core import kernel_fns, select
+from repro_torch.testing import faults
+from repro_torch.train import checkpoint as ckpt_mod
 
 _WAVE_KEYS = ("coefs", "gamma", "lam", "tau", "val")
 _SURFACE_KEYS = ("surf_loss", "surf_fa", "surf_det")
@@ -56,6 +58,44 @@ def train_cells(x_cells: torch.Tensor, y_cells: torch.Tensor,
     return out + (sel.iters,)
 
 
+def _to_host(r: torch.Tensor) -> np.ndarray:
+    """A wave output as numpy, 64-bit integers narrowed to 32 bits as a
+    checkpoint restore gives them: a restored wave and a solved one then
+    hand over the same arrays."""
+    a = r.cpu().numpy()
+    return a.astype(np.int32) if a.dtype == np.int64 else a
+
+
+def _restorable_waves(ckpt_dir: str, wave_size: int, n_slots: int,
+                      fingerprint: Optional[str]) -> set:
+    """Steps under ``ckpt_dir`` that this run may restore: each matched on
+    its own manifest (``wave_size``, ``n_slots`` and ``fingerprint``); a
+    torn manifest is skipped."""
+    out = set()
+    for s in ckpt_mod.list_steps(ckpt_dir):
+        try:
+            extra = ckpt_mod.peek_manifest(ckpt_dir, s)["extra"]
+        except ckpt_mod.CheckpointCorruptError:
+            continue
+        if (extra.get("wave_size") == wave_size
+                and extra.get("n_slots") == n_slots
+                and extra.get("fingerprint") == fingerprint):
+            out.add(s)
+    return out
+
+
+def _restore_wave(ckpt_dir: str, w: int, keys_out: Tuple[str, ...]
+                  ) -> Tuple[np.ndarray, ...]:
+    """Wave ``w``'s arrays from its step directory (checksums verified;
+    :class:`~repro_torch.train.checkpoint.CheckpointCorruptError` on a torn
+    or bit-rotted shard)."""
+    man = ckpt_mod.peek_manifest(ckpt_dir, w)
+    target = {k: np.zeros(shape, np.dtype(dt)) for k, shape, dt in zip(
+        sorted(keys_out), man["shapes"], man["dtypes"])}
+    tree, _, _ = ckpt_mod.restore_checkpoint(ckpt_dir, target, step=w)
+    return tuple(np.asarray(tree[k]) for k in keys_out)
+
+
 def train_cells_waves(stage: Callable[[int, int], tuple], n_slots: int,
                       wave_size: Optional[int], lam_c: torch.Tensor,
                       sub_c: torch.Tensor, task_c: torch.Tensor,
@@ -69,34 +109,68 @@ def train_cells_waves(stage: Callable[[int, int], tuple], n_slots: int,
     ``(x, y, tmask, mask, gammas, keys)`` (slots past ``n_slots`` are empty
     padding: zero masks).  Every wave has the same padded slot count.
     Returns the :func:`wave_keys` arrays as numpy, concatenated over waves
-    and cut to ``n_slots``."""
+    and cut to ``n_slots``.
+
+    ``ckpt_dir`` saves each solved wave as checkpoint step ``w`` (all waves
+    kept) with ``wave_size``, ``n_slots`` and ``fingerprint`` (the
+    caller's hash of config and data) in its manifest.  A re-run with the
+    same directory matches every wave on its own against those three and
+    restores it instead of solving it, so a kill anywhere (mid solve, mid
+    checkpoint write, between waves) leaves only complete, checksummed
+    waves behind.  A wave whose shard fails its checksum is solved again.
+    Each wave's solve is deterministic, so the resumed fit equals an
+    uninterrupted one bitwise."""
     if mesh is not None:
         raise NotImplementedError("train_cells_waves: mesh sharding is not "
                                   "ported yet")
-    if ckpt_dir is not None:
-        raise NotImplementedError("train_cells_waves: per-wave checkpoints "
-                                  "(ckpt_dir) are not ported yet")
     m_solved = obs.metrics.counter("train.waves_solved")
+    m_restored = obs.metrics.counter("train.waves_restored")
+    m_corrupt = obs.metrics.counter("train.corrupt_waves")
+    keys_out = wave_keys(cfg)
     if wave_size is None or wave_size >= n_slots:
         wave_size = n_slots
     if wave_size <= 0:
         raise ValueError(f"wave_size must be positive, got {wave_size}")
     n_waves = -(-n_slots // wave_size)
+    restorable = (set() if ckpt_dir is None else
+                  _restorable_waves(ckpt_dir, wave_size, n_slots,
+                                    fingerprint))
     outs = []
     for w in range(n_waves):
         lo = w * wave_size
-        with obs.tracer.span("train.wave", device) as sp:
-            sp.set(wave=w, slots=wave_size, cd_polish=cfg.cd_polish)
-            with obs.tracer.span("train.stage", device):
-                x, y, tm, m, g, keys = stage(lo, lo + wave_size)
-                dev_arrays = [torch.as_tensor(a).to(device)
-                              for a in (x, y, tm, m, g)]
-            res = train_cells(*dev_arrays, np.asarray(keys, np.uint32),
-                              lam_c, sub_c, task_c, cfg, n_lam, n_sub)
-        outs.append(tuple(r.cpu().numpy() for r in res))
-        m_solved.inc()
+        faults.fire("trainer.wave.start", wave=w)
+        res = None
+        if w in restorable:
+            with obs.tracer.span("train.wave.restore") as sp:
+                try:
+                    res = _restore_wave(ckpt_dir, w, keys_out)
+                    m_restored.inc()
+                except ckpt_mod.CheckpointCorruptError:
+                    m_corrupt.inc()            # torn or bit-rotted: re-solve
+                    sp.set(wave=w, corrupt=True)
+        if res is None:
+            with obs.tracer.span("train.wave", device) as sp:
+                sp.set(wave=w, slots=wave_size, cd_polish=cfg.cd_polish)
+                with obs.tracer.span("train.stage", device):
+                    x, y, tm, m, g, keys = stage(lo, lo + wave_size)
+                    dev_arrays = [torch.as_tensor(a).to(device)
+                                  for a in (x, y, tm, m, g)]
+                res = train_cells(*dev_arrays, np.asarray(keys, np.uint32),
+                                  lam_c, sub_c, task_c, cfg, n_lam, n_sub)
+            res = tuple(_to_host(r) for r in res)
+            m_solved.inc()
+            faults.fire("trainer.wave.solved", wave=w)
+            if ckpt_dir is not None:
+                with obs.tracer.span("train.wave.checkpoint"):
+                    ckpt_mod.save_checkpoint(
+                        ckpt_dir, w, dict(zip(keys_out, res)),
+                        extra={"wave": w, "wave_size": wave_size,
+                               "n_slots": n_slots,
+                               "fingerprint": fingerprint},
+                        keep_last=0)
+        outs.append(res)
     return tuple(np.concatenate([o[i] for o in outs])[:n_slots]
-                 for i in range(len(outs[0])))
+                 for i in range(len(keys_out)))
 
 
 def predict_cells(xt_cells: torch.Tensor, sv_cells: torch.Tensor,

@@ -1,6 +1,7 @@
 """Frozen-backbone sequence embedding at one fixed batch shape.
 
-The extractor turns token sequences into fixed-dimension feature rows for
+The extractor turns token sequences (or, for an embed front end, frame
+features ``(m, T, d_frontend)``) into fixed-dimension feature rows for
 the SVM verticals: ``models.model.backbone`` runs frozen (on the card, or
 on the CPU when asked), the final hidden states are pooled (mean over
 time, or the last position) in f32, and the result is an ``(m, d_model)``
@@ -81,8 +82,9 @@ def params_digest(params) -> str:
 class EmbeddingExtractor:
     """Pooled backbone embeddings at one fixed ``(batch_size, seq_len)``.
 
-    ``__call__(tokens)`` accepts ``(m, seq_len)`` int tokens for ANY ``m``
-    and returns ``(m, d_model)`` float32.  ``params=None`` initialises a
+    ``__call__(tokens)`` accepts ``(m, seq_len)`` int tokens (or ``(m,
+    seq_len, d_frontend)`` float frames for ``input_kind="embed"``) for
+    ANY ``m`` and returns ``(m, d_model)`` float32.  ``params=None`` initialises a
     deterministic frozen backbone from ``seed`` with a ``torch.Generator``
     on the device (the random-features regime); given parameters are used
     as they are (moved to the device).  ``device=None`` runs on the current
@@ -99,9 +101,6 @@ class EmbeddingExtractor:
                              f"got {pooling!r}")
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
-        if cfg.input_kind != "tokens":
-            raise NotImplementedError(f"input_kind={cfg.input_kind!r} is "
-                                      f"not ported")
         self.cfg = cfg
         self.pooling = pooling
         self.batch_size = int(batch_size)
@@ -145,8 +144,9 @@ class EmbeddingExtractor:
     # ------------------------------------------------------------ forward
     @torch.no_grad()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Hidden states (B, T, d) of a (B, T) token block on the device."""
-        b, t = x.shape
+        """Hidden states (B, T, d) of a (B, T) token block (or (B, T,
+        d_frontend) frame block) on the device."""
+        b, t = x.shape[0], x.shape[1]
         positions = torch.arange(t, dtype=torch.int32,
                                  device=x.device)[None].expand(b, t)
         h, _ = model_mod.backbone(self.cfg, self.params, x, positions)
@@ -172,10 +172,17 @@ class EmbeddingExtractor:
         return emb[:m]
 
     def __call__(self, tokens) -> np.ndarray:
-        """(m, seq_len) -> (m, d_model) f32, any ``m``."""
-        x = np.asarray(tokens).astype(np.int64, copy=False)
-        if x.ndim != 2:
-            raise ValueError(f"tokens must be (m, seq_len), got {x.shape}")
+        """(m, seq_len[, d_frontend]) -> (m, d_model) f32, any ``m``."""
+        if self.cfg.input_kind == "tokens":
+            x = np.asarray(tokens).astype(np.int64, copy=False)
+            if x.ndim != 2:
+                raise ValueError(f"tokens must be (m, seq_len), got "
+                                 f"{x.shape}")
+        else:
+            x = np.asarray(tokens).astype(np.float32, copy=False)
+            if x.ndim != 3 or x.shape[2] != self.cfg.d_frontend:
+                raise ValueError(f"frames must be (m, seq_len, "
+                                 f"{self.cfg.d_frontend}), got {x.shape}")
         if x.shape[0] == 0:
             return np.zeros((0, self.dim), np.float32)
         out = np.concatenate(

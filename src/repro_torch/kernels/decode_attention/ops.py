@@ -22,8 +22,10 @@ import torch
 from repro_torch.kernels import runtime
 from repro_torch.kernels.decode_attention import ref
 
-HEAD_DIMS = (16, 64, 128, 256)
+# every head dim of the configurations; other dims raise
+HEAD_DIMS = (8, 16, 64, 80, 128, 160, 256)
 GROUPS = (1, 2, 4, 8)           # query heads per kv head the kernel takes
+MULTI_HEAD_DIMS = (16, 64)      # dims with instances of 2 or 4 heads a block
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_MAX = 65535
 SPLIT_MAX = 64                  # the kernel's workspace weights hold 64
@@ -61,11 +63,12 @@ def visible_range(s: int, pos: int, window: int = 0) -> Tuple[int, int]:
 def heads_per_block(b: int, hk: int, d: int, cache: torch.dtype,
                     nvis: int, n_sm: int) -> int:
     """Kv heads a block reads side by side (a key's rows of adjacent heads
-    are one contiguous run): with bf16 queries and D <= 64, an int8 cache
-    takes 2 (its 64-byte rows fill a 128-byte line), 4 over long runs; a
-    bf16 cache takes 2 over long runs when B x Hk / 2 blocks still cover
-    the card; else 1.  Hk must be a multiple."""
-    if d > 64:
+    are one contiguous run): with bf16 queries and D 16 or 64, an int8
+    cache takes 2 (its 64-byte rows fill a 128-byte line), 4 over long
+    runs; a bf16 cache takes 2 over long runs when B x Hk / 2 blocks still
+    cover the card; else 1 (every other D: the kernel has no instance of
+    several heads there).  Hk must be a multiple."""
+    if d not in MULTI_HEAD_DIMS:
         return 1
     if cache == torch.int8:
         if nvis >= LONG_KEYS and hk % 4 == 0:

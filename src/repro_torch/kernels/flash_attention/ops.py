@@ -2,11 +2,12 @@
 
 A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA tensor
 goes to the hand-written kernel in ``csrc/flash_attention.cu`` or the call
-raises: bf16 to the tensor-core kernel (wgmma, TMA-fed tiles), f32 to the
-CUDA-core kernel.  Unlike the TPU wrapper nothing is transposed, repeated
-or padded: the kernel reads the public (B, T, H, D) / (B, S, Hk, D) layout
-as it is, maps query head h to kv head h // (H / Hk) itself and masks the
-ragged T and S edges.  Operands must start on a 16-byte boundary (TMA and
+raises: bf16 at a head dim that is a multiple of 16 to the tensor-core
+kernel (wgmma, TMA-fed tiles), f32 and bf16 at D 8 (below the bf16 wgmma K
+step) to the CUDA-core kernel (:func:`kernel_name`).  Unlike the TPU
+wrapper nothing is transposed, repeated or padded: the kernel reads the
+public (B, T, H, D) / (B, S, Hk, D) layout as it is, maps query head h to
+kv head h // (H / Hk) itself and masks the ragged T and S edges.  Operands must start on a 16-byte boundary (TMA and
 16-byte loads); a view that does not is refused, never copied.
 ``launches`` counts kernel launches.
 """
@@ -21,7 +22,8 @@ from repro_torch.kernels import runtime
 from repro_torch.kernels.flash_attention import ref
 
 MASK_KINDS = {"causal": 0, "window": 1, "bidir": 2}
-HEAD_DIMS = (16, 64, 128, 256)
+# every head dim of the configurations; other dims raise
+HEAD_DIMS = (8, 16, 64, 80, 128, 160, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_MAX = 65535
 _ALIGN = 16          # bytes: TMA and 16-byte loads
@@ -38,6 +40,13 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_fwd.restype = i
         lib._bound = True
     return lib
+
+
+def kernel_name(dtype: torch.dtype, d: int) -> str:
+    """The kernel a CUDA launch of this dtype and head dim runs."""
+    if dtype == torch.bfloat16 and d % 16 == 0:
+        return "flash_fwd_tc_kernel"
+    return "flash_fwd_kernel"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

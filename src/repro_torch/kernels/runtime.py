@@ -9,14 +9,19 @@ library per source with a plain C interface, bound through ``ctypes``.
 Each library is compiled by ``nvcc`` for ``sm_90a`` at first use into
 ``build/kernels/`` of the checkout (listed in ``.gitignore``) and rebuilt
 when its source, or a header shared by the sources, is newer than the
-library.  Nothing is compiled when a module is imported, so the CPU tests
-import every module without a toolchain.
+library.  A source with many template instances splits them into
+``#if BUILD_PART == p`` blocks (``build_parts``): it is compiled as one
+object a part at once, each with ``-DBUILD_PART=p``, and the objects are
+linked into its library.
+Nothing is compiled when a module is imported, so the CPU tests import
+every module without a toolchain.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -32,6 +37,7 @@ SOURCES = ("kernel_matrix", "svm_predict", "cd_solver", "flash_attention",
            "decode_attention", "assign")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_PART_BLOCK = re.compile(r"^#if BUILD_PART == (\d+)\s*$", re.M)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -123,8 +129,27 @@ def _stale(name: str) -> bool:
     return lib.stat().st_mtime < max(p.stat().st_mtime for p in srcs)
 
 
+def build_parts(src: Path) -> int:
+    """Objects a source is compiled as: one for each part number of its
+    ``#if BUILD_PART == p`` blocks (decode_attention: ~190 instances of
+    cache type x head dim x group x heads a block x path), 0 for a source
+    built in one piece."""
+    found = {int(p) for p in _PART_BLOCK.findall(src.read_text())}
+    if found and found != set(range(len(found))):
+        raise ValueError(f"{src.name}: BUILD_PART blocks {sorted(found)} "
+                         f"are not 0..n-1")
+    return len(found)
+
+
+def _run(procs) -> list:
+    """(log, returncode) of each started process, in order."""
+    return [(*p.communicate()[:1], p.returncode) for p in procs]
+
+
 def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
-    """Compile the named sources, one ``nvcc`` each, all started together.
+    """Compile the named sources, one ``nvcc`` each (one a part for a
+    source in parts, ``build_parts``, then one link), all started
+    together.
 
     Returns ``{name: {"seconds": wall time, "log": nvcc's stderr}}`` (the
     ``-Xptxas -v`` register and shared-memory report).  Raises with the
@@ -132,20 +157,38 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     exe = nvcc()
+    obj_flags = [f for f in NVCC_FLAGS if f != "-shared"] + ["-c"]
     procs = {}
     t0 = time.perf_counter()
     for name in names:
         tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
-        cmd = [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        src = str(CSRC / f"{name}.cu")
+        parts = build_parts(CSRC / f"{name}.cu")
+        if parts:
+            objs = [BUILD_DIR / f"{name}.{os.getpid()}.part{p}.o"
+                    for p in range(parts)]
+            cmds = [[exe, *obj_flags, f"-DBUILD_PART={p}", "-o", str(o), src]
+                    for p, o in enumerate(objs)]
+        else:
+            objs, cmds = [], [[exe, *NVCC_FLAGS, "-o", str(tmp), src]]
+        procs[name] = (tmp, objs, [subprocess.Popen(
+            c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for c in cmds])
     out: Dict[str, dict] = {}
     failed = []
-    for name, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
+    for name, (tmp, objs, started) in procs.items():
+        runs = _run(started)
+        if objs and all(rc == 0 for _, rc in runs):
+            runs += _run([subprocess.Popen(
+                [exe, "-shared", "-o", str(tmp), *map(str, objs)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)])
+        for o in objs:
+            o.unlink(missing_ok=True)
+        log = "".join(lg for lg, _ in runs)
         out[name] = {"seconds": time.perf_counter() - t0, "log": log}
-        if proc.returncode != 0:
-            failed.append(f"--- {name} (rc {proc.returncode}) ---\n{log}")
+        bad = [rc for _, rc in runs if rc != 0]
+        if bad:
+            failed.append(f"--- {name} (rc {bad[0]}) ---\n{log}")
             continue
         os.replace(tmp, _lib_path(name))
     if failed:

@@ -3,7 +3,9 @@
 The JAX package keeps parameters and decode caches as nested dicts of
 arrays with the same keys as the port (``models.model``).  Given such a
 tree as numpy arrays (``jax.device_get`` or ``np.asarray`` per leaf),
-these functions return the port's tree of tensors, bit for bit.
+these functions return the port's tree of tensors, bit for bit: every
+leaf of every ported architecture carries across, the embed front end's
+``frontend/proj`` (hubert, internvl2) in place of ``embed/tok``.
 
 bf16 leaves come out of JAX as numpy arrays of the ``bfloat16`` extension
 type, which ``torch.from_numpy`` refuses; they are recognised by the type's

@@ -201,3 +201,16 @@ def glu_mlp(p: Dict[str, Tensor], x: Tensor, act: str,
             dtype: torch.dtype) -> Tensor:
     h = act_fn(act, linear(x, p["wg"], dtype)) * linear(x, p["wi"], dtype)
     return linear(h, p["wo"], dtype)
+
+
+# --------------------------------------------------------------------------
+# token embedding
+# --------------------------------------------------------------------------
+
+def embed_template(vocab: int, d: int, dtype: torch.dtype) -> Template:
+    return {"tok": ParamSpec((vocab, d), dtype, "fan_in", 1.0)}
+
+
+def embed_lookup(emb: Tensor, tokens: Tensor, dtype: torch.dtype) -> Tensor:
+    """Rows of ``emb`` at ``tokens`` (any integer dtype), in ``dtype``."""
+    return emb[tokens.long()].to(dtype)

@@ -12,13 +12,21 @@ axis (``params["stack"]["pos<i>"]``) and the tail layers have their own
 (``params["tail<j>"]``), so the trees carry across one to one; here the
 periods run as a Python loop that indexes layer p of each stacked leaf.
 
+Inputs are token ids (``input_kind="tokens"``, looked up in
+``embed/tok``) or, for the audio and vision stubs, precomputed frame or
+patch features ``(B, T, d_frontend)`` projected to ``d_model`` by
+``frontend/proj`` (``input_kind="embed"``: hubert, internvl2).
+
 Entry points:
-    prefill     (B, T) tokens -> last logits + cache
-    decode_step (B, 1) token + cache -> logits + cache (cache updated in
-                place, see ``models.attention``)
+    prefill     (B, T) tokens or (B, T, d_frontend) frames -> last logits
+                + cache
+    decode_step (B, 1) token (or (B, 1, d_frontend)) + cache -> logits +
+                cache (cache updated in place, see ``models.attention``)
+    encode      (B, T[, d_frontend]) -> logits at every position (the
+                encoder-only hubert; no cache)
 The training entry points (``loss_fn``, ``chunked_ce``, with the config
-fields only they read: ``remat``, ``ce_chunk``, ``attn_chunk``) and the
-embed front end (``input_kind="embed"``) are not ported yet.
+fields only they read: ``remat``, ``ce_chunk``, ``attn_chunk``) are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -60,12 +68,16 @@ class ModelConfig:
     attn_impl: str = "blocked"     # blocked | pallas (kernel on CUDA) | ref
     kv_cache_dtype: str = "bf16"   # bf16 (the compute dtype) | int8
     # frontend
-    input_kind: str = "tokens"     # tokens (embed: not ported)
+    input_kind: str = "tokens"     # tokens | embed (audio/vision stub)
+    d_frontend: int = 0            # embed: width of the input features
     # numerics / structure
     norm: str = "rmsnorm"
     act: str = "silu"
     tie_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16
+    # the reference shards such parameters over a mesh's data axis (FSDP);
+    # on one card it has no effect and is kept so configs carry across
+    fsdp_params: bool = False
 
     @property
     def period(self) -> int:
@@ -89,9 +101,9 @@ def _check_supported(cfg: ModelConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: layer kind ({m}, {f}) is not ported (only "
                 f"dense attention layers: MoE, mamba and rwkv wait)")
-    if cfg.input_kind != "tokens":
-        raise NotImplementedError(f"{cfg.name}: input_kind="
-                                  f"{cfg.input_kind!r} is not ported")
+    if cfg.input_kind not in ("tokens", "embed"):
+        raise ValueError(f"{cfg.name}: unknown input_kind "
+                         f"{cfg.input_kind!r} (tokens | embed)")
 
 
 # --------------------------------------------------------------------------
@@ -121,8 +133,13 @@ def _stack_template(t: Template, n: int) -> Template:
 
 def build_template(cfg: ModelConfig) -> Template:
     _check_supported(cfg)
-    t: Template = {"embed": {"tok": ParamSpec((cfg.vocab, cfg.d_model),
-                                              cfg.dtype, "normal", 0.02)}}
+    t: Template = {}
+    if cfg.input_kind == "tokens":
+        t["embed"] = {"tok": ParamSpec((cfg.vocab, cfg.d_model), cfg.dtype,
+                                       "normal", 0.02)}
+    else:
+        t["frontend"] = {"proj": ParamSpec((cfg.d_frontend, cfg.d_model),
+                                           cfg.dtype, "fan_in")}
     if cfg.n_periods > 0:
         t["stack"] = {f"pos{i}": _stack_template(_layer_template(cfg),
                                                  cfg.n_periods)
@@ -204,7 +221,10 @@ def _layer(cfg: ModelConfig, mixer: str, p, h: Tensor, positions: Tensor,
 
 
 def _embed_in(cfg: ModelConfig, params, x: Tensor) -> Tensor:
-    h = params["embed"]["tok"][x.long()].to(cfg.dtype)
+    if cfg.input_kind == "embed":
+        return layers.linear(x.to(cfg.dtype), params["frontend"]["proj"],
+                             cfg.dtype)
+    h = layers.embed_lookup(params["embed"]["tok"], x, cfg.dtype)
     if cfg.tie_embeddings:
         # gemma-style: sqrt(d) rounded to the dtype, the product rounded
         # once (exact in f32 before that rounding: both factors are bf16)
@@ -297,8 +317,9 @@ def prefill(cfg: ModelConfig, params, x: Tensor) -> Tuple[Tensor, Dict[str, Any]
 def decode_step(cfg: ModelConfig, params, token: Tensor,
                 cache: Dict[str, Any], pos: int
                 ) -> Tuple[Tensor, Dict[str, Any]]:
-    """token (B, 1); pos the position of the token (its cache slot is
-    pos mod S).  Returns (logits (B, vocab) f32, the updated cache)."""
+    """token (B, 1) (or (B, 1, d_frontend) for an embed front end); pos
+    the position of the token (its cache slot is pos mod S).  Returns
+    (logits (B, vocab) f32, the updated cache)."""
     b = token.shape[0]
     h, new_cache = backbone(cfg, params, token,
                             _positions(b, 1, int(pos), token.device),
@@ -306,3 +327,12 @@ def decode_step(cfg: ModelConfig, params, token: Tensor,
     logits = layers.linear(h[:, -1], _head_matrix(cfg, params),
                            cfg.dtype).float()
     return logits, new_cache
+
+
+@torch.no_grad()
+def encode(cfg: ModelConfig, params, x: Tensor) -> Tensor:
+    """Encoder-only (hubert): logits (B, T, vocab) f32 at every position,
+    one unchunked head over the small vocabulary."""
+    b, t = x.shape[0], x.shape[1]
+    h, _ = backbone(cfg, params, x, _positions(b, t, 0, x.device))
+    return logits_fn(cfg, params, h)

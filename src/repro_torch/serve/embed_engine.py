@@ -60,7 +60,8 @@ class EmbedServe:
     # ------------------------------------------------------------ admission
     def submit_tokens(self, tokens, now: Optional[float] = None
                       ) -> np.ndarray:
-        """Embed a batch of token sequences and enqueue the embeddings.
+        """Embed a batch of token sequences (frames ``(m, T, d_frontend)``
+        for an embed front end) and enqueue the embeddings.
 
         The backbone forward + pooling run here, in-process; the resulting
         rows land in the engine's admission queue with the embed-end
@@ -154,7 +155,8 @@ class EmbedServe:
         return results
 
     def predict_tokens(self, tokens) -> np.ndarray:
-        """Synchronous convenience: embed + engine.predict."""
+        """Synchronous convenience: embed (tokens or frames) +
+        engine.predict."""
         return self.engine.predict(self.extractor(tokens))
 
     def predict_label_tokens(self, tokens, **kw) -> np.ndarray:

@@ -33,6 +33,11 @@ Known sites (grep ``faults.fire`` for the authoritative list):
   engine.submit                admission entry                (ctx: rows)
   engine.begin_step            wave about to dispatch
   engine.swap                  bank hot swap entry
+  trainer.wave.start           a training wave begins         (ctx: wave)
+  trainer.wave.solved          a wave solved, not yet saved   (ctx: wave)
+  checkpoint.save.*            pre_shard, post_shard, pre_rename,
+                               post_rename, post_latest       (ctx: step)
+  checkpoint.restore.mid       payload read, not yet returned (ctx: step)
 
 The registry is process-global and NOT thread-safe by design: the tier-1
 fault suite is single-threaded, and a lock on the ``fire`` fast path would

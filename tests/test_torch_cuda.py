@@ -410,6 +410,14 @@ def _attn_bound(q, k, v, mask_kind, window, want):
     ("bidir", 0, 2, 33, 65, 4, 2, 16),        # smoke head_dim
     ("causal", 0, 1, 1024, 1024, 4, 2, 64),   # 16 kv tiles: the ring wraps
     ("window", 1024, 1, 1536, 1536, 2, 1, 256),  # gemma3-4b's local layers
+    ("causal", 0, 1, 300, 300, 32, 8, 160),   # stablelm-12b: 5 panels of 32
+    ("causal", 0, 2, 100, 260, 4, 1, 160),    # D 160, GQA 4, T != S
+    ("window", 70, 1, 200, 200, 4, 2, 160),
+    ("bidir", 0, 2, 130, 130, 16, 16, 80),    # hubert-xlarge: 5 panels of 16
+    ("causal", 0, 1, 257, 257, 4, 2, 80),
+    ("causal", 0, 2, 77, 77, 8, 2, 8),        # command-r smoke: CUDA cores
+    ("bidir", 0, 1, 65, 33, 8, 8, 8),
+    ("window", 16, 1, 150, 150, 4, 4, 8),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, mask_kind, window, b, t,
@@ -458,6 +466,15 @@ def test_flash_attention_refuses_a_misaligned_view(cuda):
     (1, 2, 5000, 4000, 1024, 2, 256, False),  # window, ring not wrapped
     (2, 8, 8192, 9000, 0, 1, 64, True),       # int8, 4 heads a block, splits
     (9, 32, 4096, 4095, 0, 1, 64, False),     # bf16, 2 heads a block
+    (2, 8, 2048, 2047, 0, 4, 160, False),     # stablelm-12b's step: 20 of 32 lanes
+    (2, 8, 2048, 2047, 0, 4, 160, True),
+    (3, 2, 333, 666, 0, 1, 160, True),        # int8 at G 1: 10 of 16 lanes, wrapped
+    (1, 8, 9000, 9100, 1024, 2, 160, False),  # window, wrapped, splits
+    (3, 4, 300, 120, 0, 2, 80, False),        # 10 of 16 lanes, partial cache
+    (2, 16, 1024, 1500, 0, 1, 80, True),      # int8 at G 1: 5 of 8 lanes
+    (3, 2, 100, 99, 0, 4, 8, False),          # command-r smoke: one lane a key
+    (3, 2, 100, 250, 0, 4, 8, True),          # int8 rows of 8 bytes, wrapped
+    (1, 2, 5000, 4999, 0, 2, 8, True),        # splits at D 8
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_kernel_matches_plain(cuda, b, hk, s, pos, window,
@@ -492,8 +509,8 @@ def test_decode_attention_kernel_matches_plain(cuda, b, hk, s, pos, window,
 
 @pytest.mark.gpu
 def test_attention_wrappers_reject_what_the_kernels_do_not_take(cuda):
-    x = torch.ones(1, 4, 2, 32, device=cuda)
-    with pytest.raises(ValueError):                   # head_dim 32
+    x = torch.ones(1, 4, 2, 12, device=cuda)
+    with pytest.raises(ValueError):                   # head_dim 12: no instance
         fa_ops.flash_attention(x, x, x)
     q = torch.ones(1, 2, 3, 64, device=cuda)          # G = 3
     c = torch.ones(1, 8, 2, 64, device=cuda)
@@ -533,7 +550,8 @@ def test_sq_dists_and_predict_at_embedding_width(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["stablelm-1.6b", "gemma3-4b"])
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "gemma3-4b",
+                                  "stablelm-12b", "command-r-plus-104b"])
 @pytest.mark.parametrize("kv", ["bf16", "int8"])
 def test_generate_through_kernels_equals_plain_path(cuda, arch, kv):
     """Smoke configs in f32: greedy tokens through B9/B10 equal the plain

@@ -32,6 +32,19 @@ from repro_torch.serve.svm_engine import SVMEngine  # noqa: E402
 from repro_torch.testing import faults  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """The shapes here are small: one intra-op thread runs them as fast as
+    eight on an idle machine, and when the test workers (or other jobs)
+    share the cores, eight threads a process spin against each other and
+    run many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = "cpu"
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 

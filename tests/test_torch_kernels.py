@@ -595,6 +595,8 @@ def test_decode_split_count(pairs, nvis, n_sm, want):
     (1, 2, 256, torch.int8, 1024, 1),         # rows of a line or more
     (3, 3, 16, torch.int8, 300, 1),           # Hk odd
     (3, 2, 64, torch.float32, 32768, 1),
+    (3, 2, 8, torch.int8, 300, 1),            # no instance of 2 heads at D 8
+    (2, 8, 80, torch.bfloat16, 32768, 1),
 ])
 def test_decode_heads_per_block(b, hk, d, cache, nvis, want):
     from repro_torch.kernels.decode_attention import ops as td_ops
@@ -837,3 +839,72 @@ def test_import_leaves_no_jax_and_no_reference_modules():
                          text=True, check=True).stdout.splitlines()
     assert int(out[0]) >= 20
     assert out[1] == "[]"
+
+
+_FAKE_NVCC = r'''
+import sys
+args = sys.argv[1:]
+out = args[args.index("-o") + 1]
+with open(out, "w") as f:
+    if "-c" in args:                       # one part: its -D flag
+        f.write(" ".join(a for a in args if a.startswith("-D")) + "\n")
+    else:                                  # a library: the objects linked
+        ins = [a for a in args if a.endswith((".o", ".cu"))]
+        for a in ins:
+            f.write(open(a).read() if a.endswith(".o") else a + "\n")
+print("ptxas info    : fake report for", out)
+'''
+
+
+def test_build_compiles_parts_in_parallel_and_links_them(tmp_path,
+                                                         monkeypatch):
+    """A source with ``#if BUILD_PART == p`` blocks becomes one object a
+    part (with its ``-DBUILD_PART=p``) linked into its library; the others
+    one library each; the objects are removed.  nvcc is a stand-in script
+    here."""
+    exe = tmp_path / "nvcc"
+    exe.write_text(f"#!{sys.executable}\n{_FAKE_NVCC}")
+    exe.chmod(0o755)
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "decode_attention.cu").write_text("".join(
+        f"#if BUILD_PART == {p}\n#endif\n" for p in (0, 1, 2, 0)))
+    (csrc / "assign.cu").write_text("// stand-in\n")
+    monkeypatch.setattr(runtime, "nvcc", lambda: str(exe))
+    monkeypatch.setattr(runtime, "CSRC", csrc)
+    monkeypatch.setattr(runtime, "BUILD_DIR", tmp_path / "out")
+    logs = runtime.build(("decode_attention", "assign"))
+    lib = (tmp_path / "out" / "libdecode_attention.so").read_text()
+    assert lib.splitlines() == [f"-DBUILD_PART={p}" for p in range(3)]
+    assert logs["decode_attention"]["log"].count("ptxas info") == 3 + 1
+    assert (tmp_path / "out" / "libassign.so").read_text().strip().endswith(
+        "assign.cu")
+    assert sorted(p.name for p in (tmp_path / "out").iterdir()) == [
+        "libassign.so", "libdecode_attention.so"]
+
+
+def test_build_parts_refuses_a_gap(tmp_path):
+    src = tmp_path / "x.cu"
+    src.write_text("#if BUILD_PART == 0\n#endif\n#if BUILD_PART == 2\n"
+                   "#endif\n")
+    with pytest.raises(ValueError, match="not 0..n-1"):
+        runtime.build_parts(src)
+    src.write_text("// one piece\n")
+    assert runtime.build_parts(src) == 0
+
+
+def test_decode_parts_define_every_head_dim_once():
+    """decode_attention.cu's entry point switches over the wrapper's head
+    dims, and each has its instances defined in exactly one part."""
+    import re
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    src = (runtime.CSRC / "decode_attention.cu").read_text()
+    assert runtime.build_parts(runtime.CSRC / "decode_attention.cu") == 3
+    switch = [int(d) for d in re.findall(r"case (\d+): return \(int\)dim_",
+                                         src)]
+    assert tuple(sorted(switch)) == dec_ops.HEAD_DIMS
+    blocks = re.findall(r"^#if BUILD_PART == (\d+)\n(.*?)^#endif", src,
+                        re.M | re.S)
+    defined = [int(d) for _, body in blocks
+               for d in re.findall(r"^DIM_DEF\((\d+)\)", body, re.M)]
+    assert sorted(defined) == sorted(switch)

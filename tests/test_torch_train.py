@@ -78,6 +78,19 @@ from repro_torch.train.convert import select_result_from_reference  # noqa: E402
 from repro_torch.train.svm_trainer import LiquidSVM  # noqa: E402
 from repro_torch.train.svm_trainer import SVMTrainerConfig  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """The shapes here are small: one intra-op thread runs them as fast as
+    eight on an idle machine, and when the test workers (or other jobs)
+    share the cores, eight threads a process spin against each other and
+    run many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 EPS = float(np.finfo(np.float32).eps)
 CPU = "cpu"
 
@@ -769,10 +782,15 @@ def test_liquid_svm_needs_a_card_or_cpu(monkeypatch):
 
 
 def test_unported_paths_raise():
-    """Per-wave checkpoints (``ckpt_dir``) are the one training path not
-    ported; the npl / roc rules are (``test_torch_session.py``)."""
-    x, y = covtype_like(n=120, d=3, n_classes=2, seed=0)
-    m = LiquidSVM(SVMTrainerConfig(scenario="ova"), device=CPU)
+    """The device mesh (slots sharded over several cards) is the one
+    training path not ported; per-wave ``ckpt_dir`` resume is
+    (``test_torch_resume.py``), as are the npl / roc rules
+    (``test_torch_session.py``)."""
+    from repro_torch.distributed import cell_trainer as t_ct
+    cfg = t_cv.CVConfig()
     with pytest.raises(NotImplementedError):
-        m.fit(x, y, ckpt_dir="unused")
+        t_ct.train_cells_waves(lambda lo, hi: None, 2, 1, None, None, None,
+                               cfg, 1, 1, CPU, mesh=object())
+    with pytest.raises(NotImplementedError):
+        t_ct.predict_cells(None, None, None, None, mesh=object())
     assert t_select.get_rule("npl") is t_select.rule_npl
