@@ -78,7 +78,18 @@ kernels from ``src/repro_torch/csrc/`` into ``build/kernels/`` and then:
      plain attention path, 8 tokens generated with bf16 and int8 caches),
      hubert-xlarge at full width (``encode`` and pooled rows over 4 x 1024
      frames against the plain path), internvl2's and command-r's smoke
-     configs on the card against the CPU; each run's launches are counted
+     configs on the card against the CPU; rwkv6-1.6b (attention-free) at
+     full width: a prefill of 2 x 2048 tokens at chunk 128 and 32 greedy
+     tokens (no kernel launched), the decode state's bytes at every
+     budget, in f32 the state after a prefill against stepping the tokens
+     one by one, the bf16 logits against the f32 path, extractor rows
+     under two chunk sizes; LM training: one train step of every ported
+     architecture's smoke config on the card against the CPU, then
+     stablelm-1.6b at full width under ``Trainer`` (fp32 policy, 4 steps
+     of 8 x 1024 tokens in 2 micro-batches), killed before step 3 and
+     resumed from its step-2 checkpoint under ``build/chip_smoke_lm_train/``
+     (removed at the start and the end) to the uninterrupted run's state
+     bitwise, with no B9 or B10 launch; each run's launches are counted
      on their own;
   7. cell construction at UCI Covertype's full size (covtype_like rows,
      580,986 x 54, written to a memmap under ``build/chip_smoke_cells/``,
@@ -241,6 +252,42 @@ FAM_SMOKE_TOL = 1e-4
 FAM_PERMUTATIONS = (SEED, SEED + 1)
 FAM_NOISE_FACTOR = 1.25
 FAM_DEPTHS = (12, 24, 36)
+# rwkv6-1.6b (attention-free) at its published widths (arXiv:2404.05892:
+# 24 layers, d_model 2048, 32 heads of 64, d_ff 7168, vocab 65536, bf16;
+# ~3.0 GB), seed-initialised: a prefill of 2 x 2048 tokens at the config's
+# chunk of 128, then RWKV_NEW greedy tokens; the state after a prefill of
+# the first RWKV_STATE_T tokens against stepping them one by one, in f32
+# (the same weights widened exactly), within RWKV_STATE_TOL of the largest
+# |value| (f32 sums in another order through 24 layers, as FAM_SMOKE_TOL),
+# and the f32 logits at the RWKV_ALT_CHUNKS (the same function, its sums
+# regrouped) against chunk 128's within the same tolerance.  bf16 against
+# the f32 path: every projection and the residual stream round to bf16,
+# and the deviation grows with depth (measured on one H100: 2.6e-2 of the
+# largest |logit| at 6 layers, 6.2e-2 at 24; the JAX package's own bf16
+# path sits as far from its f32 path on the CPU, 2.1e-2 at 8 smoke
+# layers), so the first RWKV_GATE_DEPTH layers are held within
+# LM_LOGIT_TOL, and the 24 layers within the larger of LM_LOGIT_TOL and
+# FAM_NOISE_FACTOR x the bf16 path's deviation from the f32 path at the
+# other chunks (chunk 128, the config's, where the reference overflows,
+# must not stand out: C10); extractor rows over RWKV_EX_N sequences of
+# RWKV_EX_T in blocks of RWKV_B
+RWKV_ARCH, RWKV_B, RWKV_T, RWKV_NEW = "rwkv6-1.6b", 2, 2048, 32
+RWKV_STATE_T, RWKV_STATE_TOL = 64, 1e-4
+RWKV_ALT_CHUNKS, RWKV_GATE_DEPTH = (32, 64, 256), 6
+RWKV_EX_N, RWKV_EX_T = 5, 512
+# LM training on one card: every ported architecture's smoke config in f32,
+# one train step on the card against the CPU (loss within 1e-5 relative,
+# every gradient leaf within FAM_SMOKE_TOL of its largest |value|); then
+# stablelm-1.6b at full width under ``Trainer`` with the fp32 policy
+# (~26 GB of parameters and AdamW state): TRAIN_STEPS steps of
+# TRAIN_BATCH x TRAIN_SEQ tokens in TRAIN_ACCUM micro-batches, once
+# uninterrupted and once killed before step TRAIN_FAIL_AT and resumed from
+# its step-TRAIN_EVERY checkpoint under TRAIN_DIR (removed at the start and
+# the end): the final state bitwise equal, under
+# torch.use_deterministic_algorithms(True)
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM = "stablelm-1.6b", 1024, 8, 2
+TRAIN_STEPS, TRAIN_EVERY, TRAIN_FAIL_AT = 4, 2, 3
+TRAIN_DIR = ROOT / "build" / "chip_smoke_lm_train"
 
 # cell-construction slice: UCI Covertype at full size (581,012 rows of 54
 # features, 7 classes; covtype_like rounds n down to 580,986), the spatial
@@ -2034,6 +2081,333 @@ def lm_families(torch, dev, tables):
     return paths, errs, cases
 
 
+def lm_rwkv6(torch, dev, tables):
+    """rwkv6-1.6b at full width on the card (attention-free: no kernel
+    launches at all).  Prefill of RWKV_B x RWKV_T tokens and greedy
+    generation of RWKV_NEW tokens, timed; the decode state's bytes, the
+    same at every budget; in f32 the state after one prefill of the first
+    RWKV_STATE_T tokens against stepping them one by one; the bf16 prefill
+    logits against the f32 path's; extractor rows bitwise the same under
+    two chunk sizes and in a ragged tail block.  Returns the runs'
+    launch counts."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.embed import EmbeddingExtractor, EmbeddingSource
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.layers import tree_items, tree_map
+    from repro_torch.serve import engine
+    from repro_torch.serve.kv_cache import cache_bytes
+    cfg = get_arch(RWKV_ARCH).config
+    paths = {}
+
+    def counted(label, fn):
+        zero_counts(tables)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        paths[label] = read_counts(tables)
+        require_launches(label, paths[label], {})
+        return res, secs
+
+    toks = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (RWKV_B, RWKV_T)).astype(np.int32)
+    prompt = torch.as_tensor(toks).to(dev)
+    t0 = time.perf_counter()
+    params = model_mod.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    engine.prefill_step(cfg, params, prompt)       # warm the shapes
+    (logits, cache), prefill_s = counted(
+        "rwkv6 prefill", lambda: engine.prefill_step(cfg, params, prompt))
+    prefill_peak = torch.cuda.max_memory_allocated(dev)
+    got_bytes = sum(leaf.numel() * leaf.element_size()
+                    for _, leaf in tree_items(cache))
+    budgets = (1, RWKV_T, RWKV_T + RWKV_NEW, 524_288)
+    state_bytes = {b: cache_bytes(cfg, RWKV_B, b) for b in budgets}
+    if len(set(state_bytes.values())) != 1 or got_bytes != state_bytes[1]:
+        raise Mismatch(f"rwkv6: decode state bytes {state_bytes} vary with "
+                       f"the budget or differ from the prefill's cache "
+                       f"({got_bytes})")
+    del cache
+    out, gen_s = counted("rwkv6 generate", lambda: engine.generate(
+        cfg, params, prompt, RWKV_NEW))
+    if (out.shape != (RWKV_B, RWKV_T + RWKV_NEW)
+            or not torch.equal(out[:, :RWKV_T].cpu(), prompt.cpu())
+            or int(out.min()) < 0 or int(out.max()) >= cfg.vocab):
+        raise Mismatch("rwkv6 generate: bad tokens")
+
+    # the same weights in f32, exactly: the state after a prefill against
+    # the recurrence stepped token by token, then the bf16 logits
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = tree_map(lambda a: a.float(), params)
+    x64 = prompt[:, :RWKV_STATE_T]
+    (_, c_pre), _ = counted("rwkv6 f32 prefill",
+                            lambda: model_mod.prefill(cfg32, p32, x64))
+
+    def stepped():
+        c = model_mod.init_cache(cfg32, RWKV_B, 1, device=dev)
+        for i in range(RWKV_STATE_T):
+            _, c = model_mod.decode_step(cfg32, p32, x64[:, i:i + 1], c, i)
+        return c
+    c_step, _ = counted("rwkv6 f32 stepped", stepped)
+    shares = {}
+    for name in ("wkv", "shift", "shift_ffn"):
+        shares[f"state {name}"] = _tol_share(
+            f"rwkv6 f32 state[{name}] prefill vs stepped",
+            c_pre["stack"]["pos0"][name].cpu(),
+            c_step["stack"]["pos0"][name].cpu(), RWKV_STATE_TOL)
+    del c_pre, c_step
+
+    def last_logits(c, p, layers=None):
+        if layers is not None:
+            c = dataclasses.replace(c, n_layers=layers)
+            p = {**p, "stack": tree_map(lambda a: a[:layers], p["stack"])}
+        out, _ = counted(f"rwkv6 prefill [{c.dtype}, chunk {c.rwkv_chunk}, "
+                         f"{c.n_layers} layers]",
+                         lambda: model_mod.prefill(c, p, prompt)[0])
+        return out.cpu()
+    logits32 = last_logits(cfg32, p32)
+    for ch in RWKV_ALT_CHUNKS:
+        shares[f"f32 logits, chunk {ch}"] = _tol_share(
+            f"rwkv6 f32 logits at chunk {ch} vs {cfg.rwkv_chunk}",
+            last_logits(dataclasses.replace(cfg32, rwkv_chunk=ch), p32),
+            logits32, RWKV_STATE_TOL)
+    gate32 = last_logits(cfg32, p32, RWKV_GATE_DEPTH)
+    del p32
+    torch.cuda.empty_cache()
+    shares[f"bf16 logits vs f32, first {RWKV_GATE_DEPTH} layers"] = \
+        _tol_share(f"rwkv6 bf16 logits vs f32, first {RWKV_GATE_DEPTH} "
+                   f"layers", last_logits(cfg, params, RWKV_GATE_DEPTH),
+                   gate32, LM_LOGIT_TOL)
+    logits = logits.cpu()
+    alt_dev, alt_self = {}, {}
+    for ch in RWKV_ALT_CHUNKS:
+        alt = last_logits(dataclasses.replace(cfg, rwkv_chunk=ch), params)
+        alt_dev[ch] = float((alt - logits32).abs().max())
+        alt_self[ch] = float((alt - logits).abs().max())
+    shares["bf16 logits vs f32"] = _tol_share(
+        "rwkv6 bf16 logits vs f32", logits, logits32, LM_LOGIT_TOL,
+        FAM_NOISE_FACTOR * max(alt_dev.values()))
+    dev_rel = float((logits - logits32).abs().max()
+                    / logits32.abs().max())
+    same_token = float((logits.argmax(-1) == logits32.argmax(-1)).float()
+                       .mean())
+    del alt, logits, logits32, gate32
+
+    ex = EmbeddingExtractor(cfg, params, batch_size=RWKV_B, device=dev)
+    seqs = np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab, (RWKV_EX_N, RWKV_EX_T)).astype(np.int32)
+    rows, ex_s = counted("rwkv6 embed", lambda: np.concatenate(
+        [c for _, c in EmbeddingSource(seqs, ex).iter_chunks(RWKV_B)]))
+    rows_b = np.concatenate([c for _, c in
+                             EmbeddingSource(seqs, ex).iter_chunks(3)])
+    invariant = bool(np.isfinite(rows).all() and np.array_equal(rows, rows_b)
+                     and np.array_equal(ex(seqs[:1]), rows[:1]))
+    emit({"phase": "lm_rwkv6", "arch": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "heads": cfg.rwkv_heads,
+          "head_dim": cfg.rwkv_head_dim, "d_ff": cfg.d_ff,
+          "vocab": cfg.vocab, "params": cfg.param_count(),
+          "dtype": str(cfg.dtype), "chunk": cfg.rwkv_chunk,
+          "batch": RWKV_B, "prompt": RWKV_T, "new_tokens": RWKV_NEW,
+          "init_s": init_s, "prefill_s": prefill_s,
+          "prefill_tokens_per_s": RWKV_B * RWKV_T / prefill_s,
+          "prefill_peak_memory_gb": prefill_peak / 1e9,
+          "generate_s": gen_s,
+          "decode_ms_per_step": (gen_s - prefill_s) * 1e3 / (RWKV_NEW - 1),
+          "state_bytes": state_bytes[1], "state_bytes_by_budget":
+              {str(b): v for b, v in state_bytes.items()},
+          "bf16_vs_f32_max_rel": dev_rel,
+          "bf16_other_chunk_vs_f32_abs": alt_dev,
+          "bf16_other_chunk_vs_chunk_128_abs": alt_self,
+          "bf16_vs_f32_argmax_agreement": same_token,
+          "tolerance_share_used": shares, "embed_s": ex_s,
+          "embed_tokens_per_s": RWKV_EX_N * RWKV_EX_T / ex_s,
+          "rows_bitwise_invariant": invariant, "launches": paths,
+          "ok": invariant})
+    if not invariant:
+        raise Mismatch("rwkv6 embed: rows differ between chunk sizes or "
+                       "blocks")
+    del ex, params, prompt, out
+    torch.cuda.empty_cache()
+    return paths
+
+
+def lm_train(torch, dev, tables):
+    """LM training on one card.  Every ported architecture's smoke config
+    in f32: one train step's loss and gradients on the card against the
+    CPU's, the attention projections' gradients nonzero.  stablelm-1.6b at
+    full width under ``Trainer`` (fp32 policy): TRAIN_STEPS steps timed
+    with the loss each step and the peak memory; the same run killed
+    before step TRAIN_FAIL_AT and resumed from its step-TRAIN_EVERY
+    checkpoint ends bitwise equal; B9 and B10 launch no time, and B9
+    refuses an operand that requires grad.  Returns the runs' launch
+    counts."""
+    import dataclasses
+    import os
+    from repro_torch.configs import ARCH_IDS, get_arch
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.layers import tree_items, tree_map
+    from repro_torch.train import checkpoint as ckpt_mod
+    from repro_torch.train.lm_trainer import (Trainer, TrainLoopConfig,
+                                              value_and_grad)
+    from repro_torch.train.optimizer import OptConfig
+    paths, smoke = {}, {}
+    cpu = torch.device("cpu")
+
+    # 1. one train step at every smoke config, card against CPU
+    for arch in ARCH_IDS:
+        cfg = dataclasses.replace(get_arch(arch).smoke, dtype=torch.float32)
+        p_cpu = model_mod.init_params(cfg,
+                                      torch.Generator().manual_seed(SEED))
+        rng = np.random.default_rng(SEED)
+        if cfg.input_kind == "tokens":
+            x = rng.integers(0, cfg.vocab, (2, 32)).astype(np.int64)
+        else:
+            x = rng.standard_normal((2, 32, cfg.d_frontend)
+                                    ).astype(np.float32)
+        labels = rng.integers(0, cfg.vocab, (2, 32)).astype(np.int64)
+        batch = {"inputs": torch.as_tensor(x), "labels": torch.as_tensor(labels)}
+        l_cpu, g_cpu = value_and_grad(cfg, p_cpu, batch)
+        zero_counts(tables)
+        l_dev, g_dev = value_and_grad(
+            cfg, tree_map(lambda a: a.to(dev), p_cpu),
+            {k: v.to(dev) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        paths[f"train_smoke[{arch}]"] = read_counts(tables)
+        require_launches(f"{arch} smoke train step",
+                         paths[f"train_smoke[{arch}]"], {})
+        rel = abs(float(l_dev) - float(l_cpu)) / abs(float(l_cpu))
+        check(f"{arch} smoke loss card vs CPU", rel, 1e-5,
+              loss=float(l_cpu))
+        want = dict(tree_items(g_cpu))
+        worst = 0.0
+        for path, g in tree_items(g_dev):
+            g = g.cpu()
+            scale = float(want[path].abs().max())
+            err = float((g - want[path]).abs().max())
+            if not (torch.isfinite(g).all() and err <= FAM_SMOKE_TOL * scale):
+                raise Mismatch(f"{arch} smoke grad {path}: {err} > "
+                               f"{FAM_SMOKE_TOL} x {scale}")
+            worst = max(worst, err / max(scale, 1e-30))
+            if (path[-2] == "mixer" and path[-1] in ("wq", "wk", "wv", "wo",
+                                                     "wr")
+                    and not float(g.abs().max()) > 0.0):
+                raise Mismatch(f"{arch} smoke: zero gradient at {path}")
+        smoke[arch] = {"loss": float(l_cpu), "loss_rel_err": rel,
+                       "grad_max_rel_err": worst}
+    emit({"phase": "lm_train_smoke", "tol": FAM_SMOKE_TOL, **smoke,
+          "ok": True})
+
+    # 2. stablelm-1.6b at full width under Trainer, and kill-and-resume
+    q = torch.zeros((1, 64, 2, 64), device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    try:
+        fa_ops.flash_attention(q, q, q)
+        raise Mismatch("flash_attention took an operand that requires grad")
+    except ValueError as e:
+        refused = "requires grad" in str(e)
+    if not refused:
+        raise Mismatch("flash_attention: refused for another reason")
+    cfg = get_arch(TRAIN_ARCH).config
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=SEED))
+    opt_cfg = OptConfig(policy="fp32", warmup_steps=2,
+                        total_steps=TRAIN_STEPS)
+
+    def trainer(ckpt_dir):
+        return Trainer(cfg, opt_cfg, TrainLoopConfig(
+            total_steps=TRAIN_STEPS, grad_accum=TRAIN_ACCUM,
+            ckpt_every=TRAIN_EVERY, keep_last=1, log_every=1,
+            ckpt_dir=None if ckpt_dir is None else str(ckpt_dir)),
+            pipe, device=dev)
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    free_gb = shutil.disk_usage(ROOT).free / 1e9
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts(tables)
+        run = trainer(None).run(seed=SEED)
+        torch.cuda.synchronize()
+        paths["train[uninterrupted]"] = read_counts(tables)
+        require_launches("lm_train uninterrupted",
+                         paths["train[uninterrupted]"], {})
+        peak = torch.cuda.max_memory_allocated(dev)
+        hist = run["history"]
+        want = [leaf.detach().cpu() for leaf in
+                ckpt_mod.tree_leaves((run["params"], run["opt"]))]
+        del run
+        torch.cuda.empty_cache()
+        zero_counts(tables)
+        t0 = time.perf_counter()
+        try:
+            trainer(TRAIN_DIR).run(seed=SEED, fail_at=TRAIN_FAIL_AT)
+            raise Mismatch("lm_train: the injected failure did not fire")
+        except RuntimeError as e:
+            if "injected failure" not in str(e):
+                raise
+        killed_s = time.perf_counter() - t0
+        saved = ckpt_mod.list_steps(str(TRAIN_DIR))
+        ckpt_gb = sum(f.stat().st_size for f in TRAIN_DIR.rglob("*")
+                      if f.is_file()) / 1e9
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        resumed = trainer(TRAIN_DIR).run(seed=SEED)
+        resumed_s = time.perf_counter() - t0
+        paths["train[killed and resumed]"] = read_counts(tables)
+        require_launches("lm_train killed and resumed",
+                         paths["train[killed and resumed]"], {})
+        got = ckpt_mod.tree_leaves((resumed["params"], resumed["opt"]))
+        same = len(got) == len(want) and all(
+            a.dtype == b.dtype and torch.equal(a.cpu(), b)
+            for a, b in zip(got, want))
+        r_hist = resumed["history"]
+        del resumed, got, want
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    losses = [h["loss"] for h in hist]
+    times = [h["elapsed_s"] for h in hist]
+    step_ms = [1e3 * (b - a) for a, b in zip([0.0] + times[:-1], times)]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    emit({"phase": "lm_train", "arch": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "params": cfg.param_count(),
+          "policy": opt_cfg.policy, "dtype": str(cfg.dtype),
+          "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+          "grad_accum": TRAIN_ACCUM, "steps": TRAIN_STEPS,
+          "deterministic_algorithms": True,
+          "loss_by_step": losses, "grad_norm_by_step":
+              [h["grad_norm"] for h in hist],
+          "step_ms": step_ms,
+          "tokens_per_s_after_first": tokens * (len(times) - 1)
+              / (times[-1] - times[0]),
+          "peak_memory_gb": peak / 1e9,
+          "checkpoint_steps_before_resume": saved,
+          "checkpoint_gb": ckpt_gb, "disk_free_gb_before": free_gb,
+          "killed_run_s": killed_s, "resumed_run_s": resumed_s,
+          "resumed_steps": [h["step"] for h in r_hist],
+          "resumed_losses": [h["loss"] for h in r_hist],
+          "b9_refuses_grad": refused, "resume_bitwise": same,
+          "ok": same and bool(np.isfinite(losses).all())})
+    if not same:
+        raise Mismatch("lm_train: the resumed run's final state differs "
+                       "from the uninterrupted run's")
+    if saved != [TRAIN_EVERY] or not np.isfinite(losses).all():
+        raise Mismatch(f"lm_train: checkpoints {saved} before the resume, "
+                       f"losses {losses}")
+    torch.cuda.empty_cache()
+    return paths
+
+
 def attn_tol(want) -> float:
     """Kernel vs plain attention on one card: f32 sums of the same products
     in another order, 2e-5 on values ~1.  In bf16 the kernel also rounds P
@@ -3293,10 +3667,14 @@ def main() -> int:
     gemma_counts = lm_gemma_long(torch, dev, tables)
     lm_families_kernels(torch, dev)
     fam_paths, fam_errs, fam_cases = lm_families(torch, dev, tables)
+    rwkv_paths = lm_rwkv6(torch, dev, tables)
+    train_lm_paths = lm_train(torch, dev, tables)
     lm_paths = {"embed": embed_counts, "svm_fit": fit_counts_lm,
                 "embed_serve": serve_counts_lm, "generate": gen_counts,
                 "gemma_long": gemma_counts,
-                **{f"families[{k}]": v for k, v in fam_paths.items()}}
+                **{f"families[{k}]": v for k, v in fam_paths.items()},
+                **{f"rwkv6[{k}]": v for k, v in rwkv_paths.items()},
+                **{f"lm_train[{k}]": v for k, v in train_lm_paths.items()}}
     emit({"phase": "lm_launches", "per_path": lm_paths})
     launches = {name: launches.get(name, 0)
                 + sum(n[name] for n in lm_paths.values())

@@ -3,8 +3,9 @@
 Each entry maps an architecture id to its config module (CONFIG
 full-size, SMOKE reduced, SHAPES runnable cells).  Every dense attention
 architecture is ported (token and embed front ends, causal and
-bidirectional); the JAX package's other ids need mixers the port does not
-have yet, and ``get_arch`` names what is missing.
+bidirectional), and the attention-free rwkv6-1.6b; the JAX package's
+other ids need the MoE or mamba mixer, and ``get_arch`` names what is
+missing.
 """
 from __future__ import annotations
 
@@ -22,11 +23,11 @@ _MODULES: Dict[str, str] = {
     "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
     "internvl2-76b": "repro_torch.configs.internvl2_76b",
     "command-r-plus-104b": "repro_torch.configs.command_r_plus_104b",
+    "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
 }
 
 # the JAX package's other architectures and what each needs first
 _NOT_PORTED: Dict[str, str] = {
-    "rwkv6-1.6b": "the rwkv6 mixer and channel mix",
     "qwen3-moe-235b-a22b": "the MoE mixer",
     "llama4-maverick-400b-a17b": "the MoE mixer",
     "jamba-v0.1-52b": "the mamba and MoE mixers",

@@ -22,7 +22,8 @@ SMOKE = ModelConfig(
     n_layers=2, d_model=64, n_heads=8, n_kv_heads=2, head_dim=8,
     d_ff=160, vocab=503,
     period_pattern=(("attn", "dense"),),
-    norm="layernorm", act="silu",
+    ce_chunk=16, attn_chunk=16,
+    norm="layernorm", act="silu", remat=False,
 )
 
 SHAPES = shapes_for(("train_4k", "prefill_32k", "decode_32k"))

@@ -26,8 +26,8 @@ SMOKE = ModelConfig(
     n_layers=8, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
     d_ff=128, vocab=1031,
     period_pattern=(("attn_local", "dense"),) * 2 + (("attn", "dense"),),
-    window=8, qk_norm=True, tie_embeddings=True,
-    norm="rmsnorm", act="gelu",
+    window=8, qk_norm=True, tie_embeddings=True, ce_chunk=16, attn_chunk=16,
+    norm="rmsnorm", act="gelu", remat=False,
 )
 
 SHAPES = shapes_for(("train_4k", "prefill_32k", "decode_32k", "long_500k"))

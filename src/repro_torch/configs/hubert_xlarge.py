@@ -26,7 +26,8 @@ SMOKE = ModelConfig(
     d_ff=128, vocab=61,
     period_pattern=(("attn_bidir", "dense"),),
     rotary_frac=0.0, input_kind="embed", d_frontend=32,
-    norm="layernorm", act="gelu",
+    ce_chunk=16, attn_chunk=16,
+    norm="layernorm", act="gelu", remat=False,
 )
 
 SHAPES = shapes_for(("train_4k", "prefill_32k"), encoder_only=True)

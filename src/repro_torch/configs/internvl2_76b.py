@@ -27,8 +27,8 @@ SMOKE = ModelConfig(
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
     d_ff=128, vocab=503,
     period_pattern=(("attn", "dense"),),
-    input_kind="embed", d_frontend=32,
-    norm="rmsnorm", act="silu",
+    input_kind="embed", d_frontend=32, ce_chunk=16, attn_chunk=16,
+    norm="rmsnorm", act="silu", remat=False,
 )
 
 SHAPES = shapes_for(("train_4k", "prefill_32k", "decode_32k"))

@@ -21,8 +21,8 @@ SMOKE = ModelConfig(
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
     d_ff=128, vocab=503,
     period_pattern=(("attn", "dense"),),
-    rotary_frac=0.25,
-    norm="layernorm", act="silu",
+    rotary_frac=0.25, ce_chunk=16, attn_chunk=16,
+    norm="layernorm", act="silu", remat=False,
 )
 
 SHAPES = shapes_for(("train_4k", "prefill_32k", "decode_32k"))

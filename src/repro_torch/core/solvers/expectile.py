@@ -48,13 +48,15 @@ def solve_expectile(k_mat: torch.Tensor, y: torch.Tensor, taus: torch.Tensor,
     """Returns c (n, P)."""
     k_mat = k_mat.to(torch.float32)
     n = k_mat.shape[0]
-    mask = (torch.ones(n) if train_mask is None
+    dev = k_mat.device
+    mask = (torch.ones(n, device=dev) if train_mask is None
             else train_mask.to(torch.float32))
     km = k_mat * mask[:, None] * mask[None, :]
     y = y.to(torch.float32) * mask
-    n_eff = torch.clamp(torch.as_tensor(n_eff, dtype=torch.float32), min=1.0)
+    n_eff = torch.clamp(torch.as_tensor(n_eff, dtype=torch.float32,
+                                        device=dev), min=1.0)
     lam_n = lambdas.to(torch.float32) * n_eff
     if c0 is None:
-        c0 = torch.zeros((n, taus.shape[0]))
+        c0 = torch.zeros((n, taus.shape[0]), device=dev)
     return irls_path(km, y, taus.to(torch.float32), lam_n, mask,
                      c0.to(torch.float32), sweeps)

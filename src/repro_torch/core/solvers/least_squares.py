@@ -1,8 +1,12 @@
 """Least-squares solver, kernel ridge regression (the JAX package's
 ``core/solvers/least_squares.py``): (K + lambda n I) c = y on the training
 coordinates; one eigendecomposition sweeps the whole lambda path as a
-diagonal rescale.  With M = diag(train_mask), eigh(M K M) solves the fold
-subproblem exactly (padded coordinates get c = 0)."""
+diagonal rescale.  With M = diag(train_mask), eigh(M K M + I - M) solves
+the fold subproblem exactly: the masked block is the identity and
+decouples from the trained block, and y is 0 there, so masked coordinates
+get c = 0.  The unit diagonal keeps the decomposition well posed (M K M
+alone has exact zero rows, on which LAPACK's f32 eigh can fail to
+converge at one thread)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -22,7 +26,9 @@ def krr_eigh_path(k_mat: torch.Tensor, y: torch.Tensor, lam_n: torch.Tensor,
                   train_mask: torch.Tensor) -> torch.Tensor:
     """Batched: k_mat (..., n, n); y (..., n, P) (already masked); lam_n
     (..., P) = lambda * n_eff per column.  Returns c (..., n, P)."""
-    s, u = torch.linalg.eigh(_masked(k_mat.to(torch.float32), train_mask))
+    m = train_mask.to(torch.float32)
+    km = _masked(k_mat.to(torch.float32), m) + torch.diag_embed(1.0 - m)
+    s, u = torch.linalg.eigh(km)
     s = torch.clamp(s, min=0.0)
     uty = u.transpose(-1, -2) @ y
     return u @ (uty / (s[..., :, None] + lam_n[..., None, :]))
@@ -51,6 +57,9 @@ def solve_krr_chol(k_mat: torch.Tensor, y: torch.Tensor, lam, n_eff,
     if train_mask is not None:
         y = y * train_mask.to(torch.float32)
     n = km.shape[0]
-    n_eff = torch.clamp(torch.as_tensor(n_eff, dtype=torch.float32), min=1.0)
-    a = km + (torch.as_tensor(lam, dtype=torch.float32) * n_eff) * torch.eye(n)
+    dev = km.device
+    n_eff = torch.clamp(torch.as_tensor(n_eff, dtype=torch.float32,
+                                        device=dev), min=1.0)
+    lam = torch.as_tensor(lam, dtype=torch.float32, device=dev)
+    a = km + (lam * n_eff) * torch.eye(n, dtype=torch.float32, device=dev)
     return torch.cholesky_solve(y[:, None], torch.linalg.cholesky(a))[:, 0]

@@ -14,7 +14,7 @@ def quantile_boxes(taus: torch.Tensor, lambdas: torch.Tensor, n_eff,
                    train_mask: Optional[torch.Tensor] = None,
                    n: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    n_eff = torch.as_tensor(n_eff, dtype=torch.float32)
+    n_eff = torch.as_tensor(n_eff, dtype=torch.float32, device=taus.device)
     cost = 1.0 / (2.0 * lambdas.to(torch.float32)
                   * torch.clamp(n_eff, min=1.0))
     lo_row = cost * (taus.to(torch.float32) - 1.0)
@@ -24,7 +24,7 @@ def quantile_boxes(taus: torch.Tensor, lambdas: torch.Tensor, n_eff,
     else:
         if n is None:
             raise ValueError("quantile_boxes: pass train_mask or n")
-        m = torch.ones((n, 1))
+        m = torch.ones((n, 1), device=taus.device)
     return m * lo_row[None, :], m * hi_row[None, :]
 
 

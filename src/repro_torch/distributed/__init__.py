@@ -1,6 +1,7 @@
 """Static load balancing (``planner``: the serving wave plan and the cell
-packing) and the wave trainer (``cell_trainer``).  The package init imports
-only the planner: the trainer is imported where it is used."""
+packing), the wave trainer (``cell_trainer``) and int8 error-feedback
+gradient compression on one device (``compression``).  The package init
+imports only the planner: the others are imported where they are used."""
 from repro_torch.distributed.planner import (PackedCells, WavePlan,
                                              pack_cells, plan_wave)
 

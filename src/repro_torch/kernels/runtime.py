@@ -85,8 +85,15 @@ def check_tensor(name: str, t: torch.Tensor, dtypes: tuple,
 def check_launch(name: str, tensors: Iterable[torch.Tensor],
                  device: torch.device) -> None:
     """Every operand of a kernel launch lies on ``device`` and is
-    contiguous (the kernels index with dense row-major strides)."""
+    contiguous (the kernels index with dense row-major strides).  No
+    kernel has a backward: with grad enabled, an operand that requires
+    grad raises, since the output would silently cut it off from the
+    gradient (training runs the plain, differentiable paths)."""
+    grad = torch.is_grad_enabled()
     for t in tensors:
+        if grad and t.requires_grad:
+            raise ValueError(f"{name}: an operand requires grad and the "
+                             f"kernel has no backward")
         if t.device != device:
             raise ValueError(f"{name}: operands on {t.device} and {device}")
         if not t.is_contiguous():

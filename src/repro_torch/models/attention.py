@@ -1,10 +1,15 @@
-"""GQA attention block: prefill (flash) and decode (cache) paths.
+"""GQA attention block: train, prefill (flash) and decode (cache) paths.
 
 Executors, chosen by ``impl``:
 
   * ``blocked`` and ``pallas`` — ``kernels.flash_attention.ops``, which
     dispatches by the tensor's device: the hand-written kernel (B9) on a
     CUDA tensor, its plain PyTorch version on a CPU tensor;
+  * ``train`` — :func:`blocked_attention`, the JAX package's ``blocked``
+    executor in plain PyTorch under autograd: an online softmax over kv
+    chunks, each chunk step checkpointed.  ``models.model.loss_fn`` runs
+    it on every device (the kernels have no backward and refuse operands
+    that require grad);
   * ``ref`` — the plain materialised softmax, on any device.
 
 Decode attends one new token against the full KV cache.  With
@@ -21,9 +26,11 @@ decoded token.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers
 from repro_torch.models.layers import ParamSpec, Template
@@ -51,12 +58,65 @@ def attention_template(d: int, n_heads: int, n_kv: int, head_dim: int,
 # executors
 # --------------------------------------------------------------------------
 
+def _blocked_step(qf: Tensor, kj: Tensor, vj: Tensor, m_run: Tensor,
+                  l_run: Tensor, acc: Tensor, mask: Tensor, scale: float
+                  ) -> Tuple[Tensor, Tensor, Tensor]:
+    """One kv chunk of the online softmax.  qf (B, T, Hk, G, D) f32; kj, vj
+    (B, c, Hk, D); mask (T, c) bool."""
+    logit = torch.einsum("bthgd,bshd->bthgs", qf, kj.float()) * scale
+    logit = torch.where(mask[None, :, None, None, :], logit,
+                        torch.tensor(NEG_INF, device=qf.device))
+    m_new = torch.maximum(m_run, torch.amax(logit, dim=-1))
+    p = torch.exp(logit - m_new[..., None])
+    alpha = torch.exp(m_run - m_new)
+    l_new = l_run * alpha + torch.sum(p, dim=-1)
+    acc = acc * alpha[..., None] + torch.einsum("bthgs,bshd->bthgd", p,
+                                                vj.float())
+    return m_new, l_new, acc
+
+
+def blocked_attention(q: Tensor, k: Tensor, v: Tensor, mask_kind: str,
+                      window: int, scale: float, chunk: int) -> Tensor:
+    """Online-softmax attention over kv chunks of ``chunk`` columns, in f32
+    (the JAX package's ``_blocked_attention``).  q (B, T, H, D); k, v
+    (B, S, Hk, D) -> (B, T, H, D) in q's dtype.  Under autograd each chunk
+    step is checkpointed: backward recomputes the (T, chunk) probability
+    tile instead of keeping every tile."""
+    b, t, h, d = q.shape
+    s, hk = k.shape[1], k.shape[2]
+    g = h // hk
+    chunk = min(chunk, s)
+    qf = q.float().reshape(b, t, hk, g, d)
+    rows = torch.arange(t, device=q.device) + (s - t)
+    step = (functools.partial(checkpoint, _blocked_step, use_reentrant=False)
+            if torch.is_grad_enabled() else _blocked_step)
+    m_run = torch.full((b, t, hk, g), NEG_INF, device=q.device)
+    l_run = torch.zeros((b, t, hk, g), device=q.device)
+    acc = torch.zeros((b, t, hk, g, d), device=q.device)
+    for lo in range(0, s, chunk):
+        cols = torch.arange(lo, min(lo + chunk, s), device=q.device)
+        if mask_kind == "bidir":
+            mask = torch.ones((t, cols.shape[0]), dtype=torch.bool,
+                              device=q.device)
+        else:
+            mask = rows[:, None] >= cols[None, :]
+            if mask_kind == "window":
+                mask = mask & (rows[:, None] - cols[None, :] < window)
+        m_run, l_run, acc = step(qf, k[:, lo:lo + chunk], v[:, lo:lo + chunk],
+                                 m_run, l_run, acc, mask, scale)
+    out = acc / torch.clamp(l_run, min=1e-30)[..., None]
+    return out.reshape(b, t, h, d).to(q.dtype)
+
+
 def run_attention(q: Tensor, k: Tensor, v: Tensor, mask_kind: str,
-                  window: int, scale: float, impl: str = "blocked") -> Tensor:
+                  window: int, scale: float, impl: str = "blocked",
+                  chunk: int = 1024) -> Tensor:
     """q (B, T, H, D); k, v (B, S, Hk, D) -> (B, T, H, D)."""
     if impl == "ref":
         from repro_torch.kernels.flash_attention.ref import flash_attention_ref
         return flash_attention_ref(q, k, v, mask_kind, window, scale)
+    if impl == "train":
+        return blocked_attention(q, k, v, mask_kind, window, scale, chunk)
     if impl not in ("blocked", "pallas"):
         raise ValueError(f"unknown attention impl {impl!r}")
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -98,6 +158,7 @@ def attention_block(
     rotary_frac: float = 1.0,
     dtype: torch.dtype = torch.bfloat16,
     impl: str = "blocked",
+    chunk: int = 1024,                           # kv chunk of ``train``
     cache: Optional[Dict[str, Tensor]] = None,   # (B, S, Hk, D) leaves
     cache_pos: Optional[int] = None,             # write position
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
@@ -121,7 +182,7 @@ def attention_block(
     scale = float(head_dim ** -0.5)
 
     if cache is None:
-        out = run_attention(q, k, v, mask_kind, window, scale, impl)
+        out = run_attention(q, k, v, mask_kind, window, scale, impl, chunk)
         new_cache = {"k": k, "v": v}
     else:
         s = cache["k"].shape[1]

@@ -46,9 +46,22 @@ def tree_items(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
             yield prefix + (k,), v
 
 
-def tree_map(fn: Callable[[Any], Any], tree: Dict[str, Any]) -> Dict[str, Any]:
-    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
+def tree_map(fn: Callable[..., Any], tree: Dict[str, Any], *rest
+             ) -> Dict[str, Any]:
+    """``fn`` over the leaves of ``tree`` and of the congruent ``rest``."""
+    return {k: tree_map(fn, v, *(r[k] for r in rest)) if isinstance(v, dict)
+            else fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
+
+
+def tree_from_items(items) -> Dict[str, Any]:
+    """The nested dict of (key path, leaf) pairs."""
+    out: Dict[str, Any] = {}
+    for path, leaf in items:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
 
 
 def leaf_specs(template: Template):
@@ -80,13 +93,8 @@ def init_params(template: Template, generator: torch.Generator,
                         device=dev)
         return v.mul_(std).to(ps.dtype)
 
-    out: Dict[str, Any] = {}
-    for path, ps in tree_items(template):
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = one(ps)
-    return out
+    return tree_from_items((path, one(ps))
+                           for path, ps in tree_items(template))
 
 
 def param_count(template: Template) -> int:

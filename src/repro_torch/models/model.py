@@ -1,10 +1,11 @@
-"""LM assembly: one composable stack for the dense attention architectures.
+"""LM assembly: one composable stack for the dense attention and rwkv6
+architectures.
 
 An architecture is a ``ModelConfig`` whose ``period_pattern`` lists the
 (mixer, mlp) kind of each layer inside one repeating period:
 
-    mixer: attn | attn_local | attn_bidir   (mamba, rwkv: not ported)
-    mlp:   dense                            (moe, rwkv_cm: not ported)
+    mixer: attn | attn_local | attn_bidir | rwkv   (mamba: not ported)
+    mlp:   dense | rwkv_cm (after rwkv only)       (moe: not ported)
 
 ``n_layers = n_periods * len(period) + tail``.  As in the JAX package the
 parameters of the full periods are stacked over a leading ``n_periods``
@@ -18,15 +19,18 @@ patch features ``(B, T, d_frontend)`` projected to ``d_model`` by
 ``frontend/proj`` (``input_kind="embed"``: hubert, internvl2).
 
 Entry points:
+    loss_fn     {"inputs", "labels"[, "mask"]} -> scalar loss, under
+                autograd: attention runs the plain blocked executor
+                (``attention.blocked_attention``), the cross-entropy is
+                chunked over time (``chunked_ce``) and, with ``remat``,
+                each period is recomputed in backward
     prefill     (B, T) tokens or (B, T, d_frontend) frames -> last logits
                 + cache
     decode_step (B, 1) token (or (B, 1, d_frontend)) + cache -> logits +
-                cache (cache updated in place, see ``models.attention``)
+                cache (cache updated in place: the attention k/v at the
+                ring slot, the rwkv state leaves whole)
     encode      (B, T[, d_frontend]) -> logits at every position (the
                 encoder-only hubert; no cache)
-The training entry points (``loss_fn``, ``chunked_ce``, with the config
-fields only they read: ``remat``, ``ce_chunk``, ``attn_chunk``) are not
-ported yet.
 """
 from __future__ import annotations
 
@@ -36,12 +40,15 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models import attention, layers
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models import attention, layers, rwkv6
 from repro_torch.models.layers import ParamSpec, Template
 
 Tensor = torch.Tensor
 
 _ATTN = ("attn", "attn_local", "attn_bidir")
+_MIXERS = _ATTN + ("rwkv",)
 _MASK = {"attn": "causal", "attn_local": "window", "attn_bidir": "bidir"}
 
 
@@ -66,7 +73,13 @@ class ModelConfig:
     rotary_frac: float = 1.0
     qk_norm: bool = False
     attn_impl: str = "blocked"     # blocked | pallas (kernel on CUDA) | ref
+    attn_chunk: int = 1024         # kv chunk of the training executor
     kv_cache_dtype: str = "bf16"   # bf16 (the compute dtype) | int8
+    # weight of the MoE layers' auxiliary loss; no ported layer has one
+    aux_loss_weight: float = 0.01
+    # rwkv
+    rwkv_head_dim: int = 64
+    rwkv_chunk: int = 128
     # frontend
     input_kind: str = "tokens"     # tokens | embed (audio/vision stub)
     d_frontend: int = 0            # embed: width of the input features
@@ -75,6 +88,8 @@ class ModelConfig:
     act: str = "silu"
     tie_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True             # recompute each period in backward
+    ce_chunk: int = 2048           # time steps a cross-entropy chunk
     # the reference shards such parameters over a mesh's data axis (FSDP);
     # on one card it has no effect and is kept so configs carry across
     fsdp_params: bool = False
@@ -91,16 +106,23 @@ class ModelConfig:
     def tail(self) -> int:
         return self.n_layers - self.n_periods * self.period
 
+    @property
+    def rwkv_heads(self) -> int:
+        return self.d_model // self.rwkv_head_dim
+
     def param_count(self) -> int:
         return layers.param_count(build_template(self))
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     for m, f in cfg.period_pattern:
-        if m not in _ATTN or f != "dense":
+        if m not in _MIXERS or f not in ("dense", "rwkv_cm"):
             raise NotImplementedError(
-                f"{cfg.name}: layer kind ({m}, {f}) is not ported (only "
-                f"dense attention layers: MoE, mamba and rwkv wait)")
+                f"{cfg.name}: layer kind ({m}, {f}) is not ported (dense "
+                f"attention and rwkv layers only: MoE and mamba wait)")
+        if f == "rwkv_cm" and m != "rwkv":
+            raise ValueError(f"{cfg.name}: rwkv_cm keeps its shift carry in "
+                             f"the rwkv mixer's state; ({m}, {f}) has none")
     if cfg.input_kind not in ("tokens", "embed"):
         raise ValueError(f"{cfg.name}: unknown input_kind "
                          f"{cfg.input_kind!r} (tokens | embed)")
@@ -110,14 +132,27 @@ def _check_supported(cfg: ModelConfig) -> None:
 # templates
 # --------------------------------------------------------------------------
 
-def _layer_template(cfg: ModelConfig) -> Template:
+def _mixer_template(cfg: ModelConfig, kind: str) -> Template:
+    if kind == "rwkv":
+        return rwkv6.rwkv6_template(cfg.d_model, cfg.rwkv_heads,
+                                    cfg.rwkv_head_dim, cfg.dtype)
+    return attention.attention_template(
+        cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.dtype,
+        qk_norm=cfg.qk_norm)
+
+
+def _mlp_template(cfg: ModelConfig, kind: str) -> Template:
+    if kind == "rwkv_cm":
+        return rwkv6.channel_mix_template(cfg.d_model, cfg.d_ff, cfg.dtype)
+    return layers.glu_mlp_template(cfg.d_model, cfg.d_ff, cfg.dtype)
+
+
+def _layer_template(cfg: ModelConfig, mixer: str, mlp: str) -> Template:
     return {
         "norm1": layers.norm_template(cfg.norm, cfg.d_model),
-        "mixer": attention.attention_template(
-            cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-            cfg.dtype, qk_norm=cfg.qk_norm),
+        "mixer": _mixer_template(cfg, mixer),
         "norm2": layers.norm_template(cfg.norm, cfg.d_model),
-        "mlp": layers.glu_mlp_template(cfg.d_model, cfg.d_ff, cfg.dtype),
+        "mlp": _mlp_template(cfg, mlp),
     }
 
 
@@ -141,11 +176,11 @@ def build_template(cfg: ModelConfig) -> Template:
         t["frontend"] = {"proj": ParamSpec((cfg.d_frontend, cfg.d_model),
                                            cfg.dtype, "fan_in")}
     if cfg.n_periods > 0:
-        t["stack"] = {f"pos{i}": _stack_template(_layer_template(cfg),
+        t["stack"] = {f"pos{i}": _stack_template(_layer_template(cfg, m, f),
                                                  cfg.n_periods)
-                      for i in range(cfg.period)}
+                      for i, (m, f) in enumerate(cfg.period_pattern)}
     for j in range(cfg.tail):
-        t[f"tail{j}"] = _layer_template(cfg)
+        t[f"tail{j}"] = _layer_template(cfg, *cfg.period_pattern[j])
     t["final_norm"] = layers.norm_template(cfg.norm, cfg.d_model)
     if not cfg.tie_embeddings:
         t["lm_head"] = {"w": ParamSpec((cfg.d_model, cfg.vocab), cfg.dtype,
@@ -168,7 +203,15 @@ class TensorSpec(NamedTuple):
     dtype: torch.dtype
 
 
-def _layer_cache(cfg: ModelConfig, batch: int, seq: int) -> Dict[str, TensorSpec]:
+def _layer_cache(cfg: ModelConfig, mixer: str, batch: int, seq: int
+                 ) -> Dict[str, TensorSpec]:
+    if mixer == "rwkv":
+        # O(1) in seq: the two token-shift carries and the wkv state
+        f32 = torch.float32
+        kd = cfg.rwkv_head_dim
+        return {"shift": TensorSpec((batch, 1, cfg.d_model), f32),
+                "wkv": TensorSpec((batch, cfg.rwkv_heads, kd, kd), f32),
+                "shift_ffn": TensorSpec((batch, 1, cfg.d_model), f32)}
     kv_shape = (batch, seq, cfg.n_kv_heads, cfg.head_dim)
     if cfg.kv_cache_dtype == "int8":
         sc_shape = (batch, seq, cfg.n_kv_heads, 1)
@@ -187,10 +230,11 @@ def cache_struct(cfg: ModelConfig, batch: int, seq: int) -> Dict[str, Any]:
     if cfg.n_periods > 0:
         out["stack"] = {
             f"pos{i}": {k: TensorSpec((cfg.n_periods,) + s.shape, s.dtype)
-                        for k, s in _layer_cache(cfg, batch, seq).items()}
-            for i in range(cfg.period)}
+                        for k, s in _layer_cache(cfg, m, batch, seq).items()}
+            for i, (m, _) in enumerate(cfg.period_pattern)}
     for j in range(cfg.tail):
-        out[f"tail{j}"] = _layer_cache(cfg, batch, seq)
+        out[f"tail{j}"] = _layer_cache(cfg, cfg.period_pattern[j][0], batch,
+                                       seq)
     return out
 
 
@@ -205,18 +249,55 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
 # forward
 # --------------------------------------------------------------------------
 
-def _layer(cfg: ModelConfig, mixer: str, p, h: Tensor, positions: Tensor,
-           cache, pos) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """Pre-norm residual layer.  Returns (h, layer cache)."""
-    mixed, new_cache = attention.attention_block(
-        p["mixer"], layers.apply_norm(cfg.norm, h, p["norm1"]), positions,
-        n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
-        mask_kind=_MASK[mixer], window=cfg.window,
+def _apply_mixer(cfg: ModelConfig, kind: str, p, h: Tensor,
+                 positions: Tensor, cache, pos, impl: str
+                 ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    if kind == "rwkv":
+        out, s_end, carry = rwkv6.rwkv6_mixer(
+            p, h, n_heads=cfg.rwkv_heads, head_dim=cfg.rwkv_head_dim,
+            dtype=cfg.dtype, chunk=cfg.rwkv_chunk,
+            state=None if cache is None else cache["wkv"],
+            shift_carry=None if cache is None else cache["shift"])
+        return out, {"wkv": s_end, "shift": carry}
+    return attention.attention_block(
+        p, h, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, mask_kind=_MASK[kind], window=cfg.window,
         rope_theta=cfg.rope_theta, rotary_frac=cfg.rotary_frac,
-        dtype=cfg.dtype, impl=cfg.attn_impl, cache=cache, cache_pos=pos)
+        dtype=cfg.dtype, impl=impl, chunk=cfg.attn_chunk, cache=cache,
+        cache_pos=pos)
+
+
+def _apply_mlp(cfg: ModelConfig, kind: str, p, h: Tensor, cache
+               ) -> Tuple[Tensor, Optional[Tensor]]:
+    """Returns (out, the channel mix's new shift carry or None)."""
+    if kind == "rwkv_cm":
+        carry = (torch.zeros((h.shape[0], 1, cfg.d_model),
+                             dtype=torch.float32, device=h.device)
+                 if cache is None else cache["shift_ffn"])
+        return rwkv6.channel_mix(p, h, carry, cfg.dtype)
+    return layers.glu_mlp(p, h, cfg.act, cfg.dtype), None
+
+
+def _layer(cfg: ModelConfig, mixer: str, mlp: str, p, h: Tensor,
+           positions: Tensor, cache, pos, impl: str
+           ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Pre-norm residual layer.  Returns (h, layer cache).  With a cache
+    (decode) the attention k/v are written in place by the block; the
+    rwkv state leaves are copied into the cache here, so the caller's
+    stacked cache holds the new state too."""
+    mixed, new_cache = _apply_mixer(
+        cfg, mixer, p["mixer"], layers.apply_norm(cfg.norm, h, p["norm1"]),
+        positions, cache, pos, impl)
     h = h + mixed
-    out = layers.glu_mlp(p["mlp"], layers.apply_norm(cfg.norm, h, p["norm2"]),
-                         cfg.act, cfg.dtype)
+    out, cm_carry = _apply_mlp(cfg, mlp, p["mlp"],
+                               layers.apply_norm(cfg.norm, h, p["norm2"]),
+                               cache)
+    if cm_carry is not None:
+        new_cache["shift_ffn"] = cm_carry
+    if cache is not None and mixer == "rwkv":
+        for name, leaf in new_cache.items():
+            cache[name].copy_(leaf)
+        new_cache = cache
     return h + out, new_cache
 
 
@@ -238,31 +319,54 @@ def _index(tree, p: int):
             for k, v in tree.items()}
 
 
+def _period(cfg: ModelConfig, pp, h: Tensor, positions: Tensor, caches,
+            pos, impl: str) -> Tuple[Tensor, List[Dict[str, Tensor]]]:
+    """One period of layers: pp / caches hold each position's tree."""
+    out = []
+    for i, (m, f) in enumerate(cfg.period_pattern):
+        h, nc = _layer(cfg, m, f, pp[i], h, positions, caches[i], pos, impl)
+        out.append(nc)
+    return h, out
+
+
 def backbone(cfg: ModelConfig, params, x: Tensor, positions: Tensor,
              cache: Optional[Dict] = None, pos: Optional[int] = None,
-             collect_cache: bool = False
+             collect_cache: bool = False, train: bool = False
              ) -> Tuple[Tensor, Optional[Dict]]:
     """-> (hidden (B, T, d), cache).
 
     cache=None + collect_cache=True is the prefill path: each layer's
-    full-sequence k/v are collected and stacked like the parameters.
-    With a cache (decode) the cache is updated in place and returned.
+    full-sequence k/v (or rwkv end state) are collected and stacked like
+    the parameters.  With a cache (decode) the cache is updated in place
+    and returned.  ``train`` runs attention through the plain blocked
+    executor (differentiable on every device) and, with ``cfg.remat``,
+    recomputes each period in backward.
     """
     _check_supported(cfg)
+    impl = "train" if train and cfg.attn_impl != "ref" else cfg.attn_impl
     h = _embed_in(cfg, params, x)
     decoding = cache is not None
     collect = decoding or collect_cache
     new_cache: Optional[Dict] = {} if collect else None
+    remat = (train and cfg.remat and not collect
+             and torch.is_grad_enabled())
 
     if cfg.n_periods > 0:
         per_pos: List[List[Dict[str, Tensor]]] = [[] for _ in range(cfg.period)]
+        none = [None] * cfg.period
         for p in range(cfg.n_periods):
-            for i, (m, _) in enumerate(cfg.period_pattern):
-                lc = (_index(cache["stack"][f"pos{i}"], p) if decoding
-                      else None)
-                h, nc = _layer(cfg, m, _index(params["stack"][f"pos{i}"], p),
-                               h, positions, lc, pos)
-                if collect_cache and not decoding:
+            pp = [_index(params["stack"][f"pos{i}"], p)
+                  for i in range(cfg.period)]
+            lcs = ([_index(cache["stack"][f"pos{i}"], p)
+                    for i in range(cfg.period)] if decoding else none)
+            if remat:
+                h = checkpoint(lambda h_, pp_=pp: _period(
+                    cfg, pp_, h_, positions, none, pos, impl)[0], h,
+                    use_reentrant=False)
+                continue
+            h, ncs = _period(cfg, pp, h, positions, lcs, pos, impl)
+            if collect_cache and not decoding:
+                for i, nc in enumerate(ncs):
                     per_pos[i].append(nc)
         if decoding:
             new_cache["stack"] = cache["stack"]
@@ -273,9 +377,10 @@ def backbone(cfg: ModelConfig, params, x: Tensor, positions: Tensor,
                 for i in range(cfg.period)}
 
     for j in range(cfg.tail):
-        m, _ = cfg.period_pattern[j]
+        m, f = cfg.period_pattern[j]
         cc = cache[f"tail{j}"] if decoding else None
-        h, nc = _layer(cfg, m, params[f"tail{j}"], h, positions, cc, pos)
+        h, nc = _layer(cfg, m, f, params[f"tail{j}"], h, positions, cc, pos,
+                       impl)
         if collect:
             new_cache[f"tail{j}"] = nc
 
@@ -297,6 +402,43 @@ def logits_fn(cfg: ModelConfig, params, h: Tensor) -> Tensor:
 def _positions(b: int, t: int, start: int, device) -> Tensor:
     return (torch.arange(t, dtype=torch.int32, device=device)
             + start)[None].expand(b, t)
+
+
+def chunked_ce(cfg: ModelConfig, params, h: Tensor, labels: Tensor,
+               mask: Optional[Tensor] = None) -> Tensor:
+    """Mean cross-entropy over the unmasked positions, without forming the
+    (T, vocab) logits at once: ``ce_chunk`` time steps at a time.  h (B,
+    T, d); the head's operands are rounded to the compute dtype and the
+    logits are accumulated and kept in f32 (the reference's
+    ``preferred_element_type``)."""
+    b, t, _ = h.shape
+    w = _head_matrix(cfg, params).to(cfg.dtype).float()
+    if mask is None:
+        mask = torch.ones((b, t), dtype=torch.float32, device=h.device)
+    chunk = min(cfg.ce_chunk, t)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.float32, device=h.device)
+    for lo in range(0, t, chunk):
+        logit = h[:, lo:lo + chunk].to(cfg.dtype).float() @ w
+        lse = torch.logsumexp(logit, dim=-1)
+        gold = torch.gather(logit, -1,
+                            labels[:, lo:lo + chunk, None].long())[..., 0]
+        mi = mask[:, lo:lo + chunk].float()
+        loss_sum = loss_sum + torch.sum((lse - gold) * mi)
+        count = count + torch.sum(mi)
+    return loss_sum / torch.clamp(count, min=1.0)
+
+
+def loss_fn(cfg: ModelConfig, params, batch: Dict[str, Tensor]) -> Tensor:
+    """batch: {"inputs": (B, T) int or (B, T, d_frontend) float, "labels":
+    (B, T) int, optional "mask": (B, T)}.  The scalar cross-entropy (the
+    reference adds ``aux_loss_weight`` x the MoE layers' auxiliary loss;
+    no ported layer has one)."""
+    x = batch["inputs"]
+    b, t = batch["labels"].shape
+    h, _ = backbone(cfg, params, x, _positions(b, t, 0, x.device),
+                    train=True)
+    return chunked_ce(cfg, params, h, batch["labels"], batch.get("mask"))
 
 
 @torch.no_grad()

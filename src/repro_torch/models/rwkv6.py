@@ -1,0 +1,193 @@
+"""RWKV-6 "Finch" mixer: linear attention with data-dependent decay (the
+JAX package's ``models/rwkv6.py``).
+
+Per head (dim K): state S (K, V) evolves as
+
+    S_t = diag(w_t) S_{t-1} + k_t^T v_t
+    o_t = r_t (S_{t-1} + diag(u) k_t^T v_t)          (bonus u on current)
+
+with w_t = exp(-exp(ww + lora_w(x_t))) in (0, 1).  Attention-free: the
+decode state is O(1) per head (``wkv`` (B, H, K, V) f32, and the two token
+shift carries (B, 1, d) f32).
+
+Token shift follows RWKV: each block input is a learned lerp of x_t and
+x_{t-1}; the shift carry is part of the decode state.  The simplifications
+of the reference are kept (static mix vectors, dense gate and receptance
+projections).
+
+Chunked form.  Within a chunk of Q steps, with L_t = sum_{i<=t} log w_i,
+
+    state:        r_t exp(L_{t-1}) S_0
+    intra (j<t):  sum_k r_tk k_jk exp(L_{t-1,k} - L_{j,k})  v_j
+    bonus:        (r_t u k_t) v_t
+    end state:    exp(L_Q) S_0 + sum_j (k_j exp(L_Q - L_j))^T v_j
+
+Every exponent here is <= 0.  The reference forms k_j exp(-L_j) alone,
+which overflows f32 once a chunk's decay passes e^88 (its full config at
+init: ROADMAP C10); the port forms the pairwise decay over a (Q, Q, K)
+tile, masked before the exp, and never overflows.  In exact arithmetic
+the two are the same function, and both equal the token-by-token
+recurrence (the ``T == 1`` branch).
+"""
+from __future__ import annotations
+
+import functools
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models import layers
+from repro_torch.models.layers import ParamSpec, Template
+
+Tensor = torch.Tensor
+
+
+def rwkv6_template(d: int, n_heads: int, head_dim: int,
+                   dtype: torch.dtype, decay_lora: int = 64) -> Template:
+    hd = n_heads * head_dim
+    f32 = torch.float32
+    return {
+        "mix_r": ParamSpec((d,), f32, "ones", 0.5),
+        "mix_k": ParamSpec((d,), f32, "ones", 0.5),
+        "mix_v": ParamSpec((d,), f32, "ones", 0.5),
+        "mix_w": ParamSpec((d,), f32, "ones", 0.5),
+        "mix_g": ParamSpec((d,), f32, "ones", 0.5),
+        "wr": ParamSpec((d, hd), dtype, "fan_in"),
+        "wk": ParamSpec((d, hd), dtype, "fan_in"),
+        "wv": ParamSpec((d, hd), dtype, "fan_in"),
+        "wg": ParamSpec((d, hd), dtype, "fan_in"),
+        "wo": ParamSpec((hd, d), dtype, "fan_in"),
+        # data-dependent decay: w_t = exp(-exp(ww + (x W_a) W_b))
+        "ww": ParamSpec((hd,), f32, "normal", 0.5),
+        "w_lora_a": ParamSpec((d, decay_lora), dtype, "fan_in"),
+        "w_lora_b": ParamSpec((decay_lora, hd), dtype, "fan_in", 0.1),
+        "u_bonus": ParamSpec((n_heads, head_dim), f32, "normal", 0.5),
+        "ln_x_w": ParamSpec((hd,), f32, "ones"),
+    }
+
+
+def channel_mix_template(d: int, ff: int, dtype: torch.dtype) -> Template:
+    return {
+        "mix_k": ParamSpec((d,), torch.float32, "ones", 0.5),
+        "wk": ParamSpec((d, ff), dtype, "fan_in"),
+        "wv": ParamSpec((ff, d), dtype, "fan_in"),
+    }
+
+
+def _token_shift(x: Tensor, carry: Tensor) -> Tuple[Tensor, Tensor]:
+    """x (B, T, d) -> previous-token tensor, new carry (last token, f32)."""
+    prev = torch.cat([carry.to(x.dtype), x[:, :-1]], dim=1)
+    return prev, x[:, -1:].float()
+
+
+def _lerp(x: Tensor, prev: Tensor, mv: Tensor) -> Tensor:
+    return x * mv.to(x.dtype) + prev * (1.0 - mv).to(x.dtype)
+
+
+def _wkv_chunk(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
+               s0: Tensor) -> Tuple[Tensor, Tensor]:
+    """One chunk of the recurrence.  r/k/w (B, H, Q, K); v (B, H, Q, V);
+    u (H, K); s0 (B, H, K, V) f32.  Returns (o (B, H, Q, V), s_end)."""
+    q = r.shape[2]
+    logw = torch.log(torch.clamp(w, min=1e-12))
+    lcum = torch.cumsum(logw, dim=2)                   # L_t (inclusive)
+    lprev = lcum - logw                                # L_{t-1}
+    o_state = (r * torch.exp(lprev)) @ s0
+
+    # pairwise decay exp(L_{t-1} - L_j) for j < t, (B, H, Q_t, Q_j, K)
+    strict = torch.ones((q, q), dtype=torch.bool, device=r.device).tril(-1)
+    expo = (lprev[:, :, :, None, :] - lcum[:, :, None, :, :]).masked_fill(
+        ~strict[:, :, None], float("-inf"))
+    att = torch.sum(r[:, :, :, None, :] * k[:, :, None, :, :]
+                    * torch.exp(expo), dim=-1)         # (B, H, Q_t, Q_j)
+    o_intra = att @ v
+
+    o_bonus = torch.sum(r * u[None, :, None, :] * k, dim=-1,
+                        keepdim=True) * v
+
+    k_end = k * torch.exp(lcum[:, :, -1:] - lcum)      # k_j exp(L_Q - L_j)
+    s_end = (torch.exp(lcum[:, :, -1])[..., None] * s0
+             + k_end.transpose(-1, -2) @ v)
+    return o_state + o_intra + o_bonus, s_end
+
+
+def rwkv6_mixer(p: Dict[str, Tensor], x: Tensor, *, n_heads: int,
+                head_dim: int, dtype: torch.dtype = torch.bfloat16,
+                chunk: int = 128, state: Optional[Tensor] = None,
+                shift_carry: Optional[Tensor] = None
+                ) -> Tuple[Tensor, Tensor, Tensor]:
+    """x (B, T, d).  Returns (out (B, T, d), wkv state (B, H, K, V) f32,
+    shift carry (B, 1, d) f32).  ``T == 1`` steps the recurrence; longer
+    inputs run the chunked form over chunks of ``chunk`` steps."""
+    b, t, d = x.shape
+    h, kd = n_heads, head_dim
+    if state is None:
+        carry = torch.zeros((b, 1, d), dtype=torch.float32, device=x.device)
+        s0 = torch.zeros((b, h, kd, kd), dtype=torch.float32,
+                         device=x.device)
+    else:
+        carry, s0 = shift_carry, state
+
+    prev, new_carry = _token_shift(x, carry)
+    r = layers.linear(_lerp(x, prev, p["mix_r"]), p["wr"], dtype)
+    k = layers.linear(_lerp(x, prev, p["mix_k"]), p["wk"], dtype)
+    v = layers.linear(_lerp(x, prev, p["mix_v"]), p["wv"], dtype)
+    g = layers.linear(_lerp(x, prev, p["mix_g"]), p["wg"], dtype)
+    w_in = layers.linear(_lerp(x, prev, p["mix_w"]), p["w_lora_a"], dtype)
+    w_log = p["ww"] + layers.linear(torch.tanh(w_in.float()).to(dtype),
+                                    p["w_lora_b"], dtype).float()
+    w = torch.exp(-torch.exp(w_log))                   # (B, T, H*K) in (0, 1)
+
+    def heads(z: Tensor) -> Tensor:
+        return z.float().reshape(b, t, h, kd).transpose(1, 2)
+
+    rh, kh, vh, wh = heads(r), heads(k), heads(v), heads(w)
+    u = p["u_bonus"]
+
+    if t == 1:
+        # decode: o = r (S + u k^T v); S' = diag(w) S + k^T v
+        kv = kh[:, :, 0, :, None] * vh[:, :, 0, None, :]     # (B, H, K, V)
+        o = (rh[:, :, 0, None, :] @ (s0 + u[None, :, :, None] * kv))
+        s_end = wh[:, :, 0, :, None] * s0 + kv
+        o = o.reshape(b, 1, h * kd)
+    else:
+        q = min(chunk, t)
+        n_chunks = -(-t // q)
+        pad = n_chunks * q - t
+        if pad:
+            rh, kh, vh = (F.pad(z, (0, 0, 0, pad)) for z in (rh, kh, vh))
+            wh = F.pad(wh, (0, 0, 0, pad), value=1.0)  # decay 1 = inert
+        # under autograd each chunk is recomputed in backward instead of
+        # keeping every chunk's (Q, Q, K) tile (the reference's chunk remat)
+        step = (functools.partial(checkpoint, _wkv_chunk, use_reentrant=False)
+                if torch.is_grad_enabled() else _wkv_chunk)
+        outs = []
+        s_end = s0
+        for c in range(n_chunks):
+            sl = slice(c * q, (c + 1) * q)
+            o_c, s_end = step(rh[:, :, sl], kh[:, :, sl], vh[:, :, sl],
+                              wh[:, :, sl], u, s_end)
+            outs.append(o_c)
+        o = torch.cat(outs, dim=2)[:, :, :t]
+        o = o.transpose(1, 2).reshape(b, t, h * kd)
+
+    # per-head group norm (ln_x) + silu gate
+    of = o.reshape(b, -1, h, kd)
+    mu = torch.mean(of, dim=-1, keepdim=True)
+    var = torch.mean((of - mu) ** 2, dim=-1, keepdim=True)
+    of = (of - mu) * torch.rsqrt(var + 1e-5)
+    o = (of.reshape(b, -1, h * kd) * p["ln_x_w"]).to(dtype)
+    o = o * F.silu(g.float()).to(dtype)
+    return layers.linear(o, p["wo"], dtype), s_end, new_carry
+
+
+def channel_mix(p: Dict[str, Tensor], x: Tensor, carry: Tensor,
+                dtype: torch.dtype) -> Tuple[Tensor, Tensor]:
+    """RWKV FFN: squared relu with token shift.  Returns (out, new carry)."""
+    prev, new_carry = _token_shift(x, carry)
+    hidden = layers.act_fn("relu2",
+                           layers.linear(_lerp(x, prev, p["mix_k"]), p["wk"],
+                                         dtype))
+    return layers.linear(hidden, p["wv"], dtype), new_carry

@@ -8,8 +8,9 @@ format is the reference's byte for byte, so either package restores the
 other's checkpoints with no converter:
 
   * leaf paths are the strings ``jax.tree_util.tree_flatten_with_path``
-    gives: dict keys sorted and written ``['name']``, sequence items
-    ``[i]``, nested levels joined by ``/``;
+    gives: dict keys sorted and written ``['name']``, named-tuple fields
+    ``.name``, other sequence items ``[i]``, nested levels joined by
+    ``/`` (so ``(params, OptState)`` gives ``[1]/.master/['w']``);
   * bf16 leaves (``torch.bfloat16`` tensors, or ``bfloat16`` numpy arrays
     where ``ml_dtypes`` is installed) are written as their raw 2-byte words
     under the dtype name ``"bfloat16"``, and restored as CPU
@@ -27,6 +28,7 @@ save path.  One process writes one shard (``shard_0.npz``).
 """
 from __future__ import annotations
 
+import concurrent.futures
 import hashlib
 import json
 import os
@@ -47,6 +49,9 @@ PyTree = Any
 
 MANIFEST_VERSION = 2        # v2 adds per-leaf checksums; v1 restores fine
 _HOST = 0                   # this process's shard index (one process)
+# threads hashing leaves: a 23 GB LM training checkpoint hashed in one
+# thread took ~40 s of a ~100 s save on the H100's host (8 cores)
+_HASH_THREADS = min(8, os.cpu_count() or 1)
 
 # step dirs currently being restored (abspaths): _gc must not delete them
 _RESTORING: set = set()
@@ -77,11 +82,18 @@ def _note_fallback(ckpt_dir: str, skipped: List[int]) -> None:
 
 
 # ------------------------------------------------------------ tree paths
+def _is_namedtuple(tree: PyTree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
 def _flatten(tree: PyTree, prefix: Tuple[str, ...] = ()):
     """(path keys, leaf) pairs in ``tree_flatten_with_path`` order."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _flatten(tree[k], prefix + (f"[{k!r}]",))
+    elif _is_namedtuple(tree):
+        for name, v in zip(tree._fields, tree):
+            yield from _flatten(v, prefix + (f".{name}",))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from _flatten(v, prefix + (f"[{i}]",))
@@ -96,12 +108,19 @@ def _flatten_with_paths(tree: PyTree):
     return ["/".join(p) for p, _ in flat], [leaf for _, leaf in flat]
 
 
+def tree_leaves(tree: PyTree) -> List[Any]:
+    """The leaves of ``tree`` in the order a checkpoint stores them."""
+    return [leaf for _, leaf in _flatten(tree)]
+
+
 def _unflatten(target: PyTree, leaves: List[Any]) -> PyTree:
     it = iter(leaves)
 
     def rebuild(t):
         if isinstance(t, dict):
             return {k: rebuild(t[k]) for k in sorted(t)}
+        if _is_namedtuple(t):
+            return type(t)(*[rebuild(v) for v in t])
         if isinstance(t, (list, tuple)):
             return type(t)(rebuild(v) for v in t)
         if t is None:
@@ -112,29 +131,31 @@ def _unflatten(target: PyTree, leaves: List[Any]) -> PyTree:
 
 
 # ------------------------------------------------------------ leaf bytes
-def _leaf_bytes(leaf) -> Tuple[bytes, List[int], str]:
-    """(raw bytes, shape, dtype name) of one leaf, as the reference writes
-    them."""
+def _leaf_bytes(leaf) -> Tuple[np.ndarray, List[int], str]:
+    """(raw bytes as a flat uint8 view, shape, dtype name) of one leaf, as
+    the reference writes them; a host leaf is not copied."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
-            return (t.view(torch.int16).numpy().tobytes(), list(t.shape),
-                    "bfloat16")
+            return (t.view(torch.int16).numpy().reshape(-1).view(np.uint8),
+                    list(t.shape), "bfloat16")
         leaf = t.numpy()
     a = np.asarray(leaf)
     # shape before ascontiguousarray, which lifts a 0-d array to 1-d
-    return np.ascontiguousarray(a).tobytes(), list(a.shape), str(a.dtype)
+    return (np.ascontiguousarray(a).reshape(-1).view(np.uint8),
+            list(a.shape), str(a.dtype))
 
 
-def _decode(raw: bytes, dtype: str, shape: Tuple[int, ...]):
-    """Raw bytes -> a numpy array (narrowed as the reference's restore
-    does), or a CPU ``torch.bfloat16`` tensor for a bf16 leaf."""
+def _decode(raw: np.ndarray, dtype: str, shape: Tuple[int, ...]):
+    """A leaf's raw bytes (a uint8 array this module owns) -> a numpy
+    array (narrowed as the reference's restore does), or a CPU
+    ``torch.bfloat16`` tensor for a bf16 leaf; viewed, not copied."""
     if dtype == "bfloat16":
-        bits = np.frombuffer(raw, np.int16).reshape(shape).copy()
-        return torch.from_numpy(bits).view(torch.bfloat16)
+        return torch.from_numpy(raw.view(np.int16).reshape(shape)).view(
+            torch.bfloat16)
     dt = np.dtype(dtype)
-    a = np.frombuffer(raw, dt).reshape(shape)
-    return a.astype(_NARROW[dt]) if dt in _NARROW else a.copy()
+    a = raw.view(dt).reshape(shape)
+    return a.astype(_NARROW[dt]) if dt in _NARROW else a
 
 
 def _itemsize(dtype: str) -> int:
@@ -145,8 +166,18 @@ def _step_name(step: int) -> str:
     return f"step_{step:08d}"
 
 
-def _leaf_digest(raw: bytes) -> str:
+def _leaf_digest(raw) -> str:
     return hashlib.blake2b(raw, digest_size=16).hexdigest()
+
+
+def _digests(raws: List[np.ndarray]) -> List[concurrent.futures.Future]:
+    """The leaves' checksums, hashed on a thread pool (``hashlib`` releases
+    the interpreter lock on large buffers): one future a leaf, so the
+    hashing overlaps the shard's write."""
+    pool = concurrent.futures.ThreadPoolExecutor(_HASH_THREADS)
+    futures = [pool.submit(_leaf_digest, raw) for raw in raws]
+    pool.shutdown(wait=False)
+    return futures
 
 
 def _fsync_path(path: str) -> None:
@@ -186,10 +217,9 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: PyTree,
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=f".tmp_step_{step}_")
     try:
         faults.fire("checkpoint.save.pre_shard", step=step)
-        arrays = {f"leaf_{i}": np.frombuffer(b, np.uint8)
-                  for i, b in enumerate(raw)}
+        digests = _digests(raw)
         shard_path = os.path.join(tmp, f"shard_{_HOST}.npz")
-        np.savez(shard_path, **arrays)
+        np.savez(shard_path, **{f"leaf_{i}": b for i, b in enumerate(raw)})
         _fsync_path(shard_path)
         faults.fire("checkpoint.save.post_shard", step=step)
         manifest = {
@@ -199,7 +229,7 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: PyTree,
             "paths": paths,
             "shapes": [e[1] for e in encoded],
             "dtypes": [e[2] for e in encoded],
-            "checksums": [_leaf_digest(b) for b in raw],
+            "checksums": [f.result() for f in digests],
             "n_processes": 1,
             "extra": extra or {},
         }
@@ -237,7 +267,7 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: PyTree,
     obs.metrics.counter("checkpoint.saves").inc()
     if t_done > t_save:
         obs.metrics.gauge("checkpoint.save_mbps").set(
-            sum(len(b) for b in raw) / (t_done - t_save) / 1e6)
+            sum(b.nbytes for b in raw) / (t_done - t_save) / 1e6)
     return final
 
 
@@ -297,7 +327,7 @@ def _read_leaves(step_dir: str, manifest: Dict[str, Any]) -> List[Any]:
     """Load + verify this process's leaves; raises CheckpointCorruptError."""
     shard = os.path.join(step_dir, f"shard_{_HOST}.npz")
     checksums = manifest.get("checksums")
-    leaves = []
+    raws = []
     try:
         with np.load(shard) as data:
             names = set(data.files)
@@ -307,19 +337,24 @@ def _read_leaves(step_dir: str, manifest: Dict[str, Any]) -> List[Any]:
                     raise CheckpointCorruptError(
                         f"{shard}: missing {key} "
                         f"(has {len(names)}/{manifest['n_leaves']} leaves)")
-                raw = data[key].tobytes()
+                raw = data[key].reshape(-1).view(np.uint8)
                 dt = manifest["dtypes"][i]
                 shape = tuple(manifest["shapes"][i])
                 want = int(np.prod(shape, dtype=np.int64)) * _itemsize(dt)
-                if len(raw) != want:
+                if raw.nbytes != want:
                     raise CheckpointCorruptError(
-                        f"{shard}: leaf_{i} holds {len(raw)} bytes, manifest "
-                        f"says {want} ({shape}, {dt}) — truncated write?")
-                if checksums is not None and _leaf_digest(raw) != checksums[i]:
+                        f"{shard}: leaf_{i} holds {raw.nbytes} bytes, "
+                        f"manifest says {want} ({shape}, {dt}) — truncated "
+                        f"write?")
+                raws.append(raw)
+        if checksums is not None:
+            for i, digest in enumerate(_digests(raws)):
+                if digest.result() != checksums[i]:
                     raise CheckpointCorruptError(
                         f"{shard}: leaf_{i} checksum mismatch — corrupt "
                         f"payload (path {manifest['paths'][i]!r})")
-                leaves.append(_decode(raw, dt, shape))
+        leaves = [_decode(raw, dt, tuple(shape)) for raw, dt, shape in zip(
+            raws, manifest["dtypes"], manifest["shapes"])]
     except (OSError, ValueError, TypeError, zipfile.BadZipFile, zlib.error,
             KeyError) as e:
         # a torn zip (truncated shard), a CRC failure during member

@@ -35,7 +35,11 @@ plain path; for the nearest-center kernel (B6) a center table larger than
 shared memory, tables just under and over the resident limit, C and d off
 every tile, d odd, duplicated centers, one row and one center; for the
 one-shot Gram (B7) and the one-cell predict (B8) one row, SV counts off
-the tile and P = 1.  This file imports no jax.
+the tile and P = 1; the ridge, expectile and quantile solvers on CUDA
+operands with no mask and no warm start; B9 and B10 refusing an operand
+that requires grad; rwkv6's smoke config on the card against its own
+stepped recurrence and the CPU's greedy tokens.  This file imports no
+jax.
 """
 from __future__ import annotations
 
@@ -761,3 +765,85 @@ def test_cell_wrappers_reject_what_the_kernels_do_not_take(cuda):
         km_ops.kernel_matrix(x, x.double(), 1.0)
     with pytest.raises(ValueError):
         sp_ops.svm_predict(x, x, torch.ones(8, 2), 1.0)
+
+
+# ------------------------- repairs: solvers on the card, kernels and grad
+@pytest.mark.gpu
+def test_public_solvers_take_cuda_operands(cuda):
+    """The ridge, expectile and quantile solvers with no mask and no warm
+    start build their constants on the operand's device and agree with
+    the same call on the CPU."""
+    from repro_torch.core.solvers import expectile, least_squares, quantile
+    gen = torch.Generator().manual_seed(9)
+    x = _rand(gen, 60, 3)
+    k = torch.exp(-torch.cdist(x, x) ** 2 / 2.0)
+    y = torch.sin(x[:, 0])
+    taus = torch.tensor([0.2, 0.5, 0.8])
+    lam = torch.full((3,), 1e-2)
+    calls = [
+        lambda k, y, t, l: least_squares.solve_krr_chol(k, y, 1e-2, 60.0),
+        lambda k, y, t, l: expectile.solve_expectile(k, y, t, l, 60.0),
+        lambda k, y, t, l: quantile.solve_quantile(k, y, t, l, 60.0).c,
+    ]
+    for call in calls:
+        want = call(k, y, taus, lam)
+        got = call(*(a.to(cuda) for a in (k, y, taus, lam)))
+        assert got.device.type == "cuda"
+        assert float((got.cpu() - want).abs().max()) <= 5e-3 * max(
+            1.0, float(want.abs().max()))
+
+
+@pytest.mark.gpu
+def test_attention_kernels_refuse_operands_that_require_grad(cuda):
+    """B9 and B10 have no backward: with grad enabled an operand that
+    requires grad raises before any launch; the same call under no_grad
+    launches."""
+    q = torch.randn(1, 40, 2, 64, device=cuda, dtype=torch.bfloat16)
+    qg = q.clone().requires_grad_(True)
+    n0 = (fa_ops.launches["flash_attention"],
+          dec_ops.launches["decode_attention"])
+    with pytest.raises(ValueError, match="requires grad"):
+        fa_ops.flash_attention(qg, q, q)
+    c = torch.randn(1, 40, 2, 64, device=cuda, dtype=torch.bfloat16)
+    qd = torch.randn(1, 2, 1, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="requires grad"):
+        dec_ops.decode_attention_fused(qd, c.requires_grad_(True), c, 39,
+                                       0.125)
+    assert (fa_ops.launches["flash_attention"],
+            dec_ops.launches["decode_attention"]) == n0
+    with torch.no_grad():
+        fa_ops.flash_attention(qg, q, q)
+    assert fa_ops.launches["flash_attention"] == n0[0] + 1
+
+
+@pytest.mark.gpu
+def test_rwkv6_generate_on_the_card_equals_the_cpu(cuda):
+    """rwkv6's smoke config in f32: the card's prefill equals its own
+    stepped recurrence and the CPU's, and greedy tokens are the CPU's;
+    no attention kernel runs."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.layers import tree_map
+    from repro_torch.serve import engine
+    cfg = dataclasses.replace(get_arch("rwkv6-1.6b").smoke,
+                              dtype=torch.float32, rwkv_chunk=16)
+    params = model_mod.init_params(cfg, torch.Generator().manual_seed(0))
+    prompt = torch.randint(0, cfg.vocab, (2, 40),
+                           generator=torch.Generator().manual_seed(1))
+    n0 = (fa_ops.launches["flash_attention"],
+          dec_ops.launches["decode_attention"])
+    pc = tree_map(lambda t: t.to(cuda), params)
+    got = engine.generate(cfg, pc, prompt.to(cuda), 8)
+    want = engine.generate(cfg, params, prompt, 8)
+    assert torch.equal(got.cpu(), want)
+    logits, _ = model_mod.prefill(cfg, pc, prompt.to(cuda))
+    cache = model_mod.init_cache(cfg, 2, 1, device=cuda)
+    for i in range(40):
+        step, cache = model_mod.decode_step(cfg, pc,
+                                            prompt[:, i:i + 1].to(cuda),
+                                            cache, i)
+    assert float((logits - step).abs().max()) <= 1e-5 * float(
+        step.abs().max())
+    assert (fa_ops.launches["flash_attention"],
+            dec_ops.launches["decode_attention"]) == n0

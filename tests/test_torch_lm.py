@@ -274,8 +274,6 @@ def test_unported_archs_raise_and_name_what_is_missing():
         t_get_arch("qwen3-moe-235b-a22b")
     with pytest.raises(NotImplementedError, match="mamba"):
         t_get_arch("jamba-v0.1-52b")
-    with pytest.raises(NotImplementedError, match="rwkv6"):
-        t_get_arch("rwkv6-1.6b")
 
 
 # ---------------------------------------------------------------- backbone

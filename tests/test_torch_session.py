@@ -43,6 +43,20 @@ from repro_torch.train.svm_trainer import SVMTrainerConfig  # noqa: E402
 
 CPU = "cpu"
 EPS = float(np.finfo(np.float32).eps)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """Small shapes: one intra-op thread runs them as fast as eight on an
+    idle machine, and many times faster when test workers share the cores
+    (``test_torch_train.py``).  The ridge path runs here too since its
+    fold-masked eigh is well posed at one thread (ROADMAP C9)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 WEIGHTED = dict(scenario="weighted", weights=(0.5, 1.0, 2.0), n_folds=2,
                 max_iters=150, adaptivity_control=1)
 

@@ -380,6 +380,39 @@ class TestSolvers:
         assert float((chol - got[:, 2]).abs().max()) <= 1e-3 * max(
             1.0, float(got.abs().max()))
 
+    def test_ls_fold_masked_eigh_at_one_thread(self):
+        """ROADMAP C9: f32 eigh of the fold-masked Gram M K M, with half
+        its rows exactly zero, failed to converge on MKL at one intra-op
+        thread (450 points in d 4, gamma 5; this module runs at one
+        thread).  The solver decomposes M K M + I - M instead: batched
+        over folds as ``cv`` calls it, masked coordinates keep c within
+        the f32 noise of 0 (1e-4 of the largest |c|: measured 2.4e-5 here,
+        the reference's own eigh of M K M 0.5e-5 to 1.0e-5 on such
+        problems), and the trained coordinates equal the f64 solve of the
+        trained block alone within 1e-3 of its largest |c| (measured
+        7.4e-5; the reference 6e-5 to 1.5e-4)."""
+        rng = np.random.default_rng(21)
+        x = rng.normal(size=(450, 4))
+        k = np.exp(-((x[:, None] - x[None]) ** 2).sum(-1) / 25.0)
+        masks = np.stack([rng.random(450) < 0.5 for _ in range(2)])
+        y = np.sin(x[:, 0]) * masks
+        lam_n = np.asarray([[1e-3, 1e-1]] * 2) * masks.sum(1)[:, None]
+        c = t_ls.krr_eigh_path(
+            _t(k.astype(np.float32))[None], _t(y[..., None].repeat(2, -1)
+                                               .astype(np.float32)),
+            _t(lam_n.astype(np.float32)), _t(masks.astype(np.float32)))
+        assert torch.isfinite(c).all()
+        for f in range(2):
+            tr = masks[f]
+            assert float(c[f][~tr].abs().max()) <= 1e-4 * float(
+                c[f].abs().max())
+            kt = k[np.ix_(tr, tr)]
+            for j in range(2):
+                want = np.linalg.solve(kt + lam_n[f, j] * np.eye(tr.sum()),
+                                       y[f][tr])
+                err = np.abs(c[f][tr, j].numpy() - want).max()
+                assert err <= 1e-3 * np.abs(want).max(), (f, j, err)
+
     def test_expectile_irls(self):
         rng = np.random.default_rng(12)
         x, k = _gram(rng, 60)
@@ -794,3 +827,40 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
         t_ct.predict_cells(None, None, None, None, mesh=object())
     assert t_select.get_rule("npl") is t_select.rule_npl
+
+
+def test_checkpoint_of_named_tuples_matches_the_reference(tmp_path):
+    """``(params, OptState)``: the port writes a named tuple's fields as
+    ``.name`` (``tree_flatten_with_path``'s paths), rebuilds the named
+    tuple on restore, and either package loads the other's checkpoint
+    bitwise (bf16 and 0-d int32 leaves included)."""
+    from repro.train import checkpoint as j_ckpt
+    from repro.train import optimizer as j_opt
+    from repro_torch.train import checkpoint as t_ckpt
+    from repro_torch.train import optimizer as t_opt
+    rng = np.random.default_rng(5)
+    a = rng.normal(size=(3, 4)).astype(np.float32)
+    n = rng.normal(size=(4,)).astype(np.float32)
+    jp = {"a": jnp.asarray(a, jnp.bfloat16), "n": jnp.asarray(n)}
+    tp = {"a": _t(a).bfloat16(), "n": _t(n)}
+    jo = j_opt.init_opt_state(jp, j_opt.OptConfig())._replace(
+        step=jnp.int32(7))
+    to = t_opt.init_opt_state(tp, t_opt.OptConfig())._replace(
+        step=torch.tensor(7, dtype=torch.int32))
+    j_ckpt.save_checkpoint(str(tmp_path / "j"), 7, (jp, jo))
+    t_ckpt.save_checkpoint(str(tmp_path / "t"), 7, (tp, to))
+    jm = j_ckpt.peek_manifest(str(tmp_path / "j"))
+    tm = t_ckpt.peek_manifest(str(tmp_path / "t"))
+    assert tm["paths"] == jm["paths"]
+    assert "[1]/.master/['a']" in tm["paths"] and "[1]/.step" in tm["paths"]
+    assert (tm["dtypes"], tm["checksums"]) == (jm["dtypes"], jm["checksums"])
+    for src in ("j", "t"):
+        (rp, ro), step, _ = t_ckpt.restore_checkpoint(str(tmp_path / src),
+                                                      (tp, to))
+        assert isinstance(ro, t_opt.OptState) and step == 7
+        assert int(ro.step) == 7 and torch.equal(rp["a"], tp["a"])
+        assert torch.equal(torch.as_tensor(ro.master["a"]), to.master["a"])
+        (rp, ro), _, _ = j_ckpt.restore_checkpoint(str(tmp_path / src),
+                                                   (jp, jo))
+        assert isinstance(ro, j_opt.OptState) and int(ro.step) == 7
+        np.testing.assert_array_equal(np.asarray(ro.master["n"]), n)
