@@ -83,7 +83,15 @@ kernels from ``src/repro_torch/csrc/`` into ``build/kernels/`` and then:
      tokens (no kernel launched), the decode state's bytes at every
      budget, in f32 the state after a prefill against stepping the tokens
      one by one, the bf16 logits against the f32 path, extractor rows
-     under two chunk sizes; LM training: one train step of every ported
+     under two chunk sizes; the MoE and mamba mixers at full width with
+     the depth cut to whole periods: jamba-v0.1-52b (8 layers),
+     qwen3-moe-235b-a22b and llama4-maverick-400b-a17b (2 layers each),
+     a prefill of 2 x 2048 tokens, the prefill's and first step's logits
+     against the plain attention path with the routing replayed (every
+     routing flip a near-tie), generation with bf16 and int8 caches
+     through B10 at G 16 and G 5, jamba's state bytes, mamba stepped vs
+     prefilled in f32 and extractor rows bitwise; their smoke configs
+     card vs CPU; LM training: one train step of every ported
      architecture's smoke config on the card against the CPU, then
      stablelm-1.6b at full width under ``Trainer`` (fp32 policy, 4 steps
      of 8 x 1024 tokens in 2 micro-batches), killed before step 3 and
@@ -285,6 +293,33 @@ RWKV_EX_N, RWKV_EX_T = 5, 512
 # its step-TRAIN_EVERY checkpoint under TRAIN_DIR (removed at the start and
 # the end): the final state bitwise equal, under
 # torch.use_deterministic_algorithms(True)
+# the MoE and mamba mixers at their published widths, seed-initialised in
+# bf16, with the depth cut to whole periods so that one card holds them
+# (the published depths are 52-400 B parameters): jamba-v0.1-52b
+# (hf:ai21labs/Jamba-v0.1: d_model 4096, 32 heads of 128, 8 kv heads, one
+# attention and seven mamba layers a period of 8, 16 experts of 14336
+# top-2 on every second layer) at one period, 13.3 B parameters;
+# qwen3-moe-235b-a22b (hf:Qwen/Qwen3-235B-A22B: d_model 4096, 64 heads of
+# 128, 4 kv heads: G 16, qk-norm, 128 experts of 1536 top-8) at 2 of its
+# 94 layers, 6.2 B; llama4-maverick-400b-a17b
+# (hf:meta-llama/Llama-4-Maverick-17B-128E: d_model 5120, 40 heads of
+# 128, 8 kv heads: G 5, a dense layer and a MoE layer of 128 experts of
+# 8192 top-1 with a shared expert) at one period of 2, 18.5 B.  Each: a
+# prefill of MOE_B x MOE_T tokens, then (arch, layers, new tokens)
+# generated with bf16 and int8 caches.  Routing flips between the kernel
+# and the plain attention path must be near-ties within MOE_FLIP_SLACK of
+# the logits' f32 rounding (``routing_flips``); jamba's mamba layer in
+# f32 stepped against its prefill within MAMBA_STATE_TOL (RWKV_STATE_TOL's
+# reasoning), also at chunk MAMBA_ALT_CHUNK; extractor rows over
+# MOE_EX_N x MOE_EX_T tokens in blocks of MOE_EX_B (a ragged tail) read
+# in chunks of MOE_EX_CHUNKS
+MOE_JAMBA = "jamba-v0.1-52b"
+MOE_MODELS = ((MOE_JAMBA, 8, 32), ("qwen3-moe-235b-a22b", 2, 16),
+              ("llama4-maverick-400b-a17b", 2, 16))
+MOE_B, MOE_T, MOE_NEW_JAMBA = 2, 2048, 32
+MOE_FLIP_SLACK = 1e-5
+MAMBA_STATE_T, MAMBA_STATE_TOL, MAMBA_ALT_CHUNK = 64, 1e-4, 16
+MOE_EX_N, MOE_EX_T, MOE_EX_B, MOE_EX_CHUNKS = 4, 512, 3, (2, 3)
 TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM = "stablelm-1.6b", 1024, 8, 2
 TRAIN_STEPS, TRAIN_EVERY, TRAIN_FAIL_AT = 4, 2, 3
 TRAIN_DIR = ROOT / "build" / "chip_smoke_lm_train"
@@ -1636,7 +1671,9 @@ def lm_families_kernels(torch, dev):
     command-r's smoke config, bf16 on the CUDA-core kernel; 80: hubert; 160:
     stablelm-12b) against their plain versions on the card: every mask
     kind, ragged T and S, GQA groups 1, 2 and 4, bf16 and f32; B10 with
-    bf16 and int8 caches over partial and wrapped rings.  (The families'
+    bf16 and int8 caches over partial and wrapped rings, and at groups 5,
+    16 (the MoE configs') and 12 (command-r-plus) at full-width decode
+    shapes.  (The families'
     own launches are replayed at their shapes by ``lm_families``.)"""
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.decode_attention import ref as dec_ref
@@ -1680,7 +1717,16 @@ def lm_families_kernels(torch, dev):
             (2, 1024, 16, 1, 80, True, 1500, 0),
             (3, 100, 2, 4, 8, False, 99, 0),
             (3, 100, 2, 4, 8, True, 250, 0),
-            (1, 5000, 2, 2, 8, True, 4999, 0)):
+            (1, 5000, 2, 2, 8, True, 4999, 0),
+            # llama4-maverick's (G 5) and qwen3-moe's (G 16: two slices
+            # of 8) full-width decode steps
+            (2, 2064, 8, 5, 128, False, 2047, 0),
+            (2, 2064, 8, 5, 128, True, 2062, 0),
+            (2, 2064, 4, 16, 128, False, 2047, 0),
+            (2, 2064, 4, 16, 128, True, 2062, 0),
+            # command-r-plus's group at full width (G 12: three slices of
+            # 4), run only at its smoke config on the card
+            (2, 2064, 8, 12, 128, False, 2047, 0)):
         q = torch.randn(b, hk, g, d, generator=gen).to(dev, bf16)
         k = torch.randn(b, s, hk, d, generator=gen)
         v = torch.randn(b, s, hk, d, generator=gen)
@@ -1706,8 +1752,9 @@ def lm_families_kernels(torch, dev):
                                                                     again)))
         if not torch.equal(got, again):
             raise Mismatch(f"{label}: two launches differ")
-        errs[f"decode_attention,D={d}"] = max(
-            errs.get(f"decode_attention,D={d}", 0.0), e)
+        key = f"decode_attention,D={d}" + (f",G={g}" if g in (5, 12, 16)
+                                            else "")
+        errs[key] = max(errs.get(key, 0.0), e)
 
     emit({"phase": "lm_families_kernels", "max_abs_err": errs, "ok": True})
     return errs
@@ -2234,6 +2281,386 @@ def lm_rwkv6(torch, dev, tables):
     del ex, params, prompt, out
     torch.cuda.empty_cache()
     return paths
+
+
+@contextlib.contextmanager
+def moe_routing(log: list, forced: list = None):
+    """Inside, every MoE chunk (``moe._chunk_moe``) appends its router
+    input, its router and the experts its own logits choose
+    (``moe._route``) to ``log``.  With ``forced`` (an earlier run's log on
+    the same chunks in the same order) each chunk routes to the experts
+    of that run instead, the gates from its own logits: the same routing,
+    so what remains between the two runs is the path that made the
+    router inputs."""
+    from repro_torch.models import moe as moe_mod
+    inner_chunk, inner_route = moe_mod._chunk_moe, moe_mod._route
+
+    def chunk(p, xc, **kw):
+        log.append({"x": xc.detach().clone(), "router": p["router"]})
+        return inner_chunk(p, xc, **kw)
+
+    def route(logits, top_k):
+        gate, idx = inner_route(logits, top_k)
+        log[-1]["idx"] = idx
+        if forced is None:
+            return gate, idx
+        idx = forced[len(log) - 1]["idx"]
+        import torch
+        return torch.softmax(torch.gather(logits, 1, idx), dim=-1), idx
+    moe_mod._chunk_moe, moe_mod._route = chunk, route
+    try:
+        yield log
+    finally:
+        moe_mod._chunk_moe, moe_mod._route = inner_chunk, inner_route
+
+
+def routing_flips(torch, label: str, kern: list, plain: list, top_k: int,
+                  groups: list) -> dict:
+    """The experts the plain path's own logits chose against the kernel
+    path's, chunk by chunk (``moe_routing`` logs of the two runs).  A
+    token whose set differs is a flip; each flip must be a near-tie: the
+    plain logits' margin between the k-th and (k+1)-th expert within
+    2 |x_kernel - x_plain| max_e |router_e| (how far the router input's
+    difference can move two logits apart) plus the f32 rounding of the
+    logits, MOE_FLIP_SLACK |x| max_e |router_e|.  ``groups``: (name,
+    chunks) of the runs' MoE layers in call order.  Returns the flips of
+    each group and the largest margin / bound ratio among them."""
+    if len(kern) != len(plain) or len(kern) != sum(n for _, n in groups):
+        raise Mismatch(f"{label}: {len(kern)} and {len(plain)} MoE chunks "
+                       f"logged, expected {sum(n for _, n in groups)}")
+    out, worst, i = {}, 0.0, 0
+    for name, n in groups:
+        flips = 0
+        for _ in range(n):
+            a, b = kern[i], plain[i]
+            i += 1
+            ka = torch.sort(a["idx"], dim=1).values
+            kb = torch.sort(b["idx"], dim=1).values
+            rows = torch.nonzero((ka != kb).any(1)).flatten()
+            if rows.numel() == 0:
+                continue
+            flips += int(rows.numel())
+            r = b["router"].float()
+            rmax = float(torch.linalg.vector_norm(r, dim=0).max())
+            xb = b["x"][rows].float()
+            lg = torch.sort(xb @ r, dim=1, descending=True).values
+            margin = lg[:, top_k - 1] - lg[:, top_k]
+            dx = torch.linalg.vector_norm(a["x"][rows].float() - xb, dim=1)
+            bnd = (2 * dx + MOE_FLIP_SLACK
+                   * torch.linalg.vector_norm(xb, dim=1)) * rmax
+            ratio = float((margin / bnd).max())
+            worst = max(worst, ratio)
+            if ratio > 1.0:
+                raise Mismatch(f"{label} {name}: a routing flip at margin "
+                               f"{float(margin.max())} beyond its near-tie "
+                               f"bound")
+        out[name] = flips
+    return {"flips": out, "worst_margin_over_bound": worst}
+
+
+def lm_moe_ssm(torch, dev, tables):
+    """The MoE and mamba mixers on the card.  jamba-v0.1-52b (one period:
+    8 layers), qwen3-moe-235b-a22b and llama4-maverick-400b-a17b (2 layers
+    each) at full width in bf16, seed-initialised, one after the other:
+    a prefill of MOE_B x MOE_T tokens, timed; the prefill and first
+    decode step against the plain attention path on the same weights with
+    the kernel path's routing replayed (``moe_routing``), every routing
+    flip of the plain path's own choice a near-tie (``routing_flips``);
+    greedy generation with bf16 and int8 caches (qwen3 through B10 at
+    G 16, two slices of 8; llama4 at G 5).  jamba also: the decode
+    state's bytes at two budgets (seven O(1) mamba states and one layer's
+    kv), one mamba layer in f32 stepped against its prefill, extractor
+    rows bitwise under two chunk sizes and a ragged tail block.  The three
+    smoke configs in f32, card against CPU, and their gather dispatch
+    under deterministic algorithms (two train steps bitwise, equal to the
+    einsum dispatch within the smoke tolerance).  Every run's launches are
+    exact; the first B9 and B10 launch of each model is replayed against
+    its plain version (``attn_replay``).  Returns the runs' launch counts,
+    the replays' errors and their timing cases."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.embed import EmbeddingExtractor, EmbeddingSource
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.layers import tree_items, tree_map
+    from repro_torch.serve import engine
+    from repro_torch.serve.kv_cache import cache_bytes, pad_cache
+    from repro_torch.train.lm_trainer import value_and_grad
+    paths, out, errs, cases = {}, {}, {}, []
+    mods = {"flash_attention": fa_ops, "decode_attention": dec_ops}
+    t_phase = time.perf_counter()
+
+    def counted(label, fn, expect, record=()):
+        zero_counts(tables)
+        rec = {name: [] for name, _ in record}
+        with contextlib.ExitStack() as st:
+            for name in rec:
+                st.enter_context(recorded(mods[name], ATTN_WRAPPERS[name],
+                                          rec[name], keep=1, device=dev))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        paths[label] = read_counts(tables)
+        require_launches(label, paths[label], expect)
+        family = label.split(" ")[0]
+        for name, what in record:
+            e, case = attn_replay(torch, family, what, name, rec[name][0])
+            errs[case[0]] = e
+            cases.append(case)
+        return res, secs
+
+    for arch, n_layers, new in MOE_MODELS:
+        cfg = dataclasses.replace(get_arch(arch).config, n_layers=n_layers)
+        plain = dataclasses.replace(cfg, attn_impl="ref")
+        name = cfg.name
+        kinds = [cfg.period_pattern[i % cfg.period] for i in range(n_layers)]
+        n_attn = sum(m == "attn" for m, _ in kinds)
+        n_moe = sum(f == "moe" for _, f in kinds)
+        g = cfg.n_heads // cfg.n_kv_heads
+        per_step = n_attn
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = model_mod.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        prompt = torch.as_tensor(np.random.default_rng(SEED).integers(
+            0, cfg.vocab, (MOE_B, MOE_T)).astype(np.int32)).to(dev)
+        engine.prefill_step(cfg, params, prompt)            # warm the shapes
+        (_, cache), prefill_s = counted(
+            f"{name} prefill", lambda: engine.prefill_step(cfg, params,
+                                                           prompt),
+            {"flash_attention": n_attn}, [("flash_attention", "prefill")])
+        budgets = (MOE_T + MOE_NEW_JAMBA, 524_288)
+        state = {b: cache_bytes(cfg, MOE_B, b) for b in budgets}
+        padded = pad_cache(cfg, cache, budgets[0])
+        got_bytes = sum(leaf.numel() * leaf.element_size()
+                        for _, leaf in tree_items(padded))
+        del cache, padded
+        if got_bytes != state[budgets[0]]:
+            raise Mismatch(f"{name}: the padded cache holds {got_bytes} "
+                           f"bytes, cache_bytes says {state[budgets[0]]}")
+
+        # the prefill and first decode step, kernel path vs plain path
+        # with the kernel path's routing
+        def prefill_step1(c):
+            logits, cache = engine.prefill_step(c, params, prompt)
+            cache = pad_cache(c, cache, MOE_T + 1)
+            first = logits.argmax(-1)[:, None].to(torch.int32)
+            step1, _ = engine.serve_step(c, params, first, cache, MOE_T)
+            return logits.cpu(), step1.cpu()
+        log_k, log_p = [], []
+        with moe_routing(log_k):
+            (lg_k, st_k), _ = counted(
+                f"{name} prefill + one step", lambda: prefill_step1(cfg),
+                {"flash_attention": n_attn, "decode_attention": per_step},
+                [("decode_attention", "step")])
+        with moe_routing(log_p, forced=log_k):
+            lg_p, st_p = prefill_step1(plain)
+        n_chunks = -(-MOE_B * MOE_T // cfg.moe_chunk)
+        groups = ([(f"prefill moe layer {j}", n_chunks)
+                   for j in range(n_moe)]
+                  + [(f"step moe layer {j}", 1) for j in range(n_moe)])
+        flips = routing_flips(torch, name, log_k, log_p, cfg.top_k, groups)
+        del log_k, log_p
+        shares = {
+            "prefill logits": _tol_share(
+                f"{name} prefill logits vs plain (routing replayed)", lg_k,
+                lg_p, LM_LOGIT_TOL),
+            "first decode step": _tol_share(
+                f"{name} first decode-step logits vs plain (routing "
+                f"replayed)", st_k, st_p, LM_LOGIT_TOL)}
+        del lg_k, st_k, lg_p, st_p
+        gen_runs = {}
+        for kv in ("bf16", "int8"):
+            c = dataclasses.replace(cfg, kv_cache_dtype=kv)
+            _, pre_s = counted(f"{name} prefill[{kv}]",
+                               lambda c=c: engine.prefill_step(c, params,
+                                                               prompt),
+                               {"flash_attention": n_attn})
+            toks, gen_s = counted(
+                f"{name} generate[{kv}]",
+                lambda c=c: engine.generate(c, params, prompt, new),
+                {"flash_attention": n_attn,
+                 "decode_attention": per_step * (new - 1)},
+                [("decode_attention", "generate")] if kv == "int8" else ())
+            if (toks.shape != (MOE_B, MOE_T + new)
+                    or not torch.equal(toks[:, :MOE_T].cpu(), prompt.cpu())
+                    or int(toks.min()) < 0 or int(toks.max()) >= c.vocab):
+                raise Mismatch(f"{name} generate[{kv}]: bad tokens")
+            gen_runs[kv] = {"seconds": gen_s, "prefill_s": pre_s,
+                            "decode_ms_per_step":
+                                (gen_s - pre_s) * 1e3 / (new - 1)}
+        rec = {"layers": n_layers, "published_layers":
+                   get_arch(arch).config.n_layers,
+               "d_model": cfg.d_model, "heads": cfg.n_heads,
+               "kv_heads": cfg.n_kv_heads, "group": g,
+               "b10_group_slices": dec_ops.group_slices(g)[1],
+               "experts": cfg.n_experts, "top_k": cfg.top_k,
+               "moe_d_ff": cfg.moe_d_ff, "moe_layers": n_moe,
+               "shared_expert": "shared" in params["stack"][
+                   f"pos{cfg.period - 1}"]["mlp"],
+               "params": cfg.param_count(), "dtype": str(cfg.dtype),
+               "batch": MOE_B, "prompt": MOE_T, "new_tokens": new,
+               "init_s": init_s, "prefill_s": prefill_s,
+               "prefill_tokens_per_s": MOE_B * MOE_T / prefill_s,
+               "generate": gen_runs, "routing": flips,
+               "state_bytes_by_budget": {str(b): v
+                                         for b, v in state.items()},
+               "tolerance_share_used": shares}
+
+        if arch == MOE_JAMBA:
+            # one mamba layer in f32: a prefill's end state against the
+            # same tokens stepped one by one
+            pm = {k: v[0].float() for k, v in
+                  params["stack"]["pos1"]["mixer"].items()}
+            kw = dict(d_inner=cfg.d_inner, d_state=cfg.ssm_d_state,
+                      d_conv=cfg.ssm_d_conv, dt_rank=cfg.dt_rank,
+                      dtype=torch.float32)
+            x = torch.randn(MOE_B, MAMBA_STATE_T, cfg.d_model,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(SEED), device=dev)
+
+            def stepped():
+                st = ssm_mod.SSMState(
+                    torch.zeros(MOE_B, cfg.ssm_d_conv - 1, cfg.d_inner,
+                                device=dev),
+                    torch.zeros(MOE_B, cfg.d_inner, cfg.ssm_d_state,
+                                device=dev))
+                ys = []
+                for i in range(MAMBA_STATE_T):
+                    y, st = ssm_mod.mamba_mixer(pm, x[:, i:i + 1], state=st,
+                                                chunk=cfg.ssm_chunk, **kw)
+                    ys.append(y)
+                return torch.cat(ys, 1), st
+            with torch.no_grad():
+                (y_pre, s_pre), _ = counted(
+                    f"{name} mamba f32 prefill",
+                    lambda: ssm_mod.mamba_mixer(pm, x, chunk=cfg.ssm_chunk,
+                                                **kw), {})
+                (y_alt, s_alt), _ = counted(
+                    f"{name} mamba f32 prefill, chunk {MAMBA_ALT_CHUNK}",
+                    lambda: ssm_mod.mamba_mixer(pm, x, chunk=MAMBA_ALT_CHUNK,
+                                                **kw), {})
+                (y_st, s_st), _ = counted(f"{name} mamba f32 stepped",
+                                          stepped, {})
+            for what, a, b in (("state ssm", s_pre.ssm, s_st.ssm),
+                               ("state conv", s_pre.conv, s_st.conv),
+                               ("outputs", y_pre, y_st),
+                               (f"state ssm, chunk {MAMBA_ALT_CHUNK}",
+                                s_alt.ssm, s_st.ssm)):
+                shares[f"mamba f32 {what}"] = _tol_share(
+                    f"{name} mamba f32 {what}: prefill vs stepped",
+                    a.cpu(), b.cpu(), MAMBA_STATE_TOL)
+            del pm, x, y_pre, s_pre, y_alt, s_alt, y_st, s_st
+            # extractor rows: MoE capacity couples a block's rows; blocks
+            # aligned to absolute offsets keep each row's bits
+            ex = EmbeddingExtractor(cfg, params, batch_size=MOE_EX_B,
+                                    device=dev)
+            seqs = np.random.default_rng(SEED + 1).integers(
+                0, cfg.vocab, (MOE_EX_N, MOE_EX_T)).astype(np.int32)
+            n_blocks = -(-MOE_EX_N // MOE_EX_B)
+            rows, ex_s = counted(
+                f"{name} embed", lambda: np.concatenate(
+                    [c for _, c in EmbeddingSource(seqs, ex).iter_chunks(
+                        MOE_EX_CHUNKS[0])]),
+                {"flash_attention": n_attn * n_blocks})
+            rows_b = np.concatenate(
+                [c for _, c in EmbeddingSource(seqs, ex).iter_chunks(
+                    MOE_EX_CHUNKS[1])])
+            ids = np.arange(MOE_EX_N)[::-1].copy()
+            rows_g = EmbeddingSource(seqs, ex).gather(ids)
+            invariant = bool(np.isfinite(rows).all()
+                             and np.array_equal(rows, rows_b)
+                             and np.array_equal(rows_g, rows[ids]))
+            rec.update({"embed_s": ex_s, "embed_rows": MOE_EX_N,
+                        "embed_seq_len": MOE_EX_T, "embed_block": MOE_EX_B,
+                        "rows_bitwise_invariant": invariant,
+                        "mamba_state_bytes_per_layer": 4 * MOE_B * (
+                            cfg.ssm_d_conv - 1 + cfg.ssm_d_state)
+                            * cfg.d_inner})
+            if not invariant:
+                raise Mismatch(f"{name} embed: rows differ between chunk "
+                               f"sizes, blocks or gathers")
+            del ex
+        rec["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        out[arch] = rec
+        del params, prompt
+        torch.cuda.empty_cache()
+
+    # the smoke configs in f32, card against CPU
+    cpu = torch.device("cpu")
+    smoke = {}
+    for arch, _, _ in MOE_MODELS:
+        cfg = dataclasses.replace(get_arch(arch).smoke, dtype=torch.float32)
+        kinds = [cfg.period_pattern[i % cfg.period]
+                 for i in range(cfg.n_layers)]
+        n_attn = sum(m == "attn" for m, _ in kinds)
+        per_step = n_attn
+        p_cpu = model_mod.init_params(cfg,
+                                      torch.Generator().manual_seed(SEED))
+        p_dev = tree_map(lambda a: a.to(dev), p_cpu)
+        xs = np.random.default_rng(SEED).integers(
+            0, cfg.vocab, (4, 24 + 3)).astype(np.int64)
+
+        def run(p, d_):
+            x = torch.as_tensor(xs).to(d_)
+            logits, cache = engine.prefill_step(cfg, p, x[:, :24])
+            cache = pad_cache(cfg, cache, 27)
+            steps = [logits]
+            for j in range(3):
+                lj, cache = engine.serve_step(cfg, p, x[:, 24 + j:25 + j],
+                                              cache, 24 + j)
+                steps.append(lj)
+            return [s_.cpu() for s_ in steps]
+        got, _ = counted(f"{cfg.name} prefill + 3 steps",
+                         lambda: run(p_dev, dev),
+                         {"flash_attention": n_attn,
+                          "decode_attention": 3 * per_step})
+        want = run(p_cpu, cpu)
+        smoke[arch] = {f"step {j}": _tol_share(
+            f"{cfg.name} logits[{j}] card vs CPU", a.numpy(), b.numpy(),
+            FAM_SMOKE_TOL) for j, (a, b) in enumerate(zip(got, want))}
+        # the gather dispatch on the card under deterministic algorithms
+        # (lm_train's mode): no float atomic sum, so it does not raise,
+        # and two train steps give the same bits; its loss and gradients
+        # equal the einsum dispatch's within the smoke tolerance
+        cg = dataclasses.replace(cfg, moe_impl="gather")
+        batch = {"inputs": torch.as_tensor(xs[:, :24]).to(dev),
+                 "labels": torch.as_tensor(xs[:, 1:25]).to(dev)}
+        torch.use_deterministic_algorithms(True)
+        try:
+            runs = [value_and_grad(cg, p_dev, batch) for _ in range(2)]
+        finally:
+            torch.use_deterministic_algorithms(False)
+        same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            tree_items(runs[0][1]), tree_items(runs[1][1]))) and bool(
+            torch.equal(runs[0][0], runs[1][0]))
+        l_e, g_e = value_and_grad(cfg, p_dev, batch)
+        rel = abs(float(runs[0][0]) - float(l_e)) / abs(float(l_e))
+        check(f"{cfg.name} gather loss vs einsum (card)", rel, 1e-6,
+              deterministic_bitwise=same)
+        if not same:
+            raise Mismatch(f"{cfg.name}: two gather-dispatch train steps "
+                           f"under deterministic algorithms differ")
+        want_g = dict(tree_items(g_e))
+        share = max(float((g - want_g[path]).abs().max())
+                    / (FAM_SMOKE_TOL * max(float(want_g[path].abs().max()),
+                                           1e-30))
+                    for path, g in tree_items(runs[0][1]))
+        check(f"{cfg.name} gather grads vs einsum (card), share of "
+              f"{FAM_SMOKE_TOL} of each leaf's largest |value|", share, 1.0)
+        smoke[arch]["gather grads vs einsum"] = share
+        del runs, g_e
+    emit({"phase": "lm_moe_ssm", **out, "smoke_card_vs_cpu": smoke,
+          "replayed_max_abs_err": errs,
+          "seconds": time.perf_counter() - t_phase, "ok": True})
+    return paths, errs, cases
 
 
 def lm_train(torch, dev, tables):
@@ -3668,12 +4095,14 @@ def main() -> int:
     lm_families_kernels(torch, dev)
     fam_paths, fam_errs, fam_cases = lm_families(torch, dev, tables)
     rwkv_paths = lm_rwkv6(torch, dev, tables)
+    moe_paths, moe_errs, moe_cases = lm_moe_ssm(torch, dev, tables)
     train_lm_paths = lm_train(torch, dev, tables)
     lm_paths = {"embed": embed_counts, "svm_fit": fit_counts_lm,
                 "embed_serve": serve_counts_lm, "generate": gen_counts,
                 "gemma_long": gemma_counts,
                 **{f"families[{k}]": v for k, v in fam_paths.items()},
                 **{f"rwkv6[{k}]": v for k, v in rwkv_paths.items()},
+                **{f"moe_ssm[{k}]": v for k, v in moe_paths.items()},
                 **{f"lm_train[{k}]": v for k, v in train_lm_paths.items()}}
     emit({"phase": "lm_launches", "per_path": lm_paths})
     launches = {name: launches.get(name, 0)
@@ -3890,6 +4319,21 @@ def main() -> int:
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None if lib is None else cuda_ms(torch, lib)})
     del fam_cases
+    moe_rows = []
+    for label, family, name, kern, plain, lib, (b_ms, b_by) in moe_cases:
+        moe_rows.append({
+            "name": label, "route": "cuda", "source": KERNELS[name][0],
+            "replaces": KERNELS[name][1],
+            "launches": sum(n[name] for k, n in moe_paths.items()
+                            if k.startswith(family)),
+            "max_abs_err": moe_errs[label],
+            "ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None if lib is None else cuda_ms(torch, lib)})
+    del moe_cases
+    emit({"phase": "lm_moe_ssm_kernel_times", "rows": moe_rows,
+          "library": "torch.nn.functional.scaled_dot_product_attention",
+          "card": smi.splitlines()[0]})
     emit({"phase": "lm_families_kernel_times", "rows": fam_rows,
           "library": "torch.nn.functional.scaled_dot_product_attention",
           "card": smi.splitlines()[0]})

@@ -1,11 +1,11 @@
 """Architecture registry: ``<arch-id>`` resolution for the LM path.
 
 Each entry maps an architecture id to its config module (CONFIG
-full-size, SMOKE reduced, SHAPES runnable cells).  Every dense attention
-architecture is ported (token and embed front ends, causal and
-bidirectional), and the attention-free rwkv6-1.6b; the JAX package's
-other ids need the MoE or mamba mixer, and ``get_arch`` names what is
-missing.
+full-size, SMOKE reduced, SHAPES runnable cells).  All ten of the JAX
+package's architectures are ported: the dense attention ones (token and
+embed front ends, causal and bidirectional), the attention-free
+rwkv6-1.6b, the MoE ones (qwen3-moe-235b-a22b, llama4-maverick-400b-a17b)
+and the mamba/attention/MoE hybrid jamba-v0.1-52b.
 """
 from __future__ import annotations
 
@@ -24,13 +24,10 @@ _MODULES: Dict[str, str] = {
     "internvl2-76b": "repro_torch.configs.internvl2_76b",
     "command-r-plus-104b": "repro_torch.configs.command_r_plus_104b",
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
-}
-
-# the JAX package's other architectures and what each needs first
-_NOT_PORTED: Dict[str, str] = {
-    "qwen3-moe-235b-a22b": "the MoE mixer",
-    "llama4-maverick-400b-a17b": "the MoE mixer",
-    "jamba-v0.1-52b": "the mamba and MoE mixers",
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
+    "llama4-maverick-400b-a17b":
+        "repro_torch.configs.llama4_maverick_400b_a17b",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v01_52b",
 }
 
 ARCH_IDS: Tuple[str, ...] = tuple(_MODULES)
@@ -45,10 +42,6 @@ class ArchSpec:
 
 
 def get_arch(arch_id: str) -> ArchSpec:
-    if arch_id in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported to repro_torch yet: it needs "
-            f"{_NOT_PORTED[arch_id]}; ported: {list(_MODULES)}")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {list(_MODULES)}")
     mod = importlib.import_module(_MODULES[arch_id])

@@ -37,6 +37,12 @@
 //     16-byte loads, the next step's while it computes this one, and no
 //     block barrier comes before the merge: the ring's barrier a tile and
 //     its trip through shared memory cost more than they hide there.
+//   * Groups of query heads: an instance takes G = 1, 2, 4, 5 or 8 query
+//     heads a kv head, every lane holding all G query rows in registers
+//     (at G 8 the direct path already spills).  A group of 16 (qwen3-moe)
+//     runs as ng = 2 slices of 8 in one launch: adjacent blocks take the
+//     two slices of one kv head, so the second read of its keys finds
+//     them in L2 while the first block streams them.
 //   * The compute: groups of L lanes take a key, each lane E elements (16
 //     for int8 at G <= 2 where 16 divides D, else 8), so a lane reads 16
 //     bytes of bf16 or int8 per key (32 of f32; 8 of int8 at D = 8); L is a
@@ -71,7 +77,7 @@ constexpr float NEG_INF = -1e30f;
 constexpr int THREADS = 256;
 constexpr int NST_MAX = 6;          // ring stages when every tile fits
 constexpr int SPLIT_MAX = 64;       // the wrapper's cap on splits
-constexpr int G_MAX = 8;
+constexpr int G_MAX = 8;            // the largest group of one launch
 
 __host__ __device__ constexpr int pow2_ceil(int x) { return x <= 1 ? 1 : 2 * pow2_ceil((x + 1) / 2); }
 
@@ -271,7 +277,7 @@ decode_fwd_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
                   const CT* __restrict__ vc, const float* __restrict__ ksc,
                   const float* __restrict__ vsc, QT* __restrict__ o,
                   float* __restrict__ ws, int* __restrict__ cnt, int S, int Hk,
-                  int s0, int nvis, int chunk, int nst, float scale) {
+                  int ng, int s0, int nvis, int chunk, int nst, float scale) {
   using T = Tile<CT, D, G, HB>;
   constexpr int E = T::E, L = T::L, NG = T::NG, KS = T::KS, U = T::U;
   constexpr int TK = T::TK;
@@ -280,7 +286,8 @@ decode_fwd_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
   __shared__ float mg[G_MAX * HB];
   __shared__ int last;
 
-  const int hc = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
+  const int hc = blockIdx.x / ng, gsl = blockIdx.x % ng;  // head block, slice
+  const int b = blockIdx.y, sp = blockIdx.z;
   const int nsp = gridDim.z;
   const int tid = threadIdx.x, lane = tid % L, grp = tid / L;
   const bool act = lane < T::LA;                // a lane past LA holds nothing
@@ -293,7 +300,8 @@ decode_fwd_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
   const size_t row0 = (size_t)b * S;   // key s: ((row0 + s) Hk + hk) rows
 
   float qf[G][E], acc[G][E], m[G], l[G];
-  const QT* qb = q + ((size_t)b * Hk + hk0 + hh) * G * D + le;
+  // query rows of (b, head, slice): G rows of the head's ng G
+  const QT* qb = q + (((size_t)b * Hk + hk0 + hh) * ng + gsl) * G * D + le;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     to_float<E>(qb + g * D, qf[g]);
@@ -459,7 +467,7 @@ decode_fwd_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
   for (int i = tid; i < NG * G; i += THREADS)   // i = group * G + g
     wt[i] = expf(ms[i] - mg[(i / G) % HB * G + i % G]);
   __syncthreads();
-  float* wsb = ws + (size_t)b * Hk * nsp * G * (D + 2);
+  float* wsb = ws + ((size_t)b * ng + gsl) * Hk * nsp * G * (D + 2);
   for (int i = tid; i < HB * G * D; i += THREADS) {
     const int h = i / (G * D), g = i / D % G, d = i % D;
     float lsum = 0.f, out = 0.f;
@@ -471,7 +479,7 @@ decode_fwd_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
     }
     const int hk = hk0 + h;
     if (nsp == 1) {
-      store1(o + (((size_t)b * Hk + hk) * G + g) * D + d,
+      store1(o + ((((size_t)b * Hk + hk) * ng + gsl) * G + g) * D + d,
              out / fmaxf(lsum, 1e-30f));
     } else {                  // partial of (b, hk), split sp
       float* wp = wsb + ((size_t)hk * nsp + sp) * G * (D + 2) + g * (D + 2);
@@ -488,7 +496,7 @@ decode_fwd_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
   // partials in split order and resets the ticket
   __threadfence();
   __syncthreads();
-  const int pair = b * (Hk / HB) + hc;
+  const int pair = (b * ng + gsl) * (Hk / HB) + hc;
   if (tid == 0) last = atomicAdd(cnt + pair, 1) == nsp - 1;
   __syncthreads();
   if (!last) return;
@@ -517,7 +525,7 @@ decode_fwd_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
       lsum = fmaf(__ldcg(pj + D + 1), w, lsum);
       out = fmaf(__ldcg(pj + d), w, out);
     }
-    store1(o + (((size_t)b * Hk + hk0 + h) * G + g) * D + d,
+    store1(o + ((((size_t)b * Hk + hk0 + h) * ng + gsl) * G + g) * D + d,
            out / fmaxf(lsum, 1e-30f));
   }
   if (tid == 0) cnt[pair] = 0;
@@ -526,8 +534,9 @@ decode_fwd_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
 template <typename QT, typename CT, int D, int G, int HB, bool DIRECT>
 cudaError_t run(const void* q, const void* k, const void* v, const float* ks,
                 const float* vs, void* o, float* ws, int* cnt, int B, int S,
-                int Hk, int s0, int nvis, int nsplit, int chunk, int nst,
-                int smem, int smem_max, float scale, cudaStream_t st) {
+                int Hk, int ng, int s0, int nvis, int nsplit, int chunk,
+                int nst, int smem, int smem_max, float scale,
+                cudaStream_t st) {
   static unsigned opted = 0;   // devices with the shared-memory opt-in set
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -540,17 +549,17 @@ cudaError_t run(const void* q, const void* k, const void* v, const float* ks,
     opted |= 1u << dev;
   }
   decode_fwd_kernel<QT, CT, D, G, HB, DIRECT>
-      <<<dim3(Hk / HB, B, nsplit), THREADS, smem, st>>>(
+      <<<dim3(Hk / HB * ng, B, nsplit), THREADS, smem, st>>>(
           static_cast<const QT*>(q), static_cast<const CT*>(k),
           static_cast<const CT*>(v), ks, vs, static_cast<QT*>(o), ws, cnt, S,
-          Hk, s0, nvis, chunk, nst, scale);
+          Hk, ng, s0, nvis, chunk, nst, scale);
   return cudaGetLastError();
 }
 
 template <typename QT, typename CT, int D, int G, int HB>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* ks,
                    const float* vs, void* o, float* ws, int* cnt, int B, int S,
-                   int Hk, int s0, int nvis, int nsplit, int chunk,
+                   int Hk, int ng, int s0, int nvis, int nsplit, int chunk,
                    float scale, cudaStream_t st) {
   using T = Tile<CT, D, G, HB>;
   // the direct path for a bf16/f32 cache whose one split has at most 6
@@ -560,28 +569,30 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* ks,
   if constexpr (!T::QUANT && HB == 1) {
     if (nsplit == 1 && nt <= NST_MAX)
       return run<QT, CT, D, G, HB, true>(q, k, v, ks, vs, o, ws, cnt, B, S,
-                                         Hk, s0, nvis, nsplit, chunk, 0,
+                                         Hk, ng, s0, nvis, nsplit, chunk, 0,
                                          T::MERGE, T::MERGE, scale, st);
   }
   const int nst = nt <= NST_MAX ? max(nt, 1) : 2;
   return run<QT, CT, D, G, HB, false>(
-      q, k, v, ks, vs, o, ws, cnt, B, S, Hk, s0, nvis, nsplit, chunk, nst,
-      max(nst * T::STG, T::MERGE), max(NST_MAX * T::STG, T::MERGE), scale,
+      q, k, v, ks, vs, o, ws, cnt, B, S, Hk, ng, s0, nvis, nsplit, chunk,
+      nst, max(nst * T::STG, T::MERGE), max(NST_MAX * T::STG, T::MERGE), scale,
       st);
 }
 
-#define DEC_ARGS q, k, v, ks, vs, o, ws, cnt, B, S, Hk, s0, nvis, nsplit, \
-                 chunk, scale, st
+#define DEC_ARGS q, k, v, ks, vs, o, ws, cnt, B, S, Hk, ng, s0, nvis, \
+                 nsplit, chunk, scale, st
 
 template <typename QT, typename CT, int D, int HB>
 cudaError_t dispatch_g(int G, const void* q, const void* k, const void* v,
                        const float* ks, const float* vs, void* o, float* ws,
-                       int* cnt, int B, int S, int Hk, int s0, int nvis,
-                       int nsplit, int chunk, float scale, cudaStream_t st) {
+                       int* cnt, int B, int S, int Hk, int ng, int s0,
+                       int nvis, int nsplit, int chunk, float scale,
+                       cudaStream_t st) {
   switch (G) {
     case 1: return launch<QT, CT, D, 1, HB>(DEC_ARGS);
     case 2: return launch<QT, CT, D, 2, HB>(DEC_ARGS);
     case 4: return launch<QT, CT, D, 4, HB>(DEC_ARGS);
+    case 5: return launch<QT, CT, D, 5, HB>(DEC_ARGS);
     case 8: return launch<QT, CT, D, 8, HB>(DEC_ARGS);
     default: return cudaErrorInvalidValue;
   }
@@ -593,8 +604,9 @@ template <int D>
 cudaError_t dispatch_dim(int q_dtype, int cache_int8, int heads, int G,
                          const void* q, const void* k, const void* v,
                          const float* ks, const float* vs, void* o, float* ws,
-                         int* cnt, int B, int S, int Hk, int s0, int nvis,
-                         int nsplit, int chunk, float scale, cudaStream_t st) {
+                         int* cnt, int B, int S, int Hk, int ng, int s0,
+                         int nvis, int nsplit, int chunk, float scale,
+                         cudaStream_t st) {
   using BF = __nv_bfloat16;
   if (heads > 1) {
     if constexpr (D == 16 || D == 64) {
@@ -625,7 +637,7 @@ cudaError_t dispatch_dim(int q_dtype, int cache_int8, int heads, int G,
 #define DIM_PARAMS                                                            \
   int q_dtype, int cache_int8, int heads, int G, const void *q,                \
       const void *k, const void *v, const float *ks, const float *vs, void *o, \
-      float *ws, int *cnt, int B, int S, int Hk, int s0, int nvis,             \
+      float *ws, int *cnt, int B, int S, int Hk, int ng, int s0, int nvis,    \
       int nsplit, int chunk, float scale, cudaStream_t st
 #define DIM_ARGS q_dtype, cache_int8, heads, G, DEC_ARGS
 #define DIM_DECL(D) cudaError_t dim_##D(DIM_PARAMS);
@@ -654,20 +666,22 @@ DIM_DEF(256)
 #endif
 
 #if BUILD_PART == 0
-// q (B, Hk, G, D) and o in q's type (q_dtype 0: f32, 1: bf16); caches
-// (B, S, Hk, D) in q's type, or int8 (cache_int8 = 1) with f32 scales
-// (B, S, Hk, 1); every operand 16-byte aligned.  The visible keys are the
+// q (B, Hk, ng G, D) and o in q's type (q_dtype 0: f32, 1: bf16): a kv
+// head's ng G query heads run as ng slices of G (1, 2, 4, 5 or 8), each
+// slice its own blocks (a group of 16 is ng 2 slices of 8); caches (B, S,
+// Hk, D) in q's type, or int8 (cache_int8 = 1) with f32 scales (B, S, Hk,
+// 1); every operand 16-byte aligned.  The visible keys are the
 // ring positions s0, s0 + 1, .. (mod S), nvis of them, cut into nsplit
 // runs of chunk keys (the last may be shorter, none empty).  heads: kv
 // heads a block (1; 2 or 4 with an int8 cache, 2 with a bf16 one, for bf16
 // queries, D 16 or 64 and Hk a multiple).  nsplit > 1 needs
-// ws (B Hk nsplit G (D + 2) floats, no initial value) and cnt (B Hk / heads
-// ints, zero; left zero); nsplit <= 64.  Returns cudaGetLastError().
+// ws (B ng Hk nsplit G (D + 2) floats, no initial value) and cnt (B ng Hk /
+// heads ints, zero; left zero); nsplit <= 64.  Returns cudaGetLastError().
 extern "C" int decode_attention_fwd(const void* q, const void* k,
                                     const void* v, const void* k_scale,
                                     const void* v_scale, void* o, void* ws_,
                                     void* cnt_, int B, int S, int Hk, int G,
-                                    int D, int q_dtype, int cache_int8,
+                                    int ng, int D, int q_dtype, int cache_int8,
                                     int heads, int s0, int nvis, int nsplit,
                                     int chunk, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -675,7 +689,7 @@ extern "C" int decode_attention_fwd(const void* q, const void* k,
   const float* vs = static_cast<const float*>(v_scale);
   float* ws = static_cast<float*>(ws_);
   int* cnt = static_cast<int*>(cnt_);
-  if (nsplit < 1 || nsplit > SPLIT_MAX || G > G_MAX || heads < 1 ||
+  if (nsplit < 1 || nsplit > SPLIT_MAX || G > G_MAX || ng < 1 || heads < 1 ||
       Hk % heads || (heads > 1 && ((D != 16 && D != 64) || q_dtype == 0)) ||
       (heads == 4 && !cache_int8) || heads > 4 || heads == 3)
     return (int)cudaErrorInvalidValue;

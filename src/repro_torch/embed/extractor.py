@@ -149,7 +149,7 @@ class EmbeddingExtractor:
         b, t = x.shape[0], x.shape[1]
         positions = torch.arange(t, dtype=torch.int32,
                                  device=x.device)[None].expand(b, t)
-        h, _ = model_mod.backbone(self.cfg, self.params, x, positions)
+        h, _, _ = model_mod.backbone(self.cfg, self.params, x, positions)
         return h
 
     def pool(self, h: torch.Tensor) -> torch.Tensor:

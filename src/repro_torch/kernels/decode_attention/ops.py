@@ -9,8 +9,10 @@ ring positions (:func:`visible_range`) and picks how many blocks split it
 (:func:`split_count`); a split launch merges its partials in the block
 that finishes last, found through a per-(batch, head) ticket in a zeroed
 counter buffer kept per device (the kernel leaves it zeroed, so calls on
-one device must not overlap on two streams).  ``launches`` counts kernel
-launches.
+one device must not overlap on two streams).  A group of query heads the
+kernel has no instance of runs as consecutive slices of it, each slice
+its own blocks of the one launch (:func:`group_slices`: 16 as two slices
+of 8).  ``launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -24,7 +26,10 @@ from repro_torch.kernels.decode_attention import ref
 
 # every head dim of the configurations; other dims raise
 HEAD_DIMS = (8, 16, 64, 80, 128, 160, 256)
-GROUPS = (1, 2, 4, 8)           # query heads per kv head the kernel takes
+# query heads per kv head the wrapper takes (every configuration's), and
+# the kernel's own instances; 12 and 16 run as slices of 4 and 8
+GROUPS = (1, 2, 4, 5, 8, 12, 16)
+KERNEL_GROUPS = (1, 2, 4, 5, 8)
 MULTI_HEAD_DIMS = (16, 64)      # dims with instances of 2 or 4 heads a block
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_MAX = 65535
@@ -42,7 +47,8 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_bound", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.decode_attention_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
-                                             i, i, i, i, i, i, i, i, i, f, p]
+                                             i, i, i, i, i, i, i, i, i, i, f,
+                                             p]
         lib.decode_attention_fwd.restype = i
         lib._bound = True
     return lib
@@ -89,6 +95,16 @@ def split_count(pairs: int, nvis: int, n_sm: int) -> int:
         return 1
     want = BLOCKS_PER_SM * n_sm // pairs
     return max(1, min(want, nvis // SPLIT_MIN_KEYS, SPLIT_MAX))
+
+
+def group_slices(g: int) -> Tuple[int, int]:
+    """(query heads a slice, slices) for a group of ``g``: the kernel's
+    own instance of ``g``, else slices of the largest instance that
+    divides it."""
+    if g in KERNEL_GROUPS:
+        return g, 1
+    gl = max(x for x in KERNEL_GROUPS if g % x == 0)
+    return gl, g // gl
 
 
 def _ticket_counters(device: torch.device, pairs: int) -> torch.Tensor:
@@ -151,23 +167,24 @@ def decode_attention_fused(q: torch.Tensor, k_cache: torch.Tensor,
     n_sm = runtime.sm_count(q.device)
     heads = (1 if q.dtype != torch.bfloat16
              else heads_per_block(b, hk, d, k_cache.dtype, nvis, n_sm))
-    n_split = split_count(b * hk // heads, nvis, n_sm)
+    gl, ng = group_slices(g)
+    n_split = split_count(b * hk * ng // heads, nvis, n_sm)
     chunk = -(-nvis // n_split)
     n_split = -(-nvis // chunk)
     null = ctypes.c_void_p(0)
     ws = cnt = None
-    if n_split > 1:                    # partials: (B Hk, split, G, D + 2)
-        ws = torch.empty(b * hk * n_split * g * (d + 2), dtype=torch.float32,
-                         device=q.device)
-        cnt = _ticket_counters(q.device, b * hk // heads)
+    if n_split > 1:               # partials: (B slices Hk, split, G, D + 2)
+        ws = torch.empty(b * ng * hk * n_split * gl * (d + 2),
+                         dtype=torch.float32, device=q.device)
+        cnt = _ticket_counters(q.device, b * ng * hk // heads)
     rc = _lib().decode_attention_fwd(
         runtime.ptr(q), runtime.ptr(k_cache), runtime.ptr(v_cache),
         runtime.ptr(k_scale) if quant else null,
         runtime.ptr(v_scale) if quant else null, runtime.ptr(out),
         null if ws is None else runtime.ptr(ws),
         null if cnt is None else runtime.ptr(cnt),
-        b, s, hk, g, d, _Q_DTYPES[q.dtype], int(quant), heads, s0, nvis,
-        n_split, chunk, float(scale), runtime.stream_handle(q.device))
+        b, s, hk, gl, ng, d, _Q_DTYPES[q.dtype], int(quant), heads, s0,
+        nvis, n_split, chunk, float(scale), runtime.stream_handle(q.device))
     runtime.raise_on_error("decode_attention", rc)
     launches["decode_attention"] += 1
     return out

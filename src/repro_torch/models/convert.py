@@ -4,8 +4,10 @@ The JAX package keeps parameters and decode caches as nested dicts of
 arrays with the same keys as the port (``models.model``).  Given such a
 tree as numpy arrays (``jax.device_get`` or ``np.asarray`` per leaf),
 these functions return the port's tree of tensors, bit for bit: every
-leaf of every ported architecture carries across, the embed front end's
-``frontend/proj`` (hubert, internvl2) in place of ``embed/tok``.
+leaf of every architecture carries across, the embed front end's
+``frontend/proj`` (hubert, internvl2) in place of ``embed/tok``, the MoE
+layers' f32 router and stacked (n_periods, E, d, ff) experts, and the
+mamba layers' f32 ``conv_w``, ``a_log`` and ``dt_proj_*``.
 
 bf16 leaves come out of JAX as numpy arrays of the ``bfloat16`` extension
 type, which ``torch.from_numpy`` refuses; they are recognised by the type's

@@ -1,11 +1,11 @@
-"""LM assembly: one composable stack for the dense attention and rwkv6
+"""LM assembly: one composable stack covering the JAX package's ten
 architectures.
 
 An architecture is a ``ModelConfig`` whose ``period_pattern`` lists the
 (mixer, mlp) kind of each layer inside one repeating period:
 
-    mixer: attn | attn_local | attn_bidir | rwkv   (mamba: not ported)
-    mlp:   dense | rwkv_cm (after rwkv only)       (moe: not ported)
+    mixer: attn | attn_local | attn_bidir | mamba | rwkv
+    mlp:   dense | moe | rwkv_cm (after rwkv only)
 
 ``n_layers = n_periods * len(period) + tail``.  As in the JAX package the
 parameters of the full periods are stacked over a leading ``n_periods``
@@ -19,16 +19,18 @@ patch features ``(B, T, d_frontend)`` projected to ``d_model`` by
 ``frontend/proj`` (``input_kind="embed"``: hubert, internvl2).
 
 Entry points:
-    loss_fn     {"inputs", "labels"[, "mask"]} -> scalar loss, under
-                autograd: attention runs the plain blocked executor
-                (``attention.blocked_attention``), the cross-entropy is
-                chunked over time (``chunked_ce``) and, with ``remat``,
-                each period is recomputed in backward
+    loss_fn     {"inputs", "labels"[, "mask"]} -> scalar loss (the
+                cross-entropy plus ``aux_loss_weight`` x the MoE layers'
+                load-balance loss), under autograd: attention runs the
+                plain blocked executor (``attention.blocked_attention``),
+                the cross-entropy is chunked over time (``chunked_ce``)
+                and, with ``remat``, each period is recomputed in
+                backward
     prefill     (B, T) tokens or (B, T, d_frontend) frames -> last logits
                 + cache
     decode_step (B, 1) token (or (B, 1, d_frontend)) + cache -> logits +
                 cache (cache updated in place: the attention k/v at the
-                ring slot, the rwkv state leaves whole)
+                ring slot, the rwkv and mamba state leaves whole)
     encode      (B, T[, d_frontend]) -> logits at every position (the
                 encoder-only hubert; no cache)
 """
@@ -42,13 +44,16 @@ import torch
 
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import attention, layers, rwkv6
+from repro_torch.models import attention, layers, rwkv6, ssm
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import ParamSpec, Template
 
 Tensor = torch.Tensor
 
 _ATTN = ("attn", "attn_local", "attn_bidir")
-_MIXERS = _ATTN + ("rwkv",)
+_MIXERS = _ATTN + ("mamba", "rwkv")
+_MLPS = ("dense", "moe", "rwkv_cm")
+_STATEFUL = ("mamba", "rwkv")      # mixers whose decode state is O(1)
 _MASK = {"attn": "causal", "attn_local": "window", "attn_bidir": "bidir"}
 
 
@@ -75,8 +80,23 @@ class ModelConfig:
     attn_impl: str = "blocked"     # blocked | pallas (kernel on CUDA) | ref
     attn_chunk: int = 1024         # kv chunk of the training executor
     kv_cache_dtype: str = "bf16"   # bf16 (the compute dtype) | int8
-    # weight of the MoE layers' auxiliary loss; no ported layer has one
-    aux_loss_weight: float = 0.01
+    # moe
+    n_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    n_shared_experts: int = 0      # > 0: one always-on GLU of width d_ff
+    moe_chunk: int = 1024          # tokens a routing chunk
+    moe_capacity_factor: float = 1.25
+    moe_impl: str = "einsum"       # einsum | gather (the same function)
+    # the reference hoists its FSDP weight gather out of the chunk loop;
+    # on one card it has no effect and is kept so configs carry across
+    moe_pregather: bool = False
+    aux_loss_weight: float = 0.01  # weight of the MoE load-balance loss
+    # ssm
+    ssm_d_state: int = 16
+    ssm_d_conv: int = 4
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
     # rwkv
     rwkv_head_dim: int = 64
     rwkv_chunk: int = 128
@@ -107,6 +127,14 @@ class ModelConfig:
         return self.n_layers - self.n_periods * self.period
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def dt_rank(self) -> int:
+        return max(self.d_model // 16, 1)
+
+    @property
     def rwkv_heads(self) -> int:
         return self.d_model // self.rwkv_head_dim
 
@@ -116,10 +144,9 @@ class ModelConfig:
 
 def _check_supported(cfg: ModelConfig) -> None:
     for m, f in cfg.period_pattern:
-        if m not in _MIXERS or f not in ("dense", "rwkv_cm"):
-            raise NotImplementedError(
-                f"{cfg.name}: layer kind ({m}, {f}) is not ported (dense "
-                f"attention and rwkv layers only: MoE and mamba wait)")
+        if m not in _MIXERS or f not in _MLPS:
+            raise ValueError(f"{cfg.name}: unknown layer kind ({m}, {f}); "
+                             f"mixers {_MIXERS}, MLPs {_MLPS}")
         if f == "rwkv_cm" and m != "rwkv":
             raise ValueError(f"{cfg.name}: rwkv_cm keeps its shift carry in "
                              f"the rwkv mixer's state; ({m}, {f}) has none")
@@ -133,6 +160,9 @@ def _check_supported(cfg: ModelConfig) -> None:
 # --------------------------------------------------------------------------
 
 def _mixer_template(cfg: ModelConfig, kind: str) -> Template:
+    if kind == "mamba":
+        return ssm.mamba_template(cfg.d_model, cfg.d_inner, cfg.ssm_d_state,
+                                  cfg.ssm_d_conv, cfg.dt_rank, cfg.dtype)
     if kind == "rwkv":
         return rwkv6.rwkv6_template(cfg.d_model, cfg.rwkv_heads,
                                     cfg.rwkv_head_dim, cfg.dtype)
@@ -144,6 +174,11 @@ def _mixer_template(cfg: ModelConfig, kind: str) -> Template:
 def _mlp_template(cfg: ModelConfig, kind: str) -> Template:
     if kind == "rwkv_cm":
         return rwkv6.channel_mix_template(cfg.d_model, cfg.d_ff, cfg.dtype)
+    if kind == "moe":
+        return moe_mod.moe_template(
+            cfg.d_model, cfg.moe_d_ff, cfg.n_experts, cfg.dtype,
+            n_shared=cfg.n_shared_experts,
+            shared_ff=cfg.d_ff if cfg.n_shared_experts else 0)
     return layers.glu_mlp_template(cfg.d_model, cfg.d_ff, cfg.dtype)
 
 
@@ -205,6 +240,13 @@ class TensorSpec(NamedTuple):
 
 def _layer_cache(cfg: ModelConfig, mixer: str, batch: int, seq: int
                  ) -> Dict[str, TensorSpec]:
+    if mixer == "mamba":
+        # O(1) in seq: the conv's last d_conv - 1 inputs and the scan state
+        f32 = torch.float32
+        return {"conv": TensorSpec((batch, cfg.ssm_d_conv - 1, cfg.d_inner),
+                                   f32),
+                "ssm": TensorSpec((batch, cfg.d_inner, cfg.ssm_d_state),
+                                  f32)}
     if mixer == "rwkv":
         # O(1) in seq: the two token-shift carries and the wkv state
         f32 = torch.float32
@@ -252,6 +294,14 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
 def _apply_mixer(cfg: ModelConfig, kind: str, p, h: Tensor,
                  positions: Tensor, cache, pos, impl: str
                  ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    if kind == "mamba":
+        out, new = ssm.mamba_mixer(
+            p, h, d_inner=cfg.d_inner, d_state=cfg.ssm_d_state,
+            d_conv=cfg.ssm_d_conv, dt_rank=cfg.dt_rank, dtype=cfg.dtype,
+            chunk=cfg.ssm_chunk,
+            state=None if cache is None else ssm.SSMState(cache["conv"],
+                                                          cache["ssm"]))
+        return out, {"conv": new.conv, "ssm": new.ssm}
     if kind == "rwkv":
         out, s_end, carry = rwkv6.rwkv6_mixer(
             p, h, n_heads=cfg.rwkv_heads, head_dim=cfg.rwkv_head_dim,
@@ -268,37 +318,47 @@ def _apply_mixer(cfg: ModelConfig, kind: str, p, h: Tensor,
 
 
 def _apply_mlp(cfg: ModelConfig, kind: str, p, h: Tensor, cache
-               ) -> Tuple[Tensor, Optional[Tensor]]:
-    """Returns (out, the channel mix's new shift carry or None)."""
+               ) -> Tuple[Tensor, Optional[Tensor], Optional[Tensor]]:
+    """Returns (out, the MoE aux loss or None, the channel mix's new shift
+    carry or None)."""
     if kind == "rwkv_cm":
         carry = (torch.zeros((h.shape[0], 1, cfg.d_model),
                              dtype=torch.float32, device=h.device)
                  if cache is None else cache["shift_ffn"])
-        return rwkv6.channel_mix(p, h, carry, cfg.dtype)
-    return layers.glu_mlp(p, h, cfg.act, cfg.dtype), None
+        out, carry = rwkv6.channel_mix(p, h, carry, cfg.dtype)
+        return out, None, carry
+    if kind == "moe":
+        out, aux = moe_mod.moe_mlp(
+            p, h, top_k=cfg.top_k, n_experts=cfg.n_experts, act=cfg.act,
+            dtype=cfg.dtype, capacity_factor=cfg.moe_capacity_factor,
+            chunk=cfg.moe_chunk, impl=cfg.moe_impl,
+            pregather=cfg.moe_pregather)
+        return out, aux, None
+    return layers.glu_mlp(p, h, cfg.act, cfg.dtype), None, None
 
 
 def _layer(cfg: ModelConfig, mixer: str, mlp: str, p, h: Tensor,
            positions: Tensor, cache, pos, impl: str
-           ) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """Pre-norm residual layer.  Returns (h, layer cache).  With a cache
-    (decode) the attention k/v are written in place by the block; the
-    rwkv state leaves are copied into the cache here, so the caller's
-    stacked cache holds the new state too."""
+           ) -> Tuple[Tensor, Optional[Tensor], Dict[str, Tensor]]:
+    """Pre-norm residual layer.  Returns (h, the MoE aux loss or None,
+    layer cache).  With a cache (decode) the attention k/v are written in
+    place by the block; the rwkv and mamba state leaves are copied into
+    the cache here, so the caller's stacked cache holds the new state
+    too."""
     mixed, new_cache = _apply_mixer(
         cfg, mixer, p["mixer"], layers.apply_norm(cfg.norm, h, p["norm1"]),
         positions, cache, pos, impl)
     h = h + mixed
-    out, cm_carry = _apply_mlp(cfg, mlp, p["mlp"],
-                               layers.apply_norm(cfg.norm, h, p["norm2"]),
-                               cache)
+    out, aux, cm_carry = _apply_mlp(
+        cfg, mlp, p["mlp"], layers.apply_norm(cfg.norm, h, p["norm2"]),
+        cache)
     if cm_carry is not None:
         new_cache["shift_ffn"] = cm_carry
-    if cache is not None and mixer == "rwkv":
+    if cache is not None and mixer in _STATEFUL:
         for name, leaf in new_cache.items():
             cache[name].copy_(leaf)
         new_cache = cache
-    return h + out, new_cache
+    return h + out, aux, new_cache
 
 
 def _embed_in(cfg: ModelConfig, params, x: Tensor) -> Tensor:
@@ -319,32 +379,42 @@ def _index(tree, p: int):
             for k, v in tree.items()}
 
 
-def _period(cfg: ModelConfig, pp, h: Tensor, positions: Tensor, caches,
-            pos, impl: str) -> Tuple[Tensor, List[Dict[str, Tensor]]]:
-    """One period of layers: pp / caches hold each position's tree."""
+def _add_aux(total: Tensor, aux: Optional[Tensor]) -> Tensor:
+    return total if aux is None else total + aux
+
+
+def _period(cfg: ModelConfig, pp, h: Tensor, aux: Tensor,
+            positions: Tensor, caches, pos, impl: str
+            ) -> Tuple[Tensor, Tensor, List[Dict[str, Tensor]]]:
+    """One period of layers: pp / caches hold each position's tree; aux
+    accumulates the MoE layers' load-balance losses."""
     out = []
     for i, (m, f) in enumerate(cfg.period_pattern):
-        h, nc = _layer(cfg, m, f, pp[i], h, positions, caches[i], pos, impl)
+        h, a, nc = _layer(cfg, m, f, pp[i], h, positions, caches[i], pos,
+                          impl)
+        aux = _add_aux(aux, a)
         out.append(nc)
-    return h, out
+    return h, aux, out
 
 
 def backbone(cfg: ModelConfig, params, x: Tensor, positions: Tensor,
              cache: Optional[Dict] = None, pos: Optional[int] = None,
              collect_cache: bool = False, train: bool = False
-             ) -> Tuple[Tensor, Optional[Dict]]:
-    """-> (hidden (B, T, d), cache).
+             ) -> Tuple[Tensor, Tensor, Optional[Dict]]:
+    """-> (hidden (B, T, d), aux loss (f32 scalar: the sum of the MoE
+    layers' load-balance losses, 0 without one), cache).
 
     cache=None + collect_cache=True is the prefill path: each layer's
-    full-sequence k/v (or rwkv end state) are collected and stacked like
-    the parameters.  With a cache (decode) the cache is updated in place
-    and returned.  ``train`` runs attention through the plain blocked
-    executor (differentiable on every device) and, with ``cfg.remat``,
-    recomputes each period in backward.
+    full-sequence k/v (or rwkv / mamba end state) are collected and
+    stacked like the parameters.  With a cache (decode) the cache is
+    updated in place and returned.  ``train`` runs attention through the
+    plain blocked executor (differentiable on every device) and, with
+    ``cfg.remat``, recomputes each period in backward.
     """
     _check_supported(cfg)
     impl = "train" if train and cfg.attn_impl != "ref" else cfg.attn_impl
     h = _embed_in(cfg, params, x)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     decoding = cache is not None
     collect = decoding or collect_cache
     new_cache: Optional[Dict] = {} if collect else None
@@ -360,11 +430,12 @@ def backbone(cfg: ModelConfig, params, x: Tensor, positions: Tensor,
             lcs = ([_index(cache["stack"][f"pos{i}"], p)
                     for i in range(cfg.period)] if decoding else none)
             if remat:
-                h = checkpoint(lambda h_, pp_=pp: _period(
-                    cfg, pp_, h_, positions, none, pos, impl)[0], h,
-                    use_reentrant=False)
+                h, aux = checkpoint(lambda h_, a_, pp_=pp: _period(
+                    cfg, pp_, h_, a_, positions, none, pos, impl)[:2], h,
+                    aux, use_reentrant=False)
                 continue
-            h, ncs = _period(cfg, pp, h, positions, lcs, pos, impl)
+            h, aux, ncs = _period(cfg, pp, h, aux, positions, lcs, pos,
+                                  impl)
             if collect_cache and not decoding:
                 for i, nc in enumerate(ncs):
                     per_pos[i].append(nc)
@@ -379,13 +450,14 @@ def backbone(cfg: ModelConfig, params, x: Tensor, positions: Tensor,
     for j in range(cfg.tail):
         m, f = cfg.period_pattern[j]
         cc = cache[f"tail{j}"] if decoding else None
-        h, nc = _layer(cfg, m, f, params[f"tail{j}"], h, positions, cc, pos,
-                       impl)
+        h, a, nc = _layer(cfg, m, f, params[f"tail{j}"], h, positions, cc,
+                          pos, impl)
+        aux = _add_aux(aux, a)
         if collect:
             new_cache[f"tail{j}"] = nc
 
     h = layers.apply_norm(cfg.norm, h, params["final_norm"])
-    return h, new_cache
+    return h, aux, new_cache
 
 
 def _head_matrix(cfg: ModelConfig, params) -> Tensor:
@@ -431,14 +503,14 @@ def chunked_ce(cfg: ModelConfig, params, h: Tensor, labels: Tensor,
 
 def loss_fn(cfg: ModelConfig, params, batch: Dict[str, Tensor]) -> Tensor:
     """batch: {"inputs": (B, T) int or (B, T, d_frontend) float, "labels":
-    (B, T) int, optional "mask": (B, T)}.  The scalar cross-entropy (the
-    reference adds ``aux_loss_weight`` x the MoE layers' auxiliary loss;
-    no ported layer has one)."""
+    (B, T) int, optional "mask": (B, T)}.  The scalar cross-entropy plus
+    ``aux_loss_weight`` x the MoE layers' load-balance loss."""
     x = batch["inputs"]
     b, t = batch["labels"].shape
-    h, _ = backbone(cfg, params, x, _positions(b, t, 0, x.device),
-                    train=True)
-    return chunked_ce(cfg, params, h, batch["labels"], batch.get("mask"))
+    h, aux, _ = backbone(cfg, params, x, _positions(b, t, 0, x.device),
+                         train=True)
+    ce = chunked_ce(cfg, params, h, batch["labels"], batch.get("mask"))
+    return ce + cfg.aux_loss_weight * aux
 
 
 @torch.no_grad()
@@ -448,8 +520,9 @@ def prefill(cfg: ModelConfig, params, x: Tensor) -> Tuple[Tensor, Dict[str, Any]
     The returned attention caches have length T (the prompt); the serve
     layer pads them to the generation budget before decode_step."""
     b, t = x.shape[0], x.shape[1]
-    h, new_cache = backbone(cfg, params, x, _positions(b, t, 0, x.device),
-                            collect_cache=True)
+    h, _, new_cache = backbone(cfg, params, x,
+                               _positions(b, t, 0, x.device),
+                               collect_cache=True)
     logits = layers.linear(h[:, -1:], _head_matrix(cfg, params),
                            cfg.dtype).float()[:, 0]
     return logits, new_cache
@@ -463,9 +536,9 @@ def decode_step(cfg: ModelConfig, params, token: Tensor,
     the position of the token (its cache slot is pos mod S).  Returns
     (logits (B, vocab) f32, the updated cache)."""
     b = token.shape[0]
-    h, new_cache = backbone(cfg, params, token,
-                            _positions(b, 1, int(pos), token.device),
-                            cache=cache, pos=int(pos))
+    h, _, new_cache = backbone(cfg, params, token,
+                               _positions(b, 1, int(pos), token.device),
+                               cache=cache, pos=int(pos))
     logits = layers.linear(h[:, -1], _head_matrix(cfg, params),
                            cfg.dtype).float()
     return logits, new_cache
@@ -476,5 +549,5 @@ def encode(cfg: ModelConfig, params, x: Tensor) -> Tensor:
     """Encoder-only (hubert): logits (B, T, vocab) f32 at every position,
     one unchunked head over the small vocabulary."""
     b, t = x.shape[0], x.shape[1]
-    h, _ = backbone(cfg, params, x, _positions(b, t, 0, x.device))
+    h, _, _ = backbone(cfg, params, x, _positions(b, t, 0, x.device))
     return logits_fn(cfg, params, h)

@@ -3,7 +3,9 @@
 Cache layout (see ``repro_torch.models.model.cache_struct``):
   {"stack": {"pos<i>": {leaves stacked over n_periods}}, "tail<j>": {...}}
   attention leaves "k"/"v": (..., B, S, Hk, D), and for an int8 cache
-  "k_scale"/"v_scale": (..., B, S, Hk, 1) f32.
+  "k_scale"/"v_scale": (..., B, S, Hk, 1) f32; the mamba ("conv" (..., B,
+  d_conv - 1, d_inner), "ssm") and rwkv leaves are O(1) recurrent states
+  that never grow with S, so padding leaves them as they are.
 """
 from __future__ import annotations
 

@@ -512,6 +512,56 @@ def test_decode_attention_kernel_matches_plain(cuda, b, hk, s, pos, window,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,hk,s,pos,window,g,d,quant", [
+    (2, 8, 2064, 2047, 0, 5, 128, False),     # llama4's step: G 5 (direct)
+    (2, 8, 2064, 2062, 0, 5, 128, True),
+    (2, 4, 2064, 2047, 0, 16, 128, False),    # qwen3's step: 2 slices of 8
+    (2, 4, 2064, 2062, 0, 16, 128, True),
+    (1, 4, 32768, 32767, 0, 16, 128, False),  # splits, both halves
+    (1, 8, 9000, 9100, 1024, 5, 128, True),   # window, wrapped, splits
+    (3, 2, 300, 120, 0, 5, 64, False),        # partial cache
+    (3, 4, 333, 666, 0, 5, 64, True),         # int8, 2 heads a block
+    (3, 2, 100, 250, 0, 16, 8, True),         # int8 rows of 8 bytes
+    (2, 8, 2064, 2047, 0, 12, 128, False),    # command-r's step: 3 slices of 4
+    (1, 8, 9000, 8999, 0, 12, 128, True),     # splits
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_at_the_moe_groups(cuda, b, hk, s, pos,
+                                                   window, g, d, quant,
+                                                   dtype):
+    """B10 at G 5 (llama4-maverick: 40 / 8), G 16 (qwen3-moe: 64 / 4) and
+    G 12 (command-r-plus: 96 / 8) against its plain version; a group of
+    16 runs as two slices of 8 in one launch, 12 as three of 4."""
+    gen = torch.Generator().manual_seed(s * 5 + g + d)
+    q = _rand(gen, b, hk, g, d).to(cuda, dtype)
+    k = _rand(gen, b, s, hk, d)
+    v = _rand(gen, b, s, hk, d)
+    ks = vs = None
+    if quant:
+        ks = k.abs().amax(-1, keepdim=True).div(127.0).clamp(min=1e-10)
+        vs = v.abs().amax(-1, keepdim=True).div(127.0).clamp(min=1e-10)
+        k = torch.round(k / ks).clamp(-127, 127).to(torch.int8)
+        v = torch.round(v / vs).clamp(-127, 127).to(torch.int8)
+        ks, vs = ks.to(cuda), vs.to(cuda)
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    k, v = k.to(cuda), v.to(cuda)
+    assert dec_ops.group_slices(g) == {16: (8, 2), 12: (4, 3)}.get(g, (g, 1))
+    before = dec_ops.launches["decode_attention"]
+    got = dec_ops.decode_attention_fused(q, k, v, pos, d ** -0.5, ks, vs,
+                                         window=window)
+    again = dec_ops.decode_attention_fused(q, k, v, pos, d ** -0.5, ks, vs,
+                                           window=window)
+    want = dec_ref.decode_attention_ref(q, k, v, pos, d ** -0.5, ks, vs,
+                                        window)
+    torch.cuda.synchronize()
+    assert dec_ops.launches["decode_attention"] == before + 2
+    assert got.dtype == dtype and got.shape == q.shape
+    assert float((got.float() - want.float()).abs().max()) <= _attn_tol(want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
 def test_attention_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = torch.ones(1, 4, 2, 12, device=cuda)
     with pytest.raises(ValueError):                   # head_dim 12: no instance
@@ -847,3 +897,47 @@ def test_rwkv6_generate_on_the_card_equals_the_cpu(cuda):
         step.abs().max())
     assert (fa_ops.launches["flash_attention"],
             dec_ops.launches["decode_attention"]) == n0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b",
+                                  "llama4-maverick-400b-a17b",
+                                  "jamba-v0.1-52b"])
+def test_moe_ssm_smoke_on_the_card_equals_the_cpu(cuda, arch):
+    """The MoE and mamba smoke configs in f32: a prefill and three decode
+    steps through B9/B10 on the card against the CPU on the same weights,
+    within 1e-4 of the largest |logit|, with one B9 launch a prefill
+    attention layer and one B10 launch a decode attention layer."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.layers import tree_map
+    from repro_torch.serve import engine
+    from repro_torch.serve.kv_cache import pad_cache
+    cfg = dataclasses.replace(get_arch(arch).smoke, dtype=torch.float32)
+    p_cpu = model_mod.init_params(cfg, torch.Generator().manual_seed(0))
+    p_dev = tree_map(lambda a: a.to(cuda), p_cpu)
+    x = torch.randint(0, cfg.vocab, (3, 27),
+                      generator=torch.Generator().manual_seed(1))
+    n_attn = sum(m == "attn" for m, _ in cfg.period_pattern) * cfg.n_periods
+
+    def run(p, dev):
+        xd = x.to(dev)
+        logits, cache = engine.prefill_step(cfg, p, xd[:, :24])
+        cache = pad_cache(cfg, cache, 27)
+        out = [logits]
+        for j in range(3):
+            lj, cache = engine.serve_step(cfg, p, xd[:, 24 + j:25 + j],
+                                          cache, 24 + j)
+            out.append(lj)
+        return [o.cpu() for o in out]
+    n0 = (fa_ops.launches["flash_attention"],
+          dec_ops.launches["decode_attention"])
+    got = run(p_dev, cuda)
+    n1 = (fa_ops.launches["flash_attention"],
+          dec_ops.launches["decode_attention"])
+    assert n1[0] - n0[0] == n_attn
+    assert n1[1] - n0[1] == 3 * n_attn
+    for a, b in zip(got, run(p_cpu, torch.device("cpu"))):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-4 * scale

@@ -154,7 +154,7 @@ def test_backbone_matches(arch_id):
     pos = np.broadcast_to(np.arange(12, dtype=np.int32), (3, 12)).copy()
     hj, _, _ = jax.jit(j_model.backbone, static_argnums=0)(
         jc, jp, jnp.asarray(x), jnp.asarray(pos))
-    ht, _ = t_model.backbone(tc, tp, _t(x), _t(pos))
+    ht, _, _ = t_model.backbone(tc, tp, _t(x), _t(pos))
     _close(_np(ht), np.asarray(hj, np.float32), 1e-5)
 
 

@@ -38,6 +38,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_arch as j_get_arch  # noqa: E402
+from repro.configs import ARCH_IDS as J_ARCH_IDS  # noqa: E402
 from repro.embed import EmbeddingExtractor as JExtractor  # noqa: E402
 from repro.embed import params_digest as j_params_digest  # noqa: E402
 from repro.kernels.decode_attention.ops import (  # noqa: E402
@@ -53,6 +54,7 @@ from repro.serve import engine as j_engine  # noqa: E402
 from repro.serve import kv_cache as j_kv  # noqa: E402
 from repro_torch.api.session import SVM  # noqa: E402
 from repro_torch.configs import get_arch as t_get_arch  # noqa: E402
+from repro_torch.configs import ARCH_IDS as T_ARCH_IDS  # noqa: E402
 from repro_torch.embed import (EmbeddingExtractor, EmbeddingSource,  # noqa: E402
                                LabeledSource, embed_source, params_digest)
 from repro_torch.embed.source import EmbedCache, EmbedCacheError  # noqa: E402
@@ -269,11 +271,18 @@ def test_param_tree_keys_shapes_and_bf16_bits_carry_across():
     assert tc.param_count() == jc.param_count()
 
 
-def test_unported_archs_raise_and_name_what_is_missing():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        t_get_arch("qwen3-moe-235b-a22b")
-    with pytest.raises(NotImplementedError, match="mamba"):
-        t_get_arch("jamba-v0.1-52b")
+@pytest.mark.parametrize("arch", J_ARCH_IDS)
+def test_every_reference_arch_resolves(arch):
+    """Each of the JAX package's ten arch ids resolves through the port's
+    registry to its config and smoke config; an unknown id raises
+    KeyError."""
+    spec = t_get_arch(arch)
+    assert spec.arch_id == arch and arch in T_ARCH_IDS
+    assert spec.config.name == j_get_arch(arch).config.name
+    assert spec.smoke.name == j_get_arch(arch).smoke.name
+    assert len(T_ARCH_IDS) == len(J_ARCH_IDS) == 10
+    with pytest.raises(KeyError):
+        t_get_arch(arch + "-unknown")
 
 
 # ---------------------------------------------------------------- backbone
@@ -287,7 +296,7 @@ def test_backbone_matches(arch, dtype, rel):
     pos = np.broadcast_to(np.arange(12, dtype=np.int32), (3, 12)).copy()
     hj, _, _ = jax.jit(j_model.backbone, static_argnums=0)(
         jc, jp, jnp.asarray(x), jnp.asarray(pos))
-    ht, _ = t_model.backbone(tc, tp, _t(x), _t(pos))
+    ht, _, _ = t_model.backbone(tc, tp, _t(x), _t(pos))
     _close(to_numpy(ht), np.asarray(hj, np.float32), rel)
 
 

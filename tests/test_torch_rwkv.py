@@ -176,7 +176,7 @@ def test_backbone_and_prefill_match_at_chunk_8(model):
     pos = np.broadcast_to(np.arange(21, dtype=np.int32), (3, 21)).copy()
     hj, _, _ = jax.jit(j_model.backbone, static_argnums=0)(
         jc, jp, jnp.asarray(x), jnp.asarray(pos))
-    ht, _ = t_model.backbone(tc, tp, _t(x), _t(pos))
+    ht, _, _ = t_model.backbone(tc, tp, _t(x), _t(pos))
     _close(ht.numpy(), hj)
     lj, cj = jax.jit(j_model.prefill, static_argnums=0)(jc, jp,
                                                          jnp.asarray(x))
