@@ -94,11 +94,24 @@ kernels from ``src/repro_torch/csrc/`` into ``build/kernels/`` and then:
      card vs CPU; LM training: one train step of every ported
      architecture's smoke config on the card against the CPU, then
      stablelm-1.6b at full width under ``Trainer`` (fp32 policy, 4 steps
-     of 8 x 1024 tokens in 2 micro-batches), killed before step 3 and
-     resumed from its step-2 checkpoint under ``build/chip_smoke_lm_train/``
-     (removed at the start and the end) to the uninterrupted run's state
-     bitwise, with no B9 or B10 launch; each run's launches are counted
-     on their own;
+     of 8 x 1024 tokens in 2 micro-batches) timed, and at full width with
+     the depth cut to 4 layers killed before step 3 and resumed from its
+     step-2 checkpoint under ``build/chip_smoke_lm_train/`` (removed at
+     the start and the end) to the uninterrupted run's state bitwise,
+     with no B9 or B10 launch; each run's launches are counted on their
+     own; then several devices (``mesh``): one NCCL rank in this process
+     on a (1, 1) ("data", "model") mesh: the training cell's widths and
+     settings on rows cut to one wave of 16 slots fitted with the mesh
+     and without (arrays, B1-sym / B2 / B4 launches and held-out
+     decisions bitwise equal), ``ef_psum_tree`` over stablelm-1.6b's full
+     gradient tree on the card against the CPU, one sharded ``Trainer``
+     step of stablelm-1.6b at full width (FSDP specs, sharded
+     activations) against the unsharded step, its parameters
+     checkpointed from the mesh and restored unsharded; then two ranks
+     on the one card (gloo, spawned): the fit split over a (2,) mesh,
+     each rank's block bitwise its one-process solve, the two ranks'
+     results equal and held against the one-rank fit cell by cell,
+     ``ef_psum`` over the two ranks;
   7. cell construction at UCI Covertype's full size (covtype_like rows,
      580,986 x 54, written to a memmap under ``build/chip_smoke_cells/``,
      removed at the start and the end of the phase): holds the
@@ -130,8 +143,12 @@ before printing any result.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
+import hashlib
 import json
+import multiprocessing
+import os
 import shutil
 import subprocess
 import sys
@@ -200,8 +217,12 @@ DRIFT_WINDOW_S = 1.0
 # 10 x 10 grid, SOLVER_POLISH 2, nplSVM with 5 weights), cut to RESUME_N
 # rows (7 cells) in waves of RESUME_WAVE slots: 3 waves; killed at
 # RESUME_KILLS (site, hit) and rerun, and once rerun over a complete
-# directory with one shard's byte flipped (RESUME_CORRUPT_WAVE)
+# directory with one shard's byte flipped (RESUME_CORRUPT_WAVE).  FISTA
+# is capped at RESUME_ITERS iterations, not the session's 1000: the phase
+# solves 15 waves, each its FISTA iterations (most solves run to the cap,
+# C4), and holds bits, counts and launches, which the cap leaves alone
 RESUME_N, RESUME_HELDOUT, RESUME_WAVE = 9000, 2000, 3
+RESUME_ITERS = 250
 RESUME_KILLS = (("trainer.wave.start", 2), ("trainer.wave.solved", 1),
                 ("checkpoint.save.pre_rename", 2))
 RESUME_CORRUPT_WAVE = 1
@@ -322,7 +343,26 @@ MAMBA_STATE_T, MAMBA_STATE_TOL, MAMBA_ALT_CHUNK = 64, 1e-4, 16
 MOE_EX_N, MOE_EX_T, MOE_EX_B, MOE_EX_CHUNKS = 4, 512, 3, (2, 3)
 TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM = "stablelm-1.6b", 1024, 8, 2
 TRAIN_STEPS, TRAIN_EVERY, TRAIN_FAIL_AT = 4, 2, 3
+# the kill and resume run at full width with the depth cut to 4 layers:
+# its checkpoints hold 8.6 GB, not the full depth's 23 GB (whose two saves
+# and one restore took ~135 s on an H100 machine)
+TRAIN_RESUME_LAYERS = 4
 TRAIN_DIR = ROOT / "build" / "chip_smoke_lm_train"
+# several devices (A4): the training cell's widths and settings on
+# covtype_like rows cut to one wave of MESH_SLOTS slots (MESH_N rows give
+# 16 recursive cells of <= 2000, k_max 1896), MESH_HELDOUT held out; the
+# LM step is stablelm-1.6b's (TRAIN_*) with FSDP specs and sharded
+# activations; files under MESH_DIR (removed at the start and the end)
+MESH_N, MESH_HELDOUT, MESH_SLOTS = 19600, 2000, 16
+MESH_DIR = ROOT / "build" / "chip_smoke_mesh"
+MESH_LOSS_TOL, MESH_PARAM_TOL = 2e-4, 5e-3   # test_torch_lm_mesh.py's
+MESH_EF_SAMPLE = 1 << 16   # positions a leaf held against the CPU's ef_psum
+# two ranks on one card: NCCL refuses two ranks on one device, so both
+# CPU and CUDA tensors go through gloo (staged through the host)
+MESH_TWO_BACKEND = "cpu:gloo,cuda:gloo"
+# every fit of the phase packs its cells for the two ranks, so the fit
+# without a mesh solves, in one process, the very wave the ranks split
+MESH_PACK = 2
 
 # cell-construction slice: UCI Covertype at full size (581,012 rows of 54
 # features, 7 classes; covtype_like rounds n down to 580,986), the spatial
@@ -373,7 +413,13 @@ KERNELS = {  # name -> (wrapper source, TPU kernel it replaces)
 }
 
 
+_T0 = time.perf_counter()
+PHASE_END_S = {}    # phase -> seconds since the start when it was emitted
+
+
 def emit(obj: dict) -> None:
+    if obj.get("phase") not in (None, "check"):
+        PHASE_END_S[obj["phase"]] = time.perf_counter() - _T0
     print(json.dumps(obj), flush=True)
 
 
@@ -755,9 +801,30 @@ def train_kernel_checks(torch, x_w, mask_w, n_folds: int, n_cols: int):
     return errs, prob
 
 
-def small_fit_parity(torch, dev, covtype_like, LiquidSVM, SVMTrainerConfig,
-                     make_fold_masks, argmin_winners):
-    """The small fit on the CPU and on the card: the same plan and fold
+def small_fit_run(device) -> dict:
+    """The small fit on ``device``: what ``small_fit_parity`` compares
+    (numpy), and its seconds."""
+    import torch  # noqa: F401  (the CPU process's first import)
+    from repro_torch.data.synthetic import covtype_like
+    from repro_torch.train.svm_trainer import LiquidSVM, SVMTrainerConfig
+    x, y = covtype_like(n=SMALL_N, d=54, n_classes=N_CLASSES, seed=SMALL_SEED)
+    t0 = time.perf_counter()
+    tr = LiquidSVM(SVMTrainerConfig(**SMALL_CFG), device=device).fit(
+        x, y).train_result
+    secs = time.perf_counter() - t0
+    return {"plan": {f: np.asarray(getattr(tr.plan, f)) for f in
+                     ("indices", "mask", "owner", "centers")},
+            "n_cells": tr.plan.n_cells, "k_max": tr.plan.k_max,
+            "fold_keys": np.asarray(tr.fold_keys),
+            "mask_cells": np.asarray(tr.mask_cells),
+            "surf_loss": np.asarray(tr.surf_loss),
+            "iters": np.asarray(tr.iters), "seconds": secs}
+
+
+def small_fit_parity(torch, dev, cpu: dict, make_fold_masks,
+                     argmin_winners):
+    """The small fit on the CPU (``cpu``: ``small_fit_run("cpu")``, run
+    beside the build) and on the card: the same plan and fold
     masks (bitwise); surfaces within FLIP_SHARE of each column's validation
     samples; every flip of a selected (gamma, lambda) within one validation
     sample's share of that column's loss.
@@ -769,62 +836,66 @@ def small_fit_parity(torch, dev, covtype_like, LiquidSVM, SVMTrainerConfig,
     0, which for decisions spread over their scale is about 1e-3 of the
     samples per unit of density: 1 % leaves a factor of ten for a denser
     neighbourhood of the boundary."""
-    x, y = covtype_like(n=SMALL_N, d=54, n_classes=N_CLASSES, seed=SMALL_SEED)
-    cfg = SVMTrainerConfig(**SMALL_CFG)
-    t0 = time.perf_counter()
-    m_cpu = LiquidSVM(cfg, device="cpu").fit(x, y)
-    t1 = time.perf_counter()
-    m_dev = LiquidSVM(cfg, device=dev).fit(x, y)
-    t2 = time.perf_counter()
-    a, b = m_cpu.train_result, m_dev.train_result
+    a, b = cpu, small_fit_run(dev)
     for field in ("indices", "mask", "owner", "centers"):
-        if not np.array_equal(getattr(a.plan, field), getattr(b.plan, field)):
+        if not np.array_equal(a["plan"][field], b["plan"][field]):
             raise Mismatch(f"small fit: cell plans differ in {field}")
-    if not np.array_equal(a.fold_keys, b.fold_keys):
+    if not np.array_equal(a["fold_keys"], b["fold_keys"]):
         raise Mismatch("small fit: fold keys differ")
-    mask = torch.as_tensor(a.mask_cells)
-    vm_cpu = make_fold_masks(a.fold_keys, mask, cfg.n_folds)
-    vm_dev = make_fold_masks(b.fold_keys, mask.to(dev), cfg.n_folds).cpu()
+    mask = torch.as_tensor(a["mask_cells"])
+    vm_cpu = make_fold_masks(a["fold_keys"], mask, SMALL_CFG["n_folds"])
+    vm_dev = make_fold_masks(b["fold_keys"], mask.to(dev),
+                             SMALL_CFG["n_folds"]).cpu()
     if not torch.equal(vm_cpu, vm_dev):
         raise Mismatch("small fit: fold masks differ")
+    par = surface_parity(vm_cpu, a["mask_cells"], a["surf_loss"],
+                         b["surf_loss"], argmin_winners)
+    emit({"phase": "small_fit", "n": SMALL_N, "cells": a["n_cells"],
+          "k_max": a["k_max"], "cpu_s": a["seconds"],
+          "card_s": b["seconds"], "plans_equal": True,
+          "fold_masks_equal": True, **par,
+          "iters_cpu_median": float(np.median(a["iters"])),
+          "iters_card_median": float(np.median(b["iters"]))})
+    if not par["ok"]:
+        raise Mismatch(f"small fit: surfaces or selections apart {par}")
+
+
+def surface_parity(vmask, mask_cells, surf_a, surf_b, argmin_winners
+                   ) -> dict:
+    """Two runs' validation surfaces of the same slots and folds (``vmask``
+    the (slots, F, k) validation masks): within FLIP_SHARE of each
+    column's validation samples (see ``small_fit_parity``), and every flip
+    of a selected (gamma, lambda) within one validation sample's share of
+    that column's loss.  Returns the measured values and ``ok``."""
     # one validation sample's share of a column's loss (mean over folds of
     # each fold's mean), per slot; OvA columns share the slot's mask
-    n_val = vm_cpu.sum(-1).clamp(min=1).double().numpy()       # (slots, F)
-    share = (1.0 / (cfg.n_folds * n_val)).max(-1)              # (slots,)
-    per_col = np.maximum(np.ceil(FLIP_SHARE * a.mask_cells.sum(-1)), 1.0)
-    diff = np.abs(a.surf_loss.astype(np.float64) - b.surf_loss)
+    n_folds = vmask.shape[1]
+    n_val = vmask.sum(-1).clamp(min=1).double().numpy()        # (slots, F)
+    share = (1.0 / (n_folds * n_val)).max(-1)                  # (slots,)
+    per_col = np.maximum(np.ceil(FLIP_SHARE * mask_cells.sum(-1)), 1.0)
+    diff = np.abs(surf_a.astype(np.float64) - surf_b)
     flips_eq = diff / share[:, None, None, None, None]         # samples
     ok_surf = bool((flips_eq <= per_col[:, None, None, None, None]
                     + 1e-3).all())
-    ga, la = argmin_winners(a.surf_loss)
-    gb, lb = argmin_winners(b.surf_loss)
+    ga, la = argmin_winners(surf_a)
+    gb, lb = argmin_winners(surf_b)
     moved = (ga != gb) | (la != lb)
     gaps = []
     for si, t, u in zip(*np.nonzero(moved)):
-        wa = (si, ga[si, t, u], t, la[si, t, u], u)   # CPU's winner
-        wb = (si, gb[si, t, u], t, lb[si, t, u], u)   # the card's winner
+        wa = (si, ga[si, t, u], t, la[si, t, u], u)   # the first's winner
+        wb = (si, gb[si, t, u], t, lb[si, t, u], u)   # the second's
         # what each run loses, on its own surface, by taking the other's
-        gaps.append(max(float(a.surf_loss[wb]) - float(a.surf_loss[wa]),
-                        float(b.surf_loss[wa]) - float(b.surf_loss[wb]))
+        gaps.append(max(float(surf_a[wb]) - float(surf_a[wa]),
+                        float(surf_b[wa]) - float(surf_b[wb]))
                     / share[si])
-    emit({"phase": "small_fit", "n": SMALL_N, "cells": a.plan.n_cells,
-          "k_max": a.plan.k_max, "cpu_s": t1 - t0, "card_s": t2 - t1,
-          "plans_equal": True, "fold_masks_equal": True,
-          "surface_max_abs_diff": float(diff.max()),
-          "surface_mean_abs_diff": float(diff.mean()),
-          "surface_max_flipped_samples": float(flips_eq.max()),
-          "surface_flip_limit": per_col.tolist(),
-          "selections": int(moved.size), "selection_flips": int(moved.sum()),
-          "flip_gaps_in_samples": gaps,
-          "iters_cpu_median": float(np.median(a.iters)),
-          "iters_card_median": float(np.median(b.iters)),
-          "ok": ok_surf and all(g <= 1.0 + 1e-3 for g in gaps)})
-    if not ok_surf:
-        raise Mismatch("small fit: surfaces differ by more than "
-                       f"{FLIP_SHARE} of a column's validation samples")
-    if any(g > 1.0 + 1e-3 for g in gaps):
-        raise Mismatch(f"small fit: a selection flip costs {max(gaps)} "
-                       f"validation samples (limit 1)")
+    return {"surface_max_abs_diff": float(diff.max()),
+            "surface_mean_abs_diff": float(diff.mean()),
+            "surface_max_flipped_samples": float(flips_eq.max()),
+            "surface_flip_limit": per_col.tolist(),
+            "selections": int(moved.size),
+            "selection_flips": int(moved.sum()),
+            "flip_gaps_in_samples": gaps,
+            "ok": ok_surf and all(g <= 1.0 + 1e-3 for g in gaps)}
 
 
 def full_fit(torch, dev, data, LiquidSVM, SVMTrainerConfig, tables,
@@ -1036,55 +1107,67 @@ def _binary(y: np.ndarray) -> np.ndarray:
     return np.where(y == 0, -1.0, 1.0).astype(np.float32)
 
 
-def staged_small(torch, dev, nplSVM, covtype_like, covtype_like_heldout,
-                 select_mod):
-    """An nplSVM session at n ~ 1000 on the CPU and on the card: the same
-    plans, the same argmin and npl winners, the same moved set and
-    ``stats`` counts (iterations aside), re-solved decisions within
-    RESOLVE_TOL of the largest."""
+def staged_small_run(device) -> dict:
+    """An nplSVM session at n ~ 1000 on ``device``: train, select, decide
+    the held-out rows; what ``staged_small`` compares (numpy, plain
+    values) and the seconds."""
+    from repro_torch.api import nplSVM
+    from repro_torch.core import select as select_mod
+    from repro_torch.data.synthetic import covtype_like, covtype_like_heldout
     x, y = covtype_like(n=SMALL_N, d=DIM, n_classes=2, seed=SMALL_SEED)
     xt, _ = covtype_like_heldout(2000, n=SMALL_N, d=DIM, n_classes=2,
                                  seed=SMALL_SEED, new_seed=HELDOUT_SEED)
-    y = _binary(y)
-    runs = {}
-    for label, device in (("cpu", "cpu"), ("card", dev)):
-        sess = nplSVM(x, y, constraint=STAGED_ALPHA, device=device,
-                      **STAGED_SMALL_KEYS)
-        t0 = time.perf_counter()
-        tr = sess.train()
-        t1 = time.perf_counter()
-        sel = sess.select()
-        t2 = time.perf_counter()
-        runs[label] = (tr, sel, t1 - t0, t2 - t1, sel.decision_function(xt))
-    (ta, sa, _, _, da), (tb, sb, _, _, db) = runs["cpu"], runs["card"]
+    sess = nplSVM(x, _binary(y), constraint=STAGED_ALPHA, device=device,
+                  **STAGED_SMALL_KEYS)
+    t0 = time.perf_counter()
+    tr = sess.train()
+    t1 = time.perf_counter()
+    sel = sess.select()
+    t2 = time.perf_counter()
+    npl = _np_rule(select_mod, tr, "npl", STAGED_ALPHA)
+    return {"plan": {f: np.asarray(getattr(tr.plan, f)) for f in
+                     ("indices", "mask", "owner", "centers")},
+            "n_cells": tr.plan.n_cells, "k_max": tr.plan.k_max,
+            "weights": list(tr.config.weights),
+            "argmin": [np.asarray(w) for w in
+                       select_mod.argmin_winners(tr.surf_loss)],
+            "npl": [np.asarray(npl.g_idx), np.asarray(npl.l_idx),
+                    np.asarray(npl.extras["np_weight_idx"])],
+            "moved": np.asarray(_moved(sel, tr)), "stats": dict(sel.stats),
+            "decisions": np.asarray(sel.decision_function(xt)),
+            "train_s": t1 - t0, "select_s": t2 - t1}
+
+
+def staged_small(dev, cpu: dict):
+    """An nplSVM session at n ~ 1000 on the CPU (``cpu``:
+    ``staged_small_run("cpu")``, run beside the build) and on the card:
+    the same plans, the same argmin and npl winners, the same moved set
+    and ``stats`` counts (iterations aside), re-solved decisions within
+    RESOLVE_TOL of the largest."""
+    a, b = cpu, staged_small_run(dev)
     for field in ("indices", "mask", "owner", "centers"):
-        if not np.array_equal(getattr(ta.plan, field),
-                              getattr(tb.plan, field)):
+        if not np.array_equal(a["plan"][field], b["plan"][field]):
             raise Mismatch(f"staged_small: cell plans differ in {field}")
-    arg_a = select_mod.argmin_winners(ta.surf_loss)
-    arg_b = select_mod.argmin_winners(tb.surf_loss)
-    npl_a = _np_rule(select_mod, ta, "npl", STAGED_ALPHA)
-    npl_b = _np_rule(select_mod, tb, "npl", STAGED_ALPHA)
-    same_argmin = all(np.array_equal(u, v) for u, v in zip(arg_a, arg_b))
-    same_npl = (np.array_equal(npl_a.g_idx, npl_b.g_idx)
-                and np.array_equal(npl_a.l_idx, npl_b.l_idx)
-                and np.array_equal(npl_a.extras["np_weight_idx"],
-                                   npl_b.extras["np_weight_idx"]))
-    same_moved = bool(np.array_equal(_moved(sa, ta), _moved(sb, tb)))
+    same_argmin = all(np.array_equal(u, v)
+                      for u, v in zip(a["argmin"], b["argmin"]))
+    same_npl = all(np.array_equal(u, v) for u, v in zip(a["npl"], b["npl"]))
+    same_moved = bool(np.array_equal(a["moved"], b["moved"]))
+    sa, sb = a["stats"], b["stats"]
+    da, db = a["decisions"], b["decisions"]
     counts = ("winners_moved", "columns_resolved", "resolve_calls",
               "grid_columns")
-    same_stats = all(sa.stats[k] == sb.stats[k] for k in counts)
+    same_stats = all(sa[k] == sb[k] for k in counts)
     scale = max(1.0, float(np.abs(da).max()))
     err = float(np.abs(da - db).max())
     ok = (same_argmin and same_npl and same_moved and same_stats
           and err <= RESOLVE_TOL * scale)
-    emit({"phase": "staged_small", "n": SMALL_N, "cells": ta.plan.n_cells,
-          "k_max": ta.plan.k_max, "weights": list(ta.config.weights),
-          "cpu_train_s": runs["cpu"][2], "card_train_s": runs["card"][2],
-          "cpu_select_s": runs["cpu"][3], "card_select_s": runs["card"][3],
+    emit({"phase": "staged_small", "n": SMALL_N, "cells": a["n_cells"],
+          "k_max": a["k_max"], "weights": a["weights"],
+          "cpu_train_s": a["train_s"], "card_train_s": b["train_s"],
+          "cpu_select_s": a["select_s"], "card_select_s": b["select_s"],
           "plans_equal": True, "argmin_winners_equal": same_argmin,
           "npl_winners_equal": same_npl, "moved_equal": same_moved,
-          "stats_cpu": sa.stats, "stats_card": sb.stats,
+          "stats_cpu": sa, "stats_card": sb,
           "decisions_max_abs_err": err, "tol": RESOLVE_TOL * scale,
           "ok": ok})
     if not ok:
@@ -1425,7 +1508,8 @@ def wave_resume(torch, dev, nplSVM, covtype_like, covtype_like_heldout,
                                  n_classes=2, seed=SEED,
                                  new_seed=HELDOUT_SEED)
     y = _binary(y)
-    keys = dict(STAGED_KEYS, WAVE_SLOTS=RESUME_WAVE)
+    keys = dict(STAGED_KEYS, WAVE_SLOTS=RESUME_WAVE,
+                MAX_ITERATIONS=RESUME_ITERS)
     names = ("train.waves_solved", "train.waves_restored",
              "train.corrupt_waves")
     shutil.rmtree(RESUME_DIR, ignore_errors=True)
@@ -1549,6 +1633,10 @@ def wave_resume(torch, dev, nplSVM, covtype_like, covtype_like_heldout,
     return paths
 
 
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+_HOST_CATS = ("cpu_op", "cuda_runtime", "cuda_driver")
+
+
 def _profile(torch, fn, per: int = 1, top: int = 8,
              host_top: int = 0) -> dict:
     """One call of ``fn`` under ``torch.profiler``, every time and count
@@ -1556,7 +1644,10 @@ def _profile(torch, fn, per: int = 1, top: int = 8,
     busy ms and share (a lower bound: the profiler slows the host), the
     kernel launches, the host operator calls, the ``top`` kernels by
     device time and, with ``host_top``, that many host operators by
-    their own time."""
+    their own time (less their nested operators' and runtime calls').
+    Read from the profiler's trace, written by its C++ side and parsed
+    as JSON: ``key_averages`` built its Python events for a staged
+    select's ~10^6 events in 56 s on the host of an H100 machine."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -1565,30 +1656,48 @@ def _profile(torch, fn, per: int = 1, top: int = 8,
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    # the kernels' own rows: an operator's row repeats its kernels' time
-    ev = prof.key_averages()
-    cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in ev if e.device_type == cuda]
-    host = [e for e in ev if e.device_type != cuda]
-    dev_ms = sum(dev_us(e) for e in kernels) / 1e3
+    path = ROOT / "build" / "chip_smoke_profile.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    try:
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("ph") == "X"]
+    finally:
+        path.unlink(missing_ok=True)
+    dev_us, n_dev = collections.Counter(), 0
+    host = collections.defaultdict(list)          # (pid, tid) -> events
+    for e in events:
+        if e.get("cat") in _DEVICE_CATS:
+            dev_us[e["name"]] += e["dur"]
+            n_dev += 1
+        elif e.get("cat") in _HOST_CATS:
+            host[(e["pid"], e["tid"])].append(e)
+    dev_ms = sum(dev_us.values()) / 1e3
     res = {"wall_ms": wall_ms / per, "device_ms": dev_ms / per,
            "device_busy_share": dev_ms / wall_ms,
-           "kernel_launches": sum(e.count for e in kernels) / per,
-           "host_op_calls": sum(e.count for e in host
-                                if e.key.startswith("aten::")) / per,
-           "top_kernels_ms": {
-               e.key[:60]: dev_us(e) / 1e3 / per
-               for e in sorted(kernels, key=lambda e: -dev_us(e))[:top]}}
+           "kernel_launches": n_dev / per,
+           "host_op_calls": sum(e["cat"] == "cpu_op"
+                                and e["name"].startswith("aten::")
+                                for evs in host.values() for e in evs) / per,
+           "top_kernels_ms": {k[:60]: v / 1e3 / per
+                              for k, v in dev_us.most_common(top)}}
     if host_top:
-        res["top_host_ops_ms"] = {
-            e.key[:60]: e.self_cpu_time_total / 1e3 / per
-            for e in sorted(host, key=lambda e: -e.self_cpu_time_total)
-            [:host_top]}
+        own = collections.Counter()
+        for evs in host.values():
+            evs.sort(key=lambda e: (e["ts"], -e["dur"]))
+            stack = []                       # [end, event, own us]
+            for e in evs + [None]:
+                while stack and (e is None or stack[-1][0] <= e["ts"]):
+                    _, done, us = stack.pop()
+                    if done["cat"] == "cpu_op":
+                        own[done["name"]] += us
+                if e is not None:
+                    if stack:
+                        stack[-1][2] -= e["dur"]
+                    stack.append([e["ts"] + e["dur"], e, e["dur"]])
+        res["top_host_ops_ms"] = {k[:60]: v / 1e3 / per
+                                  for k, v in own.most_common(host_top)}
     return res
 
 
@@ -2668,11 +2777,12 @@ def lm_train(torch, dev, tables):
     in f32: one train step's loss and gradients on the card against the
     CPU's, the attention projections' gradients nonzero.  stablelm-1.6b at
     full width under ``Trainer`` (fp32 policy): TRAIN_STEPS steps timed
-    with the loss each step and the peak memory; the same run killed
+    with the loss each step and the peak memory (no checkpoint); then at
+    full width with the depth cut to TRAIN_RESUME_LAYERS, a run killed
     before step TRAIN_FAIL_AT and resumed from its step-TRAIN_EVERY
-    checkpoint ends bitwise equal; B9 and B10 launch no time, and B9
-    refuses an operand that requires grad.  Returns the runs' launch
-    counts."""
+    checkpoint ends bitwise equal to the uninterrupted run; B9 and B10
+    launch no time, and B9 refuses an operand that requires grad.
+    Returns the runs' launch counts."""
     import dataclasses
     import os
     from repro_torch.configs import ARCH_IDS, get_arch
@@ -2742,14 +2852,15 @@ def lm_train(torch, dev, tables):
     if not refused:
         raise Mismatch("flash_attention: refused for another reason")
     cfg = get_arch(TRAIN_ARCH).config
+    cfg_cut = dataclasses.replace(cfg, n_layers=TRAIN_RESUME_LAYERS)
     pipe = TokenPipeline(TokenPipelineConfig(
         vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
         seed=SEED))
     opt_cfg = OptConfig(policy="fp32", warmup_steps=2,
                         total_steps=TRAIN_STEPS)
 
-    def trainer(ckpt_dir):
-        return Trainer(cfg, opt_cfg, TrainLoopConfig(
+    def trainer(model_cfg, ckpt_dir):
+        return Trainer(model_cfg, opt_cfg, TrainLoopConfig(
             total_steps=TRAIN_STEPS, grad_accum=TRAIN_ACCUM,
             ckpt_every=TRAIN_EVERY, keep_last=1, log_every=1,
             ckpt_dir=None if ckpt_dir is None else str(ckpt_dir)),
@@ -2763,13 +2874,22 @@ def lm_train(torch, dev, tables):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         zero_counts(tables)
-        run = trainer(None).run(seed=SEED)
+        run = trainer(cfg, None).run(seed=SEED)
+        torch.cuda.synchronize()
+        paths["train[full depth]"] = read_counts(tables)
+        require_launches("lm_train full depth", paths["train[full depth]"],
+                         {})
+        peak = torch.cuda.max_memory_allocated(dev)
+        hist = run["history"]
+        del run
+        torch.cuda.empty_cache()
+        zero_counts(tables)
+        run = trainer(cfg_cut, None).run(seed=SEED)
         torch.cuda.synchronize()
         paths["train[uninterrupted]"] = read_counts(tables)
         require_launches("lm_train uninterrupted",
                          paths["train[uninterrupted]"], {})
-        peak = torch.cuda.max_memory_allocated(dev)
-        hist = run["history"]
+        cut_hist = run["history"]
         want = [leaf.detach().cpu() for leaf in
                 ckpt_mod.tree_leaves((run["params"], run["opt"]))]
         del run
@@ -2777,7 +2897,7 @@ def lm_train(torch, dev, tables):
         zero_counts(tables)
         t0 = time.perf_counter()
         try:
-            trainer(TRAIN_DIR).run(seed=SEED, fail_at=TRAIN_FAIL_AT)
+            trainer(cfg_cut, TRAIN_DIR).run(seed=SEED, fail_at=TRAIN_FAIL_AT)
             raise Mismatch("lm_train: the injected failure did not fire")
         except RuntimeError as e:
             if "injected failure" not in str(e):
@@ -2788,7 +2908,7 @@ def lm_train(torch, dev, tables):
                       if f.is_file()) / 1e9
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        resumed = trainer(TRAIN_DIR).run(seed=SEED)
+        resumed = trainer(cfg_cut, TRAIN_DIR).run(seed=SEED)
         resumed_s = time.perf_counter() - t0
         paths["train[killed and resumed]"] = read_counts(tables)
         require_launches("lm_train killed and resumed",
@@ -2818,6 +2938,9 @@ def lm_train(torch, dev, tables):
           "tokens_per_s_after_first": tokens * (len(times) - 1)
               / (times[-1] - times[0]),
           "peak_memory_gb": peak / 1e9,
+          "resume_layers": cfg_cut.n_layers,
+          "resume_params": cfg_cut.param_count(),
+          "resume_loss_by_step": [h["loss"] for h in cut_hist],
           "checkpoint_steps_before_resume": saved,
           "checkpoint_gb": ckpt_gb, "disk_free_gb_before": free_gb,
           "killed_run_s": killed_s, "resumed_run_s": resumed_s,
@@ -2832,6 +2955,427 @@ def lm_train(torch, dev, tables):
         raise Mismatch(f"lm_train: checkpoints {saved} before the resume, "
                        f"losses {losses}")
     torch.cuda.empty_cache()
+    return paths
+
+
+# ------------------------------------------------- several devices (A4)
+def _fit_arrays(tr) -> dict:
+    return {k: np.asarray(getattr(tr, k)) for k in
+            ("coefs", "gamma", "lam", "tau", "val_loss", "surf_loss",
+             "surf_fa", "surf_det", "iters")}
+
+
+def _wave_digest(args) -> str:
+    """sha256 of a wave's inputs (x, y, task mask, mask, gammas, keys)."""
+    h = hashlib.sha256()
+    for a in args[:6]:
+        h.update(np.ascontiguousarray(np.asarray(
+            a.cpu() if hasattr(a, "cpu") else a)).tobytes())
+    return h.hexdigest()
+
+
+def _counted_fit(torch, dev, data, cfg, tables, label: str, mesh=None,
+                 axes=None, keep_wave: bool = False):
+    """``LiquidSVM(cfg, mesh=...)`` fitted with the launches of its waves
+    counted (only those: the counts are set to 0 as each wave starts and
+    read as it ends), then its decisions on the held-out rows with the
+    test phase's launches counted alone.  The cells are packed for
+    MESH_PACK ranks whatever the mesh (``pack_cells`` patched into the
+    session), so every fit of the phase solves the same slots.  The
+    fit's first B1-sym, B2 and B4 launches and the test phase's B1 and B2
+    are replayed against their plain versions (``replay_kernels``).
+    Returns (model, fit counts, test counts, seconds, decisions, replays,
+    the first wave's (args, kwargs, outputs on the host) when
+    ``keep_wave``)."""
+    from repro_torch.api import session as session_mod
+    from repro_torch.distributed import cell_trainer
+    from repro_torch.distributed.planner import pack_cells
+    from repro_torch.train.svm_trainer import LiquidSVM
+    x, y, xt = data
+    solve_wave = cell_trainer.train_cells
+    per_wave, waves = [], []
+
+    def counted_wave(*args, **kwargs):
+        zero_counts(tables)
+        out = solve_wave(*args, **kwargs)
+        per_wave.append(read_counts(tables))
+        if keep_wave and not waves:
+            waves.append((args, kwargs, [o.cpu() for o in out]))
+        return out
+
+    model = LiquidSVM(cfg, device=dev, mesh=mesh, mesh_axes=axes)
+    cell_trainer.train_cells = counted_wave
+    session_mod.pack_cells = lambda plan, n_dev: pack_cells(plan, MESH_PACK)
+    try:
+        with recorded_kernels(dev, keep=1) as fit_rec:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.fit(x, y)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+    finally:
+        cell_trainer.train_cells = solve_wave
+        session_mod.pack_cells = pack_cells
+    counts = {k: sum(c[k] for c in per_wave) for k in per_wave[0]}
+    zero_counts(tables)
+    with recorded_kernels(dev, keep=1) as test_rec:
+        dec = model.decision_function(xt)
+        torch.cuda.synchronize()
+    test_counts = read_counts(tables)
+    replays = {
+        "fit": replay_kernels(torch, f"{label} fit", fit_rec, {
+            "sq_dists_sym": 1, "gram_from_d2": 1, "cd_wave_epoch": 1}),
+        "test": replay_kernels(torch, f"{label} test phase", test_rec, {
+            "sq_dists": 1, "gram_from_d2": 1})}
+    return (model, counts, test_counts, secs, dec, replays,
+            waves[0] if waves else None)
+
+
+def mesh_two_ranks(data, cfg_kw: dict, seed: int):
+    """One rank of the two-rank run on one card (``launch.local.run_local``
+    with gloo for CPU and CUDA tensors): the fit split over a (2,)
+    ``("data",)`` mesh with its own launches replayed, this rank's block
+    of the wave solved again alone (bitwise the block it solved under the
+    mesh: the same slots at the same batch), and ``ef_psum`` of a seeded
+    (1 << 20,) gradient.  Returns numpy results for the parent."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import cell_trainer
+    from repro_torch.distributed.compression import ef_psum
+    from repro_torch.kernels.cd_solver import ops as cd_ops
+    from repro_torch.kernels.kernel_matrix import ops as km_ops
+    from repro_torch.kernels.svm_predict import ops as sp_ops
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.kernels import runtime
+    from repro_torch.train.svm_trainer import SVMTrainerConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = runtime.resolve_device(None)
+    rank = dist.get_rank()
+    tables = (km_ops.launches, sp_ops.launches, cd_ops.launches)
+    mesh = mesh_mod.make_mesh((2,), ("data",))
+    cfg = SVMTrainerConfig(**cfg_kw)
+    model, counts, test_counts, secs, dec, replays, (args, kw, out) = (
+        _counted_fit(torch, dev, data, cfg, tables, f"mesh rank {rank}",
+                     mesh, ("data",), keep_wave=True))
+    kw = {k: v for k, v in kw.items() if k not in ("mesh", "axis_names")}
+    b = cell_trainer._block(args[0].shape[0], mesh, ("data",))
+    with runtime.full_fp32():
+        alone = cell_trainer.train_cells(
+            *[a[b] for a in args[:5]], np.asarray(args[5])[b], *args[6:],
+            **kw)
+    torch.cuda.synchronize()
+    block_same = all(torch.equal(o[b], a.cpu()) for o, a in zip(out, alone))
+    g = torch.randn(1 << 20, generator=torch.Generator().manual_seed(
+        seed + rank)).to(dev)
+    g_hat, err = ef_psum(g, torch.zeros_like(g), "data", mesh)
+    torch.cuda.synchronize()
+    return {"rank": rank, "device": str(dev), "seconds": secs,
+            "launches": counts, "test_launches": test_counts,
+            "replays": replays, "block": [b.start, b.stop],
+            "wave_digest": _wave_digest(args),
+            "wave_out": [o.numpy() for o in out],
+            "block_bitwise_alone": bool(block_same),
+            "arrays": _fit_arrays(model.train_result), "decisions": dec,
+            "ef": {"g": g.cpu().numpy(), "out": g_hat.cpu().numpy(),
+                   "err": err.cpu().numpy()}}
+
+
+def mesh_phase(torch, dev, tables, smi: str):
+    """Several devices (A4) on the one card.  Returns the paths' launch
+    counts.
+
+    1. One NCCL rank in this process (``cpu:gloo,cuda:nccl`` over a file
+       store under MESH_DIR), a (1, 1) ``("data", "model")`` mesh: the
+       training cell's widths and settings at MESH_N rows (one wave of
+       MESH_SLOTS slots, packed for the MESH_PACK ranks of part 2)
+       fitted without a mesh and with it: arrays, launches and held-out
+       decisions bitwise equal, each fit's first B1-sym, B2 and B4 and
+       its test phase's B1 and B2 replayed; ``ef_psum_tree``
+       over stablelm-1.6b's full gradient tree (seeded f32) on the card,
+       with ms and bytes, against the CPU's ``ef_psum`` of each leaf at
+       MESH_EF_SAMPLE + 1 positions (its largest |g| among them, so the
+       scale is the leaf's); one
+       ``Trainer`` step of stablelm-1.6b at full width with ``fsdp_params``
+       and ``shard_activations`` on the mesh against the unsharded step
+       (loss within MESH_LOSS_TOL, parameters within MESH_PARAM_TOL:
+       ``test_torch_lm_mesh.py``'s bounds), step ms and peak GB; its
+       parameters checkpointed from the mesh and restored into the
+       unsharded tree bitwise.
+    2. Two ranks on the one card (MESH_TWO_BACKEND; NCCL refuses two ranks
+       on one card): the same fit split over a (2,) mesh, each rank's
+       launches replayed; each rank's block bitwise its one-process solve
+       at the same batch; both ranks' results equal; the gathered wave
+       against the fit without a mesh of part 1, which solved the same
+       wave (the same inputs, by digest) in one process (``surface_parity``:
+       cuBLAS may pick other algorithms for another batch); ``ef_psum``
+       over the two ranks equal on both and to its f32 arithmetic done
+       here."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import runtime
+    from repro_torch.data.synthetic import covtype_like, covtype_like_heldout
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.distributed.compression import ef_psum, ef_psum_tree
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.local import run_local
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.layers import tree_items, tree_map
+    from repro_torch.train import checkpoint as ckpt_mod
+    from repro_torch.train.lm_trainer import Trainer, TrainLoopConfig
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.svm_trainer import SVMTrainerConfig
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    x, y = covtype_like(n=MESH_N, d=DIM, n_classes=N_CLASSES, seed=SEED)
+    xt, _ = covtype_like_heldout(MESH_HELDOUT, n=MESH_N, d=DIM,
+                                 n_classes=N_CLASSES, seed=SEED,
+                                 new_seed=HELDOUT_SEED)
+    data = (x, y, xt)
+    cfg_kw = dict(TRAIN_CFG, n_slots_per_wave=MESH_SLOTS)
+    cfg = SVMTrainerConfig(**cfg_kw)
+    paths = {}
+    out = {"phase": "mesh", "card": smi, "n": int(x.shape[0]),
+           "slots": MESH_SLOTS}
+
+    # ------------------------------------------------ 1. one NCCL rank
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"file://{MESH_DIR / 'store'}",
+                            rank=0, world_size=1)
+    try:
+        mesh = mesh_mod.make_mesh((1, 1), ("data", "model"))
+        axes = ("data", "model")
+        plain, n_plain, t_plain, s_plain, dec_plain, rep_plain, wave = (
+            _counted_fit(torch, dev, data, cfg, tables, "mesh unmeshed",
+                         keep_wave=True))
+        meshed, n_mesh, t_mesh, s_mesh, dec_mesh, rep_mesh, _ = _counted_fit(
+            torch, dev, data, cfg, tables, "mesh (1, 1)", mesh, axes)
+        paths.update({"fit": n_plain, "test": t_plain,
+                      "fit[(1, 1) mesh]": n_mesh,
+                      "test[(1, 1) mesh]": t_mesh})
+        expect_fit = {k: v for k, v in n_plain.items() if v}
+        expect_test = {k: v for k, v in t_plain.items() if v}
+        if set(expect_fit) != {"sq_dists_sym", "gram_from_d2",
+                               "cd_wave_epoch"} or set(expect_test) != {
+                "sq_dists", "gram_from_d2"}:
+            raise Mismatch(f"mesh: the fit launched {n_plain}, its test "
+                           f"phase {t_plain}")
+        a, b = _fit_arrays(plain.train_result), _fit_arrays(
+            meshed.train_result)
+        same = all(np.array_equal(a[k], b[k]) for k in a)
+        if plain.packed.n_slots > MESH_SLOTS:
+            raise Mismatch(f"mesh: {plain.packed.n_slots} slots, more than "
+                           f"one wave of {MESH_SLOTS}")
+        require_launches("mesh fit on one rank", n_mesh, expect_fit)
+        require_launches("mesh test phase on one rank", t_mesh, expect_test)
+        out["one_rank"] = {
+            "backend": "cpu:gloo,cuda:nccl", "mesh": [1, 1],
+            "cells": plain.plan.n_cells, "k_max": plain.plan.k_max,
+            "fit_s": s_plain, "mesh_fit_s": s_mesh, "launches": n_plain,
+            "mesh_launches": n_mesh, "test_launches": t_plain,
+            "mesh_test_launches": t_mesh, "replays": {
+                "unmeshed": rep_plain, "mesh": rep_mesh},
+            "arrays_bitwise": same,
+            "decisions_bitwise": bool(np.array_equal(dec_plain, dec_mesh))}
+        if not (same and out["one_rank"]["decisions_bitwise"]):
+            raise Mismatch("mesh: the (1, 1) mesh fit differs from the fit "
+                           "without a mesh")
+        emit({"phase": "mesh_one_rank", **out["one_rank"]})
+        del plain, meshed
+
+        # ef_psum_tree over the full gradient tree, card against CPU
+        lm = get_arch(TRAIN_ARCH).config
+        cpu_mesh = mesh_mod.make_mesh((1,), ("pod",), "cpu")
+        dev_mesh = mesh_mod.make_mesh((1,), ("pod",))
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        grads = tree_map(lambda s: torch.randn(
+            s.shape, generator=gen, device=dev, dtype=torch.float32) * 1e-3,
+            model_mod.build_template(lm))
+        errs = tree_map(torch.zeros_like, grads)
+        n_el = sum(g.numel() for _, g in tree_items(grads))
+        ef_psum_tree(grads, errs, "pod", dev_mesh)       # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g_hat, new_err = ef_psum_tree(grads, errs, "pod", dev_mesh)
+        torch.cuda.synchronize()
+        ef_ms = (time.perf_counter() - t0) * 1e3
+        # the CPU's ef_psum of each leaf at MESH_EF_SAMPLE + 1 positions:
+        # its first MESH_EF_SAMPLE and the one of largest |g|, so the
+        # sample's scale is the leaf's (the whole tree took 36 s on the
+        # host CPU of an H100 machine)
+        worst = {"out": 0.0, "err": 0.0}
+        t0 = time.perf_counter()
+        for (path, g), (_, o), (_, e) in zip(tree_items(grads),
+                                             tree_items(g_hat),
+                                             tree_items(new_err)):
+            flat = g.reshape(-1)
+            idx = torch.cat([torch.arange(min(MESH_EF_SAMPLE, flat.numel()),
+                                          device=dev),
+                             torch.argmax(flat.abs())[None]])
+            gc = flat[idx].cpu()
+            oc, ec = ef_psum(gc, torch.zeros_like(gc), "pod", cpu_mesh)
+            worst["out"] = max(worst["out"], float(
+                (o.reshape(-1)[idx].cpu() - oc).abs().max()))
+            worst["err"] = max(worst["err"], float(
+                (e.reshape(-1)[idx].cpu() - ec).abs().max()))
+        cpu_s = time.perf_counter() - t0
+        out["ef_psum_tree"] = {
+            "arch": lm.name, "leaves": len(list(tree_items(grads))),
+            "elements": n_el, "ms": ef_ms, "f32_bytes": 4 * n_el,
+            "int8_wire_bytes": n_el, "int32_reduced_bytes": 4 * n_el,
+            "max_abs_diff_vs_cpu": worst, "cpu_positions_per_leaf":
+                MESH_EF_SAMPLE + 1, "cpu_s": cpu_s}
+        emit({"phase": "mesh_ef_psum_tree", **out["ef_psum_tree"]})
+        del grads, errs, g_hat, new_err
+        torch.cuda.empty_cache()
+        if worst["out"] or worst["err"]:
+            raise Mismatch(f"ef_psum_tree on the card vs the CPU: {worst}")
+
+        # one sharded Trainer step against the unsharded step
+        lm_cfg = dataclasses.replace(lm, fsdp_params=True,
+                                     batch_axes=("data",),
+                                     shard_activations=True)
+        pipe = TokenPipeline(TokenPipelineConfig(
+            vocab=lm.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+            seed=SEED))
+        opt_cfg = OptConfig(policy="fp32", warmup_steps=2,
+                            total_steps=TRAIN_STEPS)
+        loop = TrainLoopConfig(total_steps=1, grad_accum=TRAIN_ACCUM,
+                               ckpt_every=100, log_every=1)
+        steps = {}
+        for label, m in (("unsharded", None), ("mesh", mesh)):
+            zero_counts(tables)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            run = Trainer(lm_cfg, opt_cfg, loop, pipe, mesh=m,
+                          device=dev).run(seed=SEED)
+            torch.cuda.synchronize()
+            full = {p: (v.full_tensor() if m is not None else v)
+                    for p, v in tree_items(run["params"])}
+            steps[label] = {
+                "run_s": time.perf_counter() - t0,
+                "step_ms": 1e3 * run["history"][0]["elapsed_s"],
+                "loss": run["history"][0]["loss"],
+                "grad_norm": run["history"][0]["grad_norm"],
+                "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                "launches": read_counts(tables)}
+            paths[f"lm_step[{label}]"] = steps[label]["launches"]
+            require_launches(f"mesh lm step {label}",
+                             steps[label]["launches"], {})
+            if m is None:
+                # host memory, so the mesh run's peak is its own; compared
+                # leaf by leaf on the card
+                want = {p: v.cpu() for p, v in full.items()}
+            else:
+                d_param = max(float((v.float() - want[p].to(dev).float())
+                                    .abs().max()) for p, v in full.items())
+                # its parameters checkpointed from the mesh, restored into
+                # the unsharded tree
+                t1 = time.perf_counter()
+                ckpt_mod.save_checkpoint(str(MESH_DIR / "ckpt"), 1,
+                                         run["params"])
+                save_s = time.perf_counter() - t1
+                t1 = time.perf_counter()
+                stored, _, _ = ckpt_mod.restore_checkpoint(
+                    str(MESH_DIR / "ckpt"), tree_map(
+                        lambda s: 0, model_mod.build_template(lm_cfg)))
+                restore_s = time.perf_counter() - t1
+                restored = all(torch.equal(torch.as_tensor(v).to(dev),
+                                           full[p])
+                               for p, v in tree_items(stored))
+                del stored
+            del run, full
+        torch.cuda.empty_cache()
+        d_loss = abs(steps["mesh"]["loss"] - steps["unsharded"]["loss"])
+        out["lm_step"] = {"arch": lm_cfg.name, "fsdp_params": True,
+                          "shard_activations": True,
+                          "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+                          "grad_accum": TRAIN_ACCUM, **steps,
+                          "loss_diff": d_loss, "max_param_diff": d_param,
+                          "tol": [MESH_LOSS_TOL, MESH_PARAM_TOL],
+                          "checkpoint_save_s": save_s,
+                          "checkpoint_restore_s": restore_s,
+                          "restored_unsharded_bitwise": restored}
+        emit({"phase": "mesh_lm_step", **out["lm_step"]})
+        del want
+        if not (d_loss < MESH_LOSS_TOL and d_param < MESH_PARAM_TOL):
+            raise Mismatch(f"mesh lm step: loss diff {d_loss}, param diff "
+                           f"{d_param}")
+        if not restored:
+            raise Mismatch("mesh lm step: the checkpoint restored into the "
+                           "unsharded tree differs")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(MESH_DIR / "ckpt", ignore_errors=True)
+
+    # ------------------------------------------- 2. two ranks, one card
+    t0 = time.perf_counter()
+    ranks = run_local(mesh_two_ranks, 2, data, cfg_kw, SEED,
+                      backend=MESH_TWO_BACKEND, threads=None, timeout=600,
+                      work_dir=str(MESH_DIR))
+    two_s = time.perf_counter() - t0
+    r0, r1 = ranks
+    both_same = all(np.array_equal(r0["arrays"][k], r1["arrays"][k])
+                    for k in r0["arrays"]) and np.array_equal(
+        r0["decisions"], r1["decisions"])
+    for r in ranks:
+        # each rank runs the one wave's B1-sym / B2 / B4 on its block, and
+        # its block's test phase (B1, B2)
+        require_launches(f"mesh two ranks: rank {r['rank']}", r["launches"],
+                         expect_fit)
+        if set(k for k, v in r["test_launches"].items() if v) != set(
+                expect_test):
+            raise Mismatch(f"mesh two ranks: rank {r['rank']}'s test phase "
+                           f"launched {r['test_launches']}")
+    # the gathered wave against the fit without a mesh, which solved the
+    # same wave in one process (cuBLAS may pick other algorithms for
+    # another batch: the CPU-vs-card tolerance of small_fit_parity)
+    from repro_torch.core.cv import make_fold_masks
+    from repro_torch.core.select import argmin_winners
+    from repro_torch.distributed import cell_trainer
+    w_args, _, w_out = wave
+    if any(r["wave_digest"] != _wave_digest(w_args) for r in ranks):
+        raise Mismatch("mesh two ranks: their wave's inputs differ from "
+                       "the one-rank fit's")
+    surf = cell_trainer.wave_keys(w_args[9]).index("surf_loss")
+    mask_w = w_args[3].cpu()
+    vmask = make_fold_masks(np.asarray(w_args[5]), mask_w, cfg.n_folds)
+    parity = surface_parity(vmask, mask_w.numpy(), w_out[surf].numpy(),
+                            r0["wave_out"][surf], argmin_winners)
+    del wave, w_args, w_out
+    g = np.stack([r["ef"]["g"] for r in ranks])
+    f32 = np.float32
+    scale = max(f32(np.abs(g).max()) / f32(127.0), f32(1e-30))
+    q = np.clip(np.round(g / scale), -127, 127)
+    want_out = q.sum(0).astype(f32) * scale / f32(2)
+    ef_diff = max(float(np.abs(r["ef"]["out"] - want_out).max())
+                  for r in ranks)
+    err_diff = max(float(np.abs(r["ef"]["err"] - (g[i] - q[i].astype(f32)
+                                                  * scale)).max())
+                   for i, r in enumerate(ranks))
+    out["two_ranks"] = {
+        "backend": MESH_TWO_BACKEND, "mesh": [2], "seconds": two_s,
+        "fit_s": [r["seconds"] for r in ranks],
+        "devices": [r["device"] for r in ranks],
+        "blocks": [r["block"] for r in ranks],
+        "launches": [r["launches"] for r in ranks],
+        "test_launches": [r["test_launches"] for r in ranks],
+        "replays": [r["replays"] for r in ranks],
+        "blocks_bitwise_alone": [r["block_bitwise_alone"] for r in ranks],
+        "ranks_equal": both_same, "vs_unmeshed_fit": parity,
+        "ef_psum": {"elements": int(g.shape[1]), "max_abs_diff": ef_diff,
+                    "residual_max_abs_diff": err_diff}}
+    for i, r in enumerate(ranks):
+        paths[f"two_ranks[rank {i}]"] = r["launches"]
+        paths[f"two_ranks_test[rank {i}]"] = r["test_launches"]
+    out["ok"] = bool(all(r["block_bitwise_alone"] for r in ranks)
+                     and both_same and parity["ok"] and ef_diff == 0.0
+                     and err_diff <= 2.0 ** -23 * float(np.abs(g).max()))
+    emit(out)
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    if not out["ok"]:
+        raise Mismatch(f"mesh: two ranks {out['two_ranks']}")
     return paths
 
 
@@ -3797,7 +4341,6 @@ def main() -> int:
     from repro_torch.kernels.assign import ops as as_ops
     from repro_torch.api import nplSVM
     from repro_torch.api import session as session_mod
-    from repro_torch.core import select as select_mod
     from repro_torch.serve.refresh import refresh_drifted
     tables = (km_ops.launches, sp_ops.launches, cd_ops.launches,
               fa_ops.launches, dec_ops.launches, as_ops.launches)
@@ -3814,6 +4357,14 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0], flush=True)
+    # the CPU sides of the two small CPU-vs-card fits need no kernel: one
+    # process of their own runs them beside the build (~45 s on the host),
+    # niced so that nvcc keeps the cores it needs
+    cpu_pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"),
+        initializer=os.nice, initargs=(10,))
+    cpu_small = cpu_pool.submit(small_fit_run, "cpu")
+    cpu_staged = cpu_pool.submit(staged_small_run, "cpu")
     t0 = time.perf_counter()
     logs = runtime.build()
     build_s = time.perf_counter() - t0
@@ -4053,8 +4604,8 @@ def main() -> int:
                                        torch.as_tensor(mask_w).to(dev),
                                        n_f, n_cols)
     errs.update(errs_t)
-    small_fit_parity(torch, dev, covtype_like, LiquidSVM, SVMTrainerConfig,
-                     make_fold_masks, argmin_winners)
+    small_fit_parity(torch, dev, cpu_small.result(), make_fold_masks,
+                     argmin_winners)
     model, fit_counts, test_counts, dec_df, err_df, test_d2 = full_fit(
         torch, dev, (x_tr, y_tr, x_te, y_te), LiquidSVM, SVMTrainerConfig,
         tables, cell_trainer, obs)
@@ -4063,8 +4614,8 @@ def main() -> int:
     b5_counts = b5_entry(torch, dev, model, tables)
     fista_profile(torch, prob)
     del model
-    staged_small(torch, dev, nplSVM, covtype_like, covtype_like_heldout,
-                 select_mod)
+    staged_small(dev, cpu_staged.result())
+    cpu_pool.shutdown()
     staged_paths = staged(torch, dev, nplSVM, covtype_like,
                           covtype_like_heldout, tables, refs, session_mod,
                           ModelBank, refresh_drifted)
@@ -4110,6 +4661,12 @@ def main() -> int:
                 for name in embed_counts}
     del ex, src_tr, src_ho
     torch.cuda.empty_cache()
+
+    # ------------------------------------------ 6b. several devices (A4)
+    mesh_paths = mesh_phase(torch, dev, tables, smi.splitlines()[0])
+    emit({"phase": "mesh_launches", "per_path": mesh_paths})
+    launches = {name: n + sum(c.get(name, 0) for c in mesh_paths.values())
+                for name, n in launches.items()}
 
     # ------------------------------------------- 7. cell construction
     t0 = time.perf_counter()
@@ -4355,6 +4912,7 @@ def main() -> int:
                           "svm_predict": [ONE_CELL_TEST, ONE_CELL_N, DIM,
                                           N_CLASSES]},
           "card": smi.splitlines()[0]})
+    emit({"phase": "timeline", "seconds_at_phase_end": dict(PHASE_END_S)})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -46,6 +46,7 @@ from repro_torch.distributed.cell_trainer import (predict_cells,
                                                   train_cells_waves)
 from repro_torch.distributed.planner import PackedCells, group_rows, pack_cells
 from repro_torch.kernels import runtime
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.pipeline.cell_stream import build_cells_stream
 from repro_torch.pipeline.dataset import (ArraySource, ChunkSource,
                                           ScaledSource, as_source)
@@ -129,6 +130,17 @@ def _ctx_extra(config, cv_cfg, tasks: TaskSet, packed: PackedCells) -> dict:
             "packed_slots_per_device": int(packed.slots_per_device)}
 
 
+def _save_step0(ckpt_dir: str, tree: Dict[str, Any], extra: dict,
+                mesh) -> str:
+    """Step 0 of ``ckpt_dir``: written by this process, or in a meshed
+    job by global rank 0 while the others wait at a barrier."""
+    if mesh_mod.writes(mesh):
+        ckpt_mod.save_checkpoint(ckpt_dir, 0, tree, extra=extra,
+                                 keep_last=0)
+    mesh_mod.barrier(mesh)
+    return ckpt_mod.step_dir(ckpt_dir, 0)
+
+
 def _load_tree(ckpt_dir: str, want_format: str):
     got = ckpt_mod.peek_manifest(ckpt_dir)["extra"].get("format")
     if got != want_format:
@@ -178,6 +190,8 @@ class TrainResult:
     n: int
     d: int
     device: torch.device = torch.device("cpu")
+    mesh: Any = None           # DeviceMesh of the test phase, or None
+    mesh_axes: Optional[Tuple[str, ...]] = None
 
     def class_counts(self) -> Tuple[np.ndarray, np.ndarray]:
         on = (self.tmask_cells > 0) & (self.mask_cells[:, None, :] > 0)
@@ -278,7 +292,7 @@ class TrainResult:
             x_cells=self.x_cells, mask_cells=self.mask_cells,
             coefs=coefs, gamma=gamma, lam=lam, tau=self.tau.copy(),
             val_loss=val, extras=dict(res.extras), stats=stats,
-            device=self.device)
+            device=self.device, mesh=self.mesh, mesh_axes=self.mesh_axes)
 
     # ------------------------------------------------------ persistence
     _ARRAYS = ("lambdas", "gammas_cells", "fold_keys", "x_cells",
@@ -294,13 +308,14 @@ class TrainResult:
         tree.update(_ctx_tree(self.plan, self.packed, self.scaler, self.tasks))
         extra = _ctx_extra(self.config, self.cv_cfg, self.tasks, self.packed)
         extra.update(format=_TRAIN_FORMAT, n=int(self.n), d=int(self.d))
-        return ckpt_mod.save_checkpoint(ckpt_dir, 0, tree, extra=extra,
-                                        keep_last=0)
+        return _save_step0(ckpt_dir, tree, extra, self.mesh)
 
     @classmethod
-    def load(cls, ckpt_dir: str, device: Device = None) -> "TrainResult":
+    def load(cls, ckpt_dir: str, device: Device = None, mesh=None,
+             mesh_axes: Optional[Tuple[str, ...]] = None) -> "TrainResult":
         """A TrainResult saved by either package; ``device=None``: its
-        re-solves run on the current card."""
+        re-solves run on the current card; ``mesh`` splits its test phase
+        (as ``SVM(mesh=...)``)."""
         tree, extra = _load_tree(ckpt_dir, _TRAIN_FORMAT)
         plan, packed, scaler, tasks = _ctx_from_tree(tree, extra)
         return cls(config=_cfg_from_json(SVMTrainerConfig, extra["config"]),
@@ -308,7 +323,8 @@ class TrainResult:
                    scaler=scaler, plan=plan, packed=packed, tasks=tasks,
                    n=int(extra["n"]), d=int(extra["d"]),
                    iters=tree.get("iters"),
-                   device=runtime.resolve_device(device),
+                   device=runtime.resolve_device(device), mesh=mesh,
+                   mesh_axes=mesh_axes,
                    **{k: tree[k] for k in cls._ARRAYS})
 
 
@@ -334,6 +350,8 @@ class SelectResult:
     extras: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
     stats: Dict[str, Any] = dataclasses.field(default_factory=dict)
     device: torch.device = torch.device("cpu")
+    mesh: Any = None           # DeviceMesh the test phase splits over
+    mesh_axes: Optional[Tuple[str, ...]] = None
 
     @property
     def default_sub(self) -> int:
@@ -363,8 +381,9 @@ class SelectResult:
         sv, coefs, gamma = self._models()
         with runtime.full_fp32():
             dec = predict_cells(torch.as_tensor(xt_cells).to(self.device),
-                                sv, coefs, gamma,
-                                kernel=self.config.kernel).cpu().numpy()
+                                sv, coefs, gamma, kernel=self.config.kernel,
+                                mesh=self.mesh,
+                                axis_names=self.mesh_axes).cpu().numpy()
         out = np.zeros((xt.shape[0],) + dec.shape[2:], np.float32)
         out[g.rows] = dec[g.slot, g.pos]
         return out
@@ -462,13 +481,14 @@ class SelectResult:
         extra = _ctx_extra(self.config, self.cv_cfg, self.tasks, self.packed)
         extra.update(format=_SELECT_FORMAT, rule=self.rule, stats=self.stats,
                      train_ref=train_ref)
-        return ckpt_mod.save_checkpoint(ckpt_dir, 0, tree, extra=extra,
-                                        keep_last=0)
+        return _save_step0(ckpt_dir, tree, extra, self.mesh)
 
     @classmethod
-    def load(cls, ckpt_dir: str, device: Device = None) -> "SelectResult":
+    def load(cls, ckpt_dir: str, device: Device = None, mesh=None,
+             mesh_axes: Optional[Tuple[str, ...]] = None) -> "SelectResult":
         """A SelectResult saved by either package; ``device=None``: its
-        test phase runs on the current card."""
+        test phase runs on the current card, split over ``mesh`` when
+        given."""
         tree, extra = _load_tree(ckpt_dir, _SELECT_FORMAT)
         plan, packed, scaler, tasks = _ctx_from_tree(tree, extra)
         extras = {k[len("extra_"):]: v for k, v in tree.items()
@@ -483,7 +503,8 @@ class SelectResult:
                    cv_cfg=_cfg_from_json(cv_mod.CVConfig, extra["cv_cfg"]),
                    scaler=scaler, plan=plan, packed=packed, tasks=tasks,
                    extras=extras, stats=dict(extra.get("stats", {})),
-                   device=runtime.resolve_device(device),
+                   device=runtime.resolve_device(device), mesh=mesh,
+                   mesh_axes=mesh_axes,
                    **{k: tree[k] for k in cls._ARRAYS})
 
 
@@ -501,11 +522,20 @@ class SVM:
     configure ``repro_torch.obs``, and ``EMBED_ARCH`` (with the other
     ``EMBED_*`` keys) flags ``x`` as a token corpus, embedded lazily
     through ``repro_torch.embed.embed_source`` on the session's device.
+
+    Several devices: ``mesh`` (a ``DeviceMesh``, ``launch.mesh``) with
+    ``mesh_axes`` packs the cells for the ranks over those dims
+    (``pack_cells(plan, n_dev)``), splits each wave's slots and the test
+    phase's over them, and returns the whole result on every rank.  Every
+    rank builds the session from the same data and seed; ``device`` is
+    the rank's own (``None``: its card).  ``select`` re-solves on each
+    rank alone, as the reference does; ``save`` writes on rank 0 only.
     """
 
     def __init__(self, x, y: Optional[np.ndarray] = None,
                  config: Optional[SVMTrainerConfig] = None,
                  device: Device = None,
+                 mesh=None, mesh_axes: Optional[Tuple[str, ...]] = None,
                  select_rule: Optional[str] = None,
                  select_kwargs: Optional[dict] = None,
                  serve_kwargs: Optional[dict] = None,
@@ -535,6 +565,7 @@ class SVM:
             cfg, key_sel = apply_keys(cfg, config_keys)
             sel_kw.update(key_sel)
         self.config = cfg
+        self.mesh, self.mesh_axes = mesh, mesh_axes
         self.select_rule = select_rule
         self.select_kwargs = sel_kw
         self.serve_kwargs = srv_kw
@@ -579,7 +610,9 @@ class SVM:
         plan = build_cells_stream(xs_src, cell_size=cfg.cell_size,
                                   method=cfg.cell_method, seed=cfg.seed,
                                   chunk_size=cfg.chunk_size)
-        packed = pack_cells(plan, 1)
+        n_dev = (1 if self.mesh is None or not self.mesh_axes
+                 else mesh_mod.mesh_size(self.mesh, self.mesh_axes))
+        packed = pack_cells(plan, n_dev)
         k, n_slots, t_count = plan.k_max, packed.n_slots, tasks.n_tasks
         cv_cfg = cv_mod.CVConfig(
             solver=cfg.resolve_solver(), kernel=cfg.kernel,
@@ -650,7 +683,8 @@ class SVM:
             (coefs, gamma, lam, tau, val, surf_loss, surf_fa, surf_det,
              iters) = train_cells_waves(
                 stage, n_slots, cfg.n_slots_per_wave, lam_c, sub_c, task_c,
-                cv_cfg, n_lam, n_sub, self.device, ckpt_dir=ckpt_dir,
+                cv_cfg, n_lam, n_sub, self.device, mesh=self.mesh,
+                axis_names=self.mesh_axes, ckpt_dir=ckpt_dir,
                 fingerprint=fingerprint)
 
         for s in np.flatnonzero(~staged):   # slots of restored waves
@@ -672,7 +706,8 @@ class SVM:
             y_cells=y_cells, tmask_cells=tmask_cells, coefs=coefs,
             gamma=gamma, lam=lam, tau=tau, val_loss=val,
             surf_loss=surf_loss, surf_fa=surf_fa, surf_det=surf_det,
-            iters=iters, n=n, d=d, device=self.device)
+            iters=iters, n=n, d=d, device=self.device, mesh=self.mesh,
+            mesh_axes=self.mesh_axes)
         self.select_result = None
         return self.train_result
 

@@ -598,25 +598,15 @@ cudaError_t dispatch_g(int G, const void* q, const void* k, const void* v,
   }
 }
 
-// Every instance of one head dim: the query and cache types at one head a
-// block, and for D 16 and 64 the blocks of 2 and 4 heads (bf16 queries).
+// The instances of one head dim at one kv head a block: the query and
+// cache types.
 template <int D>
-cudaError_t dispatch_dim(int q_dtype, int cache_int8, int heads, int G,
-                         const void* q, const void* k, const void* v,
-                         const float* ks, const float* vs, void* o, float* ws,
-                         int* cnt, int B, int S, int Hk, int ng, int s0,
-                         int nvis, int nsplit, int chunk, float scale,
-                         cudaStream_t st) {
+cudaError_t dispatch_one(int q_dtype, int cache_int8, const void* q,
+                         const void* k, const void* v, const float* ks,
+                         const float* vs, void* o, float* ws, int* cnt, int G,
+                         int B, int S, int Hk, int ng, int s0, int nvis,
+                         int nsplit, int chunk, float scale, cudaStream_t st) {
   using BF = __nv_bfloat16;
-  if (heads > 1) {
-    if constexpr (D == 16 || D == 64) {
-      if (cache_int8)
-        return heads == 2 ? dispatch_g<BF, int8_t, D, 2>(G, DEC_ARGS)
-                          : dispatch_g<BF, int8_t, D, 4>(G, DEC_ARGS);
-      return dispatch_g<BF, BF, D, 2>(G, DEC_ARGS);
-    }
-    return cudaErrorInvalidValue;
-  }
   if (cache_int8)
     return q_dtype == 0 ? dispatch_g<float, int8_t, D, 1>(G, DEC_ARGS)
                         : dispatch_g<BF, int8_t, D, 1>(G, DEC_ARGS);
@@ -624,44 +614,83 @@ cudaError_t dispatch_dim(int q_dtype, int cache_int8, int heads, int G,
                       : dispatch_g<BF, BF, D, 1>(G, DEC_ARGS);
 }
 
+// The blocks of 2 and 4 kv heads (bf16 queries; D 16 and 64 only).
+template <int D>
+cudaError_t dispatch_multi(int cache_int8, int heads, const void* q,
+                           const void* k, const void* v, const float* ks,
+                           const float* vs, void* o, float* ws, int* cnt,
+                           int G, int B, int S, int Hk, int ng, int s0,
+                           int nvis, int nsplit, int chunk, float scale,
+                           cudaStream_t st) {
+  using BF = __nv_bfloat16;
+  if (cache_int8)
+    return heads == 2 ? dispatch_g<BF, int8_t, D, 2>(G, DEC_ARGS)
+                      : dispatch_g<BF, int8_t, D, 4>(G, DEC_ARGS);
+  return dispatch_g<BF, BF, D, 2>(G, DEC_ARGS);
+}
+
 }  // namespace
 
 // The build compiles this file as one object a part, all started
 // together and then linked: runtime.build_parts counts the
 // "#if BUILD_PART ==" blocks below and passes -DBUILD_PART=p to part p.
-// Each part defines the instances of its head dims, part 0 also the entry
-// point, so every head dim of the switch is defined in exactly one block.
+// Each part defines the instances of its head dim (part 2 the multi-head
+// blocks), part 0 also the entry point, so every head dim of the switch
+// is defined in exactly one block.
 #ifndef BUILD_PART
 #error "decode_attention.cu is built in parts: pass -DBUILD_PART=<part>"
 #endif
 #define DIM_PARAMS                                                            \
-  int q_dtype, int cache_int8, int heads, int G, const void *q,                \
-      const void *k, const void *v, const float *ks, const float *vs, void *o, \
-      float *ws, int *cnt, int B, int S, int Hk, int ng, int s0, int nvis,    \
-      int nsplit, int chunk, float scale, cudaStream_t st
-#define DIM_ARGS q_dtype, cache_int8, heads, G, DEC_ARGS
-#define DIM_DECL(D) cudaError_t dim_##D(DIM_PARAMS);
-#define DIM_DEF(D)                                                           \
-  cudaError_t decode_parts::dim_##D(DIM_PARAMS) {                              \
-    return dispatch_dim<D>(DIM_ARGS);                                          \
+  const void *q, const void *k, const void *v, const float *ks,               \
+      const float *vs, void *o, float *ws, int *cnt, int G, int B, int S,      \
+      int Hk, int ng, int s0, int nvis, int nsplit, int chunk, float scale,    \
+      cudaStream_t st
+#define DIM_ARGS q, k, v, ks, vs, o, ws, cnt, G, B, S, Hk, ng, s0, nvis, \
+                 nsplit, chunk, scale, st
+#define DIM_DECL(D) \
+  cudaError_t dim_##D(int q_dtype, int cache_int8, DIM_PARAMS);
+#define DIM_DEF(D)                                                       \
+  cudaError_t decode_parts::dim_##D(int q_dtype, int cache_int8,         \
+                                    DIM_PARAMS) {                        \
+    return dispatch_one<D>(q_dtype, cache_int8, DIM_ARGS);               \
+  }
+#define MULTI_DECL(D) \
+  cudaError_t multi_##D(int cache_int8, int heads, DIM_PARAMS);
+#define MULTI_DEF(D)                                                     \
+  cudaError_t decode_parts::multi_##D(int cache_int8, int heads,         \
+                                      DIM_PARAMS) {                      \
+    return dispatch_multi<D>(cache_int8, heads, DIM_ARGS);               \
   }
 namespace decode_parts {
 DIM_DECL(8) DIM_DECL(16) DIM_DECL(64) DIM_DECL(80) DIM_DECL(128)
-DIM_DECL(160) DIM_DECL(256)
+DIM_DECL(160) DIM_DECL(256) MULTI_DECL(16) MULTI_DECL(64)
 }  // namespace decode_parts
 
-// parts of about equal instance counts (D 16 and 64 add the multi-head ones)
+// one head dim a part (the multi-head blocks of D 16 and 64 in a part of
+// their own), so that no part holds more than ~30 kernel instances
 #if BUILD_PART == 0
 DIM_DEF(16)
-DIM_DEF(64)
 #endif
 #if BUILD_PART == 1
-DIM_DEF(8)
-DIM_DEF(80)
-DIM_DEF(128)
+DIM_DEF(64)
 #endif
 #if BUILD_PART == 2
+MULTI_DEF(16)
+MULTI_DEF(64)
+#endif
+#if BUILD_PART == 3
+DIM_DEF(8)
+#endif
+#if BUILD_PART == 4
+DIM_DEF(80)
+#endif
+#if BUILD_PART == 5
+DIM_DEF(128)
+#endif
+#if BUILD_PART == 6
 DIM_DEF(160)
+#endif
+#if BUILD_PART == 7
 DIM_DEF(256)
 #endif
 
@@ -694,14 +723,17 @@ extern "C" int decode_attention_fwd(const void* q, const void* k,
       (heads == 4 && !cache_int8) || heads > 4 || heads == 3)
     return (int)cudaErrorInvalidValue;
   using namespace decode_parts;
+  if (heads > 1)   // D 16 or 64, checked above
+    return (int)(D == 16 ? multi_16(cache_int8, heads, DIM_ARGS)
+                         : multi_64(cache_int8, heads, DIM_ARGS));
   switch (D) {
-    case 8: return (int)dim_8(DIM_ARGS);
-    case 16: return (int)dim_16(DIM_ARGS);
-    case 64: return (int)dim_64(DIM_ARGS);
-    case 80: return (int)dim_80(DIM_ARGS);
-    case 128: return (int)dim_128(DIM_ARGS);
-    case 160: return (int)dim_160(DIM_ARGS);
-    case 256: return (int)dim_256(DIM_ARGS);
+    case 8: return (int)dim_8(q_dtype, cache_int8, DIM_ARGS);
+    case 16: return (int)dim_16(q_dtype, cache_int8, DIM_ARGS);
+    case 64: return (int)dim_64(q_dtype, cache_int8, DIM_ARGS);
+    case 80: return (int)dim_80(q_dtype, cache_int8, DIM_ARGS);
+    case 128: return (int)dim_128(q_dtype, cache_int8, DIM_ARGS);
+    case 160: return (int)dim_160(q_dtype, cache_int8, DIM_ARGS);
+    case 256: return (int)dim_256(q_dtype, cache_int8, DIM_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 }

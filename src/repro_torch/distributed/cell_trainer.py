@@ -9,8 +9,15 @@ With ``cfg.cd_polish > 0`` each gamma step ends in one Gauss-Seidel launch
 per epoch over every slot and fold of the wave (B4).  ``ckpt_dir`` saves
 each solved wave and restores it on a re-run (kill-anywhere resume).
 
-Not ported yet: the device mesh (``mesh``: slots sharded over several
-cards) raises ``NotImplementedError``.
+Several devices: with a ``mesh`` (``launch.mesh``) and ``axis_names``,
+the slot axis of a wave is split in blocks over the product of those
+mesh dims, in row-major rank order (the reference's ``P(axis_names)``;
+dims not named repeat the work).  Each rank solves its block with the
+one-device code on its own device, with no communication during the
+solve, and the blocks are gathered so that every rank returns the whole
+wave (an all-gather along each named mesh dim).  A slot's result does
+not depend on the slots beside it (a converged problem is frozen), so on
+the CPU the gathered wave equals the one-process solve bitwise.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import torch
 from repro_torch import obs
 from repro_torch.core import cv as cv_mod
 from repro_torch.core import kernel_fns, select
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.testing import faults
 from repro_torch.train import checkpoint as ckpt_mod
 
@@ -36,26 +44,74 @@ def wave_keys(cfg: cv_mod.CVConfig) -> Tuple[str, ...]:
             + ("iters",))
 
 
+def _check_split(n_slots: int, mesh, axis_names) -> int:
+    """Ranks the slot axis splits over (1 without a mesh or axes); raises
+    unless ``n_slots`` divides over them."""
+    if mesh is None or not axis_names:
+        return 1
+    n_dev = mesh_mod.mesh_size(mesh, axis_names)
+    if n_slots % n_dev:
+        raise ValueError(f"{n_slots} slots do not divide over {n_dev} "
+                         f"devices (mesh axes {tuple(axis_names)})")
+    return n_dev
+
+
+def _block(n_slots: int, mesh, axis_names) -> slice:
+    """This rank's slots of a wave split over ``axis_names``."""
+    n_dev = _check_split(n_slots, mesh, axis_names)
+    if n_dev == 1:
+        return slice(0, n_slots)
+    i = mesh_mod.block_index(mesh, axis_names)
+    per = n_slots // n_dev
+    return slice(i * per, (i + 1) * per)
+
+
+def _gather(block: torch.Tensor, mesh, axis_names) -> torch.Tensor:
+    """Every rank's block of the slot axis, concatenated in rank order on
+    every rank: an all-gather along each named mesh dim, the last one
+    first (so the blocks come out row-major over the dims).  Plain c10d
+    collectives: DTensor's functional ones crashed gloo with CUDA tensors
+    (two ranks on one card, torch 2.11)."""
+    if mesh is None or not axis_names:
+        return block
+    import torch.distributed as dist
+    for a in reversed(tuple(axis_names)):
+        n = mesh_mod.mesh_size(mesh, a)
+        out = block.new_empty((n * block.shape[0],) + tuple(block.shape[1:]))
+        dist.all_gather_into_tensor(out, block.contiguous(),
+                                    group=mesh.get_group(a))
+        block = out
+    return block
+
+
+def _check_mesh_device(mesh, t: torch.Tensor) -> None:
+    if mesh is not None and mesh.device_type != t.device.type:
+        raise ValueError(f"a {mesh.device_type} mesh with operands on "
+                         f"{t.device}")
+
+
 def train_cells(x_cells: torch.Tensor, y_cells: torch.Tensor,
                 tmask_cells: torch.Tensor, mask_cells: torch.Tensor,
                 gammas_cells: torch.Tensor, keys: np.ndarray,
                 lam_c: torch.Tensor, sub_c: torch.Tensor,
                 task_c: torch.Tensor, cfg: cv_mod.CVConfig, n_lam: int,
-                n_sub: int, mesh=None) -> Tuple[torch.Tensor, ...]:
+                n_sub: int, mesh=None, axis_names=None
+                ) -> Tuple[torch.Tensor, ...]:
     """One wave: x (S, k, d), y/tmask (S, T, k), mask (S, k), gammas
     (S, G), keys (S, 2) -> the arrays named by :func:`wave_keys`, coefs
-    fold-averaged to (S, k, T, Sub)."""
-    if mesh is not None:
-        raise NotImplementedError("train_cells: mesh sharding over several "
-                                  "cards is not ported yet")
-    sel = cv_mod.cv_cell(x_cells, y_cells, tmask_cells, mask_cells,
-                         gammas_cells, lam_c, sub_c, task_c, keys, cfg,
-                         n_lam, n_sub)
+    fold-averaged to (S, k, T, Sub).  With a ``mesh``, this rank solves
+    its block of the S slots split over ``axis_names`` and every rank
+    returns all S."""
+    _check_mesh_device(mesh, x_cells)
+    b = _block(x_cells.shape[0], mesh, axis_names)
+    sel = cv_mod.cv_cell(x_cells[b], y_cells[b], tmask_cells[b],
+                         mask_cells[b], gammas_cells[b], lam_c, sub_c,
+                         task_c, np.asarray(keys)[b], cfg, n_lam, n_sub)
     combined = select.combine_fold_models(sel.coefs, dim=1)    # (S,k,T,Sub)
     out = (combined, sel.gamma, sel.lam, sel.tau, sel.val_loss)
     if cfg.keep_surface:
         out = out + (sel.val_grid, sel.fa_grid, sel.det_grid)
-    return out + (sel.iters,)
+    return tuple(_gather(o, mesh, axis_names) for o in out + (sel.iters,))
 
 
 def _to_host(r: torch.Tensor) -> np.ndarray:
@@ -100,7 +156,7 @@ def train_cells_waves(stage: Callable[[int, int], tuple], n_slots: int,
                       wave_size: Optional[int], lam_c: torch.Tensor,
                       sub_c: torch.Tensor, task_c: torch.Tensor,
                       cfg: cv_mod.CVConfig, n_lam: int, n_sub: int,
-                      device: torch.device, mesh=None,
+                      device: torch.device, mesh=None, axis_names=None,
                       ckpt_dir: Optional[str] = None,
                       fingerprint: Optional[str] = None):
     """Wave-scheduled :func:`train_cells` with bounded staging.
@@ -119,10 +175,14 @@ def train_cells_waves(stage: Callable[[int, int], tuple], n_slots: int,
     checkpoint write, between waves) leaves only complete, checksummed
     waves behind.  A wave whose shard fails its checksum is solved again.
     Each wave's solve is deterministic, so the resumed fit equals an
-    uninterrupted one bitwise."""
-    if mesh is not None:
-        raise NotImplementedError("train_cells_waves: mesh sharding is not "
-                                  "ported yet")
+    uninterrupted one bitwise.
+
+    With a ``mesh``, every rank runs this loop in step: each stages the
+    whole wave and solves its block (:func:`train_cells`); global rank 0
+    writes each solved wave and the ranks meet at a barrier after it;
+    every rank reads the directory (after a barrier, before any write) and
+    restores the same waves.  A kill site fires on every rank; a kill
+    inside rank 0's write takes the job down, as a real kill does."""
     m_solved = obs.metrics.counter("train.waves_solved")
     m_restored = obs.metrics.counter("train.waves_restored")
     m_corrupt = obs.metrics.counter("train.corrupt_waves")
@@ -131,10 +191,13 @@ def train_cells_waves(stage: Callable[[int, int], tuple], n_slots: int,
         wave_size = n_slots
     if wave_size <= 0:
         raise ValueError(f"wave_size must be positive, got {wave_size}")
+    _check_split(wave_size, mesh, axis_names)
     n_waves = -(-n_slots // wave_size)
     restorable = (set() if ckpt_dir is None else
                   _restorable_waves(ckpt_dir, wave_size, n_slots,
                                     fingerprint))
+    if ckpt_dir is not None:
+        mesh_mod.barrier(mesh)      # every rank has listed the waves
     outs = []
     for w in range(n_waves):
         lo = w * wave_size
@@ -156,18 +219,21 @@ def train_cells_waves(stage: Callable[[int, int], tuple], n_slots: int,
                     dev_arrays = [torch.as_tensor(a).to(device)
                                   for a in (x, y, tm, m, g)]
                 res = train_cells(*dev_arrays, np.asarray(keys, np.uint32),
-                                  lam_c, sub_c, task_c, cfg, n_lam, n_sub)
+                                  lam_c, sub_c, task_c, cfg, n_lam, n_sub,
+                                  mesh=mesh, axis_names=axis_names)
             res = tuple(_to_host(r) for r in res)
             m_solved.inc()
             faults.fire("trainer.wave.solved", wave=w)
             if ckpt_dir is not None:
                 with obs.tracer.span("train.wave.checkpoint"):
-                    ckpt_mod.save_checkpoint(
-                        ckpt_dir, w, dict(zip(keys_out, res)),
-                        extra={"wave": w, "wave_size": wave_size,
-                               "n_slots": n_slots,
-                               "fingerprint": fingerprint},
-                        keep_last=0)
+                    if mesh_mod.writes(mesh):
+                        ckpt_mod.save_checkpoint(
+                            ckpt_dir, w, dict(zip(keys_out, res)),
+                            extra={"wave": w, "wave_size": wave_size,
+                                   "n_slots": n_slots,
+                                   "fingerprint": fingerprint},
+                            keep_last=0)
+                    mesh_mod.barrier(mesh)
         outs.append(res)
     return tuple(np.concatenate([o[i] for o in outs])[:n_slots]
                  for i in range(len(keys_out)))
@@ -175,15 +241,25 @@ def train_cells_waves(stage: Callable[[int, int], tuple], n_slots: int,
 
 def predict_cells(xt_cells: torch.Tensor, sv_cells: torch.Tensor,
                   coef_cells: torch.Tensor, gamma_cells: torch.Tensor,
-                  kernel: str = "gauss_rbf", mesh=None) -> torch.Tensor:
+                  kernel: str = "gauss_rbf", mesh=None,
+                  axis_names=None) -> torch.Tensor:
     """Routed test rows through their cells' models.
 
     xt (S, m, d), sv (S, k, d), coefs (S, k, T, Sub), gammas (S, T, Sub)
     -> (S, m, T, Sub): one cross D² for the wave (B1), every (slot, task,
-    sub) epilogue in one launch (B2), one batched product."""
-    if mesh is not None:
-        raise NotImplementedError("predict_cells: mesh sharding is not "
-                                  "ported yet")
+    sub) epilogue in one launch (B2), one batched product.  With a
+    ``mesh``, this rank predicts its block of slots (split over
+    ``axis_names``) and every rank returns all S."""
+    _check_mesh_device(mesh, xt_cells)
+    b = _block(xt_cells.shape[0], mesh, axis_names)
+    out = _predict_block(xt_cells[b], sv_cells[b], coef_cells[b],
+                         gamma_cells[b], kernel)
+    return _gather(out, mesh, axis_names)
+
+
+def _predict_block(xt_cells: torch.Tensor, sv_cells: torch.Tensor,
+                   coef_cells: torch.Tensor, gamma_cells: torch.Tensor,
+                   kernel: str) -> torch.Tensor:
     s, m = xt_cells.shape[:2]
     t, sub = gamma_cells.shape[1:]
     cols = coef_cells.reshape(s, coef_cells.shape[1], t * sub)   # (S, k, P)

@@ -43,9 +43,22 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
+def _rank_card() -> int:
+    """The card of this process: under an initialised process group the
+    rank's own, ``LOCAL_RANK`` (else the global rank) modulo the cards;
+    otherwise the current device."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+        return local % torch.cuda.device_count()
+    return torch.cuda.current_device()
+
+
 def resolve_device(device: Union[None, str, torch.device] = None
                    ) -> torch.device:
-    """``None`` -> the current CUDA device; raises when there is none.
+    """``None`` -> the current CUDA device (under a process group, the
+    rank's card: ``cuda:{LOCAL_RANK % device_count}``); raises when there
+    is none.
 
     An explicit ``"cpu"`` selects the plain PyTorch path (the tests' mode);
     an explicit CUDA device without a card raises as well.
@@ -55,14 +68,14 @@ def resolve_device(device: Union[None, str, torch.device] = None
             raise RuntimeError(
                 "no CUDA device: the port runs on the GPU by default; pass "
                 "device='cpu' to run the plain PyTorch path")
-        return torch.device("cuda", torch.cuda.current_device())
+        return torch.device("cuda", _rank_card())
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(f"device {dev} requested but CUDA is not "
                                f"available")
         if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
+            dev = torch.device("cuda", _rank_card())
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}: cpu or cuda")
     return dev

@@ -1,4 +1,4 @@
-"""LM stack of the port: layers, attention, the rwkv6 mixer, the
-composable model and the bridge from the JAX package's parameter and
-cache trees (``convert``).  Dense attention and rwkv6 architectures; the
-MoE and mamba mixers wait."""
+"""LM stack of the port: layers (with the templates' partition specs for
+a mesh), attention, the rwkv6, MoE and mamba mixers, the composable model
+and the bridge from the JAX package's parameter and cache trees
+(``convert``)."""

@@ -32,6 +32,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch.mesh import is_dtensor
 from repro_torch.models import layers
 from repro_torch.models.layers import ParamSpec, Template
 
@@ -41,16 +42,22 @@ NEG_INF = -1e30
 
 
 def attention_template(d: int, n_heads: int, n_kv: int, head_dim: int,
-                       dtype: torch.dtype, qk_norm: bool = False) -> Template:
+                       dtype: torch.dtype, fsdp: bool = False,
+                       qk_norm: bool = False) -> Template:
+    dax = "data" if fsdp else None
     t: Template = {
-        "wq": ParamSpec((d, n_heads * head_dim), dtype, "fan_in"),
-        "wk": ParamSpec((d, n_kv * head_dim), dtype, "fan_in"),
-        "wv": ParamSpec((d, n_kv * head_dim), dtype, "fan_in"),
-        "wo": ParamSpec((n_heads * head_dim, d), dtype, "fan_in"),
+        "wq": ParamSpec((d, n_heads * head_dim), dtype, (dax, "model"),
+                        "fan_in"),
+        "wk": ParamSpec((d, n_kv * head_dim), dtype, (dax, "model"),
+                        "fan_in"),
+        "wv": ParamSpec((d, n_kv * head_dim), dtype, (dax, "model"),
+                        "fan_in"),
+        "wo": ParamSpec((n_heads * head_dim, d), dtype, ("model", dax),
+                        "fan_in"),
     }
     if qk_norm:
-        t["q_norm"] = ParamSpec((head_dim,), torch.float32, "ones")
-        t["k_norm"] = ParamSpec((head_dim,), torch.float32, "ones")
+        t["q_norm"] = ParamSpec((head_dim,), torch.float32, (None,), "ones")
+        t["k_norm"] = ParamSpec((head_dim,), torch.float32, (None,), "ones")
     return t
 
 
@@ -182,7 +189,17 @@ def attention_block(
     scale = float(head_dim ** -0.5)
 
     if cache is None:
-        out = run_attention(q, k, v, mask_kind, window, scale, impl, chunk)
+        if is_dtensor(q):
+            # on each rank's own rows, every head whole: a sharded einsum
+            # that flattens the batch and head dims cannot be planned
+            # without a redistribution
+            out = layers.run_on_rows(
+                lambda q_, k_, v_: run_attention(q_, k_, v_, mask_kind,
+                                                 window, scale, impl, chunk),
+                (q, k, v))
+        else:
+            out = run_attention(q, k, v, mask_kind, window, scale, impl,
+                                chunk)
         new_cache = {"k": k, "v": v}
     else:
         s = cache["k"].shape[1]

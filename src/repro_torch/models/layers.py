@@ -1,11 +1,23 @@
 """Shared LM building blocks: parameter templates, norms, RoPE, MLPs.
 
 Parameters are described by a *template* (nested dict of ParamSpec) that
-carries shape, dtype and init recipe; ``init_params`` materialises it from
-a ``torch.Generator``.  Parameters are plain nested dicts of tensors with
-the JAX package's keys, so weights carry across one to one
-(``models.convert``).  The mesh and sharding helpers of the JAX package
-are not ported.
+carries shape, dtype, partition spec and init recipe.  The same template
+drives three consumers:
+
+  * ``init_params``    real parameters, drawn from a ``torch.Generator``
+  * ``shape_tree``     meta tensors (shapes and dtypes, no storage)
+  * ``sharding_tree``  each leaf's DTensor placements on a ``DeviceMesh``
+
+Parameters are plain nested dicts of tensors with the JAX package's keys,
+so weights carry across one to one (``models.convert``).
+
+A partition spec is the reference's ``PartitionSpec`` as a tuple, one
+entry per leading dim: a mesh-axis name, a tuple of names (the dim split
+over their product, the first name major) or ``None`` (not split); dims
+past its end are not split.  Axis roles, as in the reference:
+  'model'  tensor-parallel axis: heads / d_ff / experts / vocab
+  'data'   FSDP axis: second param shard for big archs; batch axis
+  'pod'    outermost data-parallel axis (several hosts)
 
 Rounding follows the reference: every projection takes its operands in
 the compute dtype and rounds its f32-accumulated result to that dtype;
@@ -13,13 +25,17 @@ norms and RoPE compute in f32 and cast back.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
+import threading
 from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.launch.mesh import is_dtensor
 
 Tensor = torch.Tensor
 
@@ -27,6 +43,7 @@ Tensor = torch.Tensor
 class ParamSpec(NamedTuple):
     shape: Tuple[int, ...]
     dtype: torch.dtype
+    spec: Tuple[Any, ...]   # partition spec over ('data', 'model') axes
     init: str        # zeros | ones | normal | fan_in
     scale: float = 1.0
     fan: Optional[int] = None  # explicit fan-in (stacked/period templates)
@@ -97,6 +114,131 @@ def init_params(template: Template, generator: torch.Generator,
                            for path, ps in tree_items(template))
 
 
+def spec_tree(template: Template) -> Dict[str, Any]:
+    """Each leaf's partition spec (the reference's ``spec_tree``, as
+    tuples)."""
+    return tree_map(lambda ps: ps.spec, template)
+
+
+def placements(spec: Tuple[Any, ...], mesh) -> tuple:
+    """DTensor placements of a leaf with partition ``spec`` on ``mesh``:
+    for each mesh dim, ``Shard(d)`` where tensor dim d is split over it,
+    else ``Replicate()``.  A dim split over several axes is split over the
+    first one first (DTensor's order across mesh dims, the reference's
+    within a spec entry), so the names must come in the mesh's order."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(mesh.mesh_dim_names or ())
+    out = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        idx = []
+        for a in axes:
+            if a not in names:
+                raise ValueError(f"partition spec {spec}: axis {a!r} is not "
+                                 f"a dim of the mesh {names}")
+            idx.append(names.index(a))
+        if idx != sorted(idx):
+            raise ValueError(f"partition spec {spec}: axes {axes} out of the "
+                             f"mesh's order {names}")
+        for i in idx:
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+def sharding_tree(template: Template, mesh) -> Dict[str, Any]:
+    """Each leaf's DTensor placements on ``mesh`` (the reference's
+    ``NamedSharding`` tree)."""
+    return tree_map(lambda ps: placements(ps.spec, mesh), template)
+
+
+_REPLICATING = threading.local()
+
+
+@contextlib.contextmanager
+def mesh_context(x: Any):
+    """The context sharded code runs in: for a DTensor ``x``, plain
+    tensors met along the way (RoPE tables, masks, positions, routing
+    indices) count as replicated on its mesh (``implicit_replication``);
+    for a plain ``x``, nothing.  Nests: torch's context switches the
+    replication off on exit, so only the outermost one enters it (a
+    backward after the forward still needs it)."""
+    if not is_dtensor(x) or getattr(_REPLICATING, "on", False):
+        yield
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+    _REPLICATING.on = True
+    try:
+        with implicit_replication():
+            yield
+    finally:
+        _REPLICATING.on = False
+
+
+def redistribute(x: Any, spec: Tuple[Any, ...]) -> Any:
+    """A DTensor ``x`` redistributed to partition ``spec`` on its own mesh
+    (the reference's ``with_sharding_constraint``); a plain tensor as
+    is."""
+    if not is_dtensor(x):
+        return x
+    mesh = x.device_mesh
+    return x.redistribute(mesh, placements(spec, mesh))
+
+
+def run_on_rows(fn: Callable[..., Any], rows: Tuple[Any, ...],
+                whole: Tuple[Any, ...] = (), sums: bool = False) -> Any:
+    """``fn(*rows, *whole)`` with sharded operands run on local tensors:
+    the ``rows`` operands (dim 0 the batch; ``None`` passes through) take
+    the first one's batch split, every other mesh dim replicated, and the
+    ``whole`` operands are gathered whole; ``fn`` then computes each row as
+    one device would.  The result (a tensor) is split like the rows; with
+    ``sums``, ``fn`` returns per-rank sums over its rows (a tuple) and each
+    becomes their total over the ranks.  Differentiable (``to_local`` /
+    ``from_local``).  It carries the regions whose DTensor sharding rules
+    are missing or differ across torch versions: the embedding gather,
+    attention and the cross-entropy."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    lead = next(t for t in rows + whole if is_dtensor(t))
+    mesh = lead.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    pl, n_rows = [], 1
+    first = rows[0]
+    for i, p in enumerate(first.placements if is_dtensor(first) else rep):
+        split = (p == Shard(0)
+                 and first.shape[0] % (n_rows * mesh.size(i)) == 0)
+        n_rows *= mesh.size(i) if split else 1
+        pl.append(Shard(0) if split else Replicate())
+
+    # a sum over the batch-split ranks: the whole operands' gradients (each
+    # rank's rows contribute their part) and the per-rank sums
+    part = [Partial() if p == Shard(0) else Replicate() for p in pl]
+
+    def local(t, placements, grad_placements=None):
+        if t is None:
+            return None
+        if not is_dtensor(t):     # the same on every rank: replicated
+            t = DTensor.from_local(t, mesh, rep, run_check=False)
+        return t.redistribute(mesh, placements).to_local(
+            grad_placements=grad_placements)
+
+    out = fn(*(local(t, pl) for t in rows),
+             *(local(t, rep, part) for t in whole))
+    if not sums:
+        return DTensor.from_local(out, mesh, pl, run_check=False)
+    # each rank's sum enters the total once; in backward the total's
+    # (replicated) gradient comes back to every rank whole
+    return tuple(DTensor.from_local(o, mesh, part, run_check=False)
+                 for o in out)
+
+
+def shape_tree(template: Template, mesh=None) -> Dict[str, Any]:
+    """Stand-ins with no storage: meta tensors of each leaf's shape and
+    dtype; with ``mesh``, ``(meta tensor, placements)`` pairs."""
+    def one(ps: ParamSpec):
+        t = torch.empty(ps.shape, dtype=ps.dtype, device="meta")
+        return t if mesh is None else (t, placements(ps.spec, mesh))
+    return tree_map(one, template)
+
+
 def param_count(template: Template) -> int:
     return sum(int(np.prod(ps.shape)) for ps in leaf_specs(template))
 
@@ -129,9 +271,9 @@ def apply_norm(kind: str, x: Tensor, p: Dict[str, Tensor]) -> Tensor:
 
 
 def norm_template(kind: str, d: int, bias: bool = False) -> Template:
-    t: Template = {"w": ParamSpec((d,), torch.float32, "ones")}
+    t: Template = {"w": ParamSpec((d,), torch.float32, (None,), "ones")}
     if kind == "layernorm" and bias:
-        t["b"] = ParamSpec((d,), torch.float32, "zeros")
+        t["b"] = ParamSpec((d,), torch.float32, (None,), "zeros")
     return t
 
 
@@ -197,11 +339,12 @@ def act_fn(name: str, x: Tensor) -> Tensor:
 
 
 def glu_mlp_template(d: int, ff: int, dtype: torch.dtype) -> Template:
-    """Gated MLP (SwiGLU / GeGLU)."""
+    """Gated MLP (SwiGLU / GeGLU).  ff sharded over model, d over data
+    (the reference's specs, with or without ``fsdp_params``)."""
     return {
-        "wi": ParamSpec((d, ff), dtype, "fan_in"),
-        "wg": ParamSpec((d, ff), dtype, "fan_in"),
-        "wo": ParamSpec((ff, d), dtype, "fan_in"),
+        "wi": ParamSpec((d, ff), dtype, ("data", "model"), "fan_in"),
+        "wg": ParamSpec((d, ff), dtype, ("data", "model"), "fan_in"),
+        "wo": ParamSpec((ff, d), dtype, ("model", "data"), "fan_in"),
     }
 
 
@@ -216,9 +359,15 @@ def glu_mlp(p: Dict[str, Tensor], x: Tensor, act: str,
 # --------------------------------------------------------------------------
 
 def embed_template(vocab: int, d: int, dtype: torch.dtype) -> Template:
-    return {"tok": ParamSpec((vocab, d), dtype, "fan_in", 1.0)}
+    return {"tok": ParamSpec((vocab, d), dtype, ("model", "data"),
+                             "fan_in", 1.0)}
 
 
 def embed_lookup(emb: Tensor, tokens: Tensor, dtype: torch.dtype) -> Tensor:
-    """Rows of ``emb`` at ``tokens`` (any integer dtype), in ``dtype``."""
+    """Rows of ``emb`` at ``tokens`` (any integer dtype), in ``dtype``.
+    Sharded, each rank gathers its tokens' rows from the whole table
+    (:func:`run_on_rows`)."""
+    if is_dtensor(tokens) or is_dtensor(emb):
+        return run_on_rows(lambda tok, table: table[tok.long()].to(dtype),
+                           (tokens,), (emb,))
     return emb[tokens.long()].to(dtype)

@@ -44,6 +44,7 @@ import torch
 
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch.mesh import is_dtensor
 from repro_torch.models import attention, layers, rwkv6, ssm
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import ParamSpec, Template
@@ -88,8 +89,8 @@ class ModelConfig:
     moe_chunk: int = 1024          # tokens a routing chunk
     moe_capacity_factor: float = 1.25
     moe_impl: str = "einsum"       # einsum | gather (the same function)
-    # the reference hoists its FSDP weight gather out of the chunk loop;
-    # on one card it has no effect and is kept so configs carry across
+    # gather FSDP expert weights over 'data' once a layer, outside the
+    # chunk loop (sharded parameters only)
     moe_pregather: bool = False
     aux_loss_weight: float = 0.01  # weight of the MoE load-balance loss
     # ssm
@@ -110,9 +111,15 @@ class ModelConfig:
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True             # recompute each period in backward
     ce_chunk: int = 2048           # time steps a cross-entropy chunk
-    # the reference shards such parameters over a mesh's data axis (FSDP);
-    # on one card it has no effect and is kept so configs carry across
+    # shard the big matrices' d_model dim over the mesh's data axis too
+    # (FSDP), through the templates' partition specs
     fsdp_params: bool = False
+    batch_axes: Tuple[str, ...] = ()   # mesh axes the batch is sharded over
+    # mesh axes decode caches shard seq over: carried for the launch
+    # tooling, no effect in the model
+    seq_axes: Tuple[str, ...] = ()
+    shard_activations: bool = False    # layer-boundary h sharded over
+                                       # 'model' on d (big-arch training)
 
     @property
     def period(self) -> int:
@@ -142,6 +149,18 @@ class ModelConfig:
         return layers.param_count(build_template(self))
 
 
+def _constrain(cfg: ModelConfig, x: Tensor) -> Tensor:
+    """The reference's layer-boundary sharding constraint: a DTensor
+    activation is redistributed to the batch split over ``batch_axes``
+    (and, with ``shard_activations``, d_model over 'model'); a plain
+    tensor is returned as it is, so one device runs unchanged."""
+    if not cfg.batch_axes:
+        return x
+    if cfg.shard_activations and x.ndim == 3:
+        return layers.redistribute(x, (cfg.batch_axes, None, "model"))
+    return layers.redistribute(x, (cfg.batch_axes,))
+
+
 def _check_supported(cfg: ModelConfig) -> None:
     for m, f in cfg.period_pattern:
         if m not in _MIXERS or f not in _MLPS:
@@ -162,22 +181,25 @@ def _check_supported(cfg: ModelConfig) -> None:
 def _mixer_template(cfg: ModelConfig, kind: str) -> Template:
     if kind == "mamba":
         return ssm.mamba_template(cfg.d_model, cfg.d_inner, cfg.ssm_d_state,
-                                  cfg.ssm_d_conv, cfg.dt_rank, cfg.dtype)
+                                  cfg.ssm_d_conv, cfg.dt_rank, cfg.dtype,
+                                  cfg.fsdp_params)
     if kind == "rwkv":
         return rwkv6.rwkv6_template(cfg.d_model, cfg.rwkv_heads,
-                                    cfg.rwkv_head_dim, cfg.dtype)
+                                    cfg.rwkv_head_dim, cfg.dtype,
+                                    cfg.fsdp_params)
     return attention.attention_template(
         cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.dtype,
-        qk_norm=cfg.qk_norm)
+        cfg.fsdp_params, qk_norm=cfg.qk_norm)
 
 
 def _mlp_template(cfg: ModelConfig, kind: str) -> Template:
     if kind == "rwkv_cm":
-        return rwkv6.channel_mix_template(cfg.d_model, cfg.d_ff, cfg.dtype)
+        return rwkv6.channel_mix_template(cfg.d_model, cfg.d_ff, cfg.dtype,
+                                          cfg.fsdp_params)
     if kind == "moe":
         return moe_mod.moe_template(
             cfg.d_model, cfg.moe_d_ff, cfg.n_experts, cfg.dtype,
-            n_shared=cfg.n_shared_experts,
+            cfg.fsdp_params, n_shared=cfg.n_shared_experts,
             shared_ff=cfg.d_ff if cfg.n_shared_experts else 0)
     return layers.glu_mlp_template(cfg.d_model, cfg.d_ff, cfg.dtype)
 
@@ -196,20 +218,23 @@ def _stack_template(t: Template, n: int) -> Template:
     def one(ps: ParamSpec) -> ParamSpec:
         fan = (int(np.prod(ps.shape[:-1])) if len(ps.shape) >= 2
                else ps.shape[0])
-        return ParamSpec((n,) + ps.shape, ps.dtype, ps.init, ps.scale,
-                         fan=fan)
+        return ParamSpec((n,) + ps.shape, ps.dtype, (None,) + ps.spec,
+                         ps.init, ps.scale, fan=fan)
     return layers.tree_map(one, t)
 
 
 def build_template(cfg: ModelConfig) -> Template:
     _check_supported(cfg)
+    dax = "data" if cfg.fsdp_params else None
     t: Template = {}
     if cfg.input_kind == "tokens":
+        espec = ("model", dax) if cfg.vocab % 64 == 0 else (None, "model")
         t["embed"] = {"tok": ParamSpec((cfg.vocab, cfg.d_model), cfg.dtype,
-                                       "normal", 0.02)}
+                                       espec, "normal", 0.02)}
     else:
         t["frontend"] = {"proj": ParamSpec((cfg.d_frontend, cfg.d_model),
-                                           cfg.dtype, "fan_in")}
+                                           cfg.dtype, (None, "model"),
+                                           "fan_in")}
     if cfg.n_periods > 0:
         t["stack"] = {f"pos{i}": _stack_template(_layer_template(cfg, m, f),
                                                  cfg.n_periods)
@@ -218,8 +243,11 @@ def build_template(cfg: ModelConfig) -> Template:
         t[f"tail{j}"] = _layer_template(cfg, *cfg.period_pattern[j])
     t["final_norm"] = layers.norm_template(cfg.norm, cfg.d_model)
     if not cfg.tie_embeddings:
+        # a small class head (hubert's 504 codebook classes) is replicated
+        # over the model axis, as the reference does
+        vspec = (dax, "model") if cfg.vocab % 64 == 0 else (dax, None)
         t["lm_head"] = {"w": ParamSpec((cfg.d_model, cfg.vocab), cfg.dtype,
-                                       "fan_in")}
+                                       vspec, "fan_in")}
     return t
 
 
@@ -348,7 +376,7 @@ def _layer(cfg: ModelConfig, mixer: str, mlp: str, p, h: Tensor,
     mixed, new_cache = _apply_mixer(
         cfg, mixer, p["mixer"], layers.apply_norm(cfg.norm, h, p["norm1"]),
         positions, cache, pos, impl)
-    h = h + mixed
+    h = _constrain(cfg, h + mixed)
     out, aux, cm_carry = _apply_mlp(
         cfg, mlp, p["mlp"], layers.apply_norm(cfg.norm, h, p["norm2"]),
         cache)
@@ -358,7 +386,7 @@ def _layer(cfg: ModelConfig, mixer: str, mlp: str, p, h: Tensor,
         for name, leaf in new_cache.items():
             cache[name].copy_(leaf)
         new_cache = cache
-    return h + out, aux, new_cache
+    return _constrain(cfg, h + out), aux, new_cache
 
 
 def _embed_in(cfg: ModelConfig, params, x: Tensor) -> Tensor:
@@ -413,7 +441,7 @@ def backbone(cfg: ModelConfig, params, x: Tensor, positions: Tensor,
     """
     _check_supported(cfg)
     impl = "train" if train and cfg.attn_impl != "ref" else cfg.attn_impl
-    h = _embed_in(cfg, params, x)
+    h = _constrain(cfg, _embed_in(cfg, params, x))
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     decoding = cache is not None
     collect = decoding or collect_cache
@@ -482,9 +510,25 @@ def chunked_ce(cfg: ModelConfig, params, h: Tensor, labels: Tensor,
     (T, vocab) logits at once: ``ce_chunk`` time steps at a time.  h (B,
     T, d); the head's operands are rounded to the compute dtype and the
     logits are accumulated and kept in f32 (the reference's
-    ``preferred_element_type``)."""
+    ``preferred_element_type``).  Sharded, each rank sums its own rows
+    against the whole head matrix (``layers.run_on_rows``: DTensor's
+    vocab-parallel gather raised on a sharded vocabulary)."""
+    w = _head_matrix(cfg, params)
+    if is_dtensor(h):
+        loss_sum, count = layers.run_on_rows(
+            lambda h_, l_, m_, w_: _ce_sums(cfg, h_, w_, l_, m_),
+            (h, labels, mask), (w,), sums=True)
+    else:
+        loss_sum, count = _ce_sums(cfg, h, w, labels, mask)
+    return loss_sum / torch.clamp(count, min=1.0)
+
+
+def _ce_sums(cfg: ModelConfig, h: Tensor, w: Tensor, labels: Tensor,
+             mask: Optional[Tensor]) -> Tuple[Tensor, Tensor]:
+    """(sum of the cross-entropy over the unmasked positions, their
+    count), chunk by chunk over time."""
     b, t, _ = h.shape
-    w = _head_matrix(cfg, params).to(cfg.dtype).float()
+    w = w.to(cfg.dtype).float()
     if mask is None:
         mask = torch.ones((b, t), dtype=torch.float32, device=h.device)
     chunk = min(cfg.ce_chunk, t)
@@ -498,7 +542,7 @@ def chunked_ce(cfg: ModelConfig, params, h: Tensor, labels: Tensor,
         mi = mask[:, lo:lo + chunk].float()
         loss_sum = loss_sum + torch.sum((lse - gold) * mi)
         count = count + torch.sum(mi)
-    return loss_sum / torch.clamp(count, min=1.0)
+    return loss_sum, count
 
 
 def loss_fn(cfg: ModelConfig, params, batch: Dict[str, Tensor]) -> Tensor:
@@ -507,10 +551,11 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, Tensor]) -> Tensor:
     ``aux_loss_weight`` x the MoE layers' load-balance loss."""
     x = batch["inputs"]
     b, t = batch["labels"].shape
-    h, aux, _ = backbone(cfg, params, x, _positions(b, t, 0, x.device),
-                         train=True)
-    ce = chunked_ce(cfg, params, h, batch["labels"], batch.get("mask"))
-    return ce + cfg.aux_loss_weight * aux
+    with layers.mesh_context(x):
+        h, aux, _ = backbone(cfg, params, x, _positions(b, t, 0, x.device),
+                             train=True)
+        ce = chunked_ce(cfg, params, h, batch["labels"], batch.get("mask"))
+        return ce + cfg.aux_loss_weight * aux
 
 
 @torch.no_grad()

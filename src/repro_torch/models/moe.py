@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch.mesh import is_dtensor
 from repro_torch.models import layers
 from repro_torch.models.layers import ParamSpec, Template
 
@@ -41,12 +42,18 @@ Tensor = torch.Tensor
 
 
 def moe_template(d: int, ff: int, n_experts: int, dtype: torch.dtype,
-                 n_shared: int = 0, shared_ff: int = 0) -> Template:
+                 fsdp: bool = False, n_shared: int = 0,
+                 shared_ff: int = 0) -> Template:
+    dax = "data" if fsdp else None
     t: Template = {
-        "router": ParamSpec((d, n_experts), torch.float32, "fan_in"),
-        "wi": ParamSpec((n_experts, d, ff), dtype, "fan_in"),
-        "wg": ParamSpec((n_experts, d, ff), dtype, "fan_in"),
-        "wo": ParamSpec((n_experts, ff, d), dtype, "fan_in"),
+        "router": ParamSpec((d, n_experts), torch.float32, (dax, None),
+                            "fan_in"),
+        "wi": ParamSpec((n_experts, d, ff), dtype, ("model", dax, None),
+                        "fan_in"),
+        "wg": ParamSpec((n_experts, d, ff), dtype, ("model", dax, None),
+                        "fan_in"),
+        "wo": ParamSpec((n_experts, ff, d), dtype, ("model", None, dax),
+                        "fan_in"),
     }
     if n_shared > 0:
         t["shared"] = layers.glu_mlp_template(d, shared_ff, dtype)
@@ -124,6 +131,11 @@ def _chunk_moe(p: Dict[str, Tensor], xc: Tensor, *, top_k: int,
     h = layers.act_fn(act, _expert_product(buf, p["wg"].to(dtype), True))
     h = h.to(dtype) * _expert_product(buf, p["wi"].to(dtype), False)
     out_e = _expert_product(h, p["wo"].to(dtype), False)        # (E, cap, d)
+    if is_dtensor(out_e):
+        # every combine below views (E, cap) as one dim, which DTensor
+        # (torch 2.11) cannot plan for an expert dim split over 'model':
+        # each rank combines the whole chunk, as one device does
+        out_e = layers.redistribute(out_e, (None, None, None))
 
     if impl == "gather":
         flat_out = torch.cat([out_e.reshape(n_experts * capacity, d),
@@ -134,7 +146,8 @@ def _chunk_moe(p: Dict[str, Tensor], xc: Tensor, *, top_k: int,
     else:
         # the products in f32 (exact: both factors are in the dtype), the
         # sum over k in f32, one rounding
-        comb = disp * gate_flat[:, None, None].to(dtype)
+        comb = layers.redistribute(disp * gate_flat[:, None, None].to(dtype),
+                                   (None, None, None))
         y = torch.einsum("tec,ecd->td", comb.float(), out_e.float())
         y = y.reshape(ct, top_k, d).sum(dim=1).to(dtype)
 
@@ -159,8 +172,11 @@ def moe_mlp(p: Dict[str, Tensor], x: Tensor, *, top_k: int, n_experts: int,
     chunks of min(chunk, B*T), the last one zero-padded; the aux loss is
     the mean over chunks.  Under autograd each chunk is recomputed in
     backward (the reference's chunk remat).  ``pregather`` re-shards FSDP
-    expert weights in the reference; on one card it has no effect."""
-    del pregather
+    (data-axis) expert weights to model-only sharding once a layer,
+    outside the chunk loop (a no-op on plain tensors)."""
+    if pregather:
+        p = {**p, **{name: layers.redistribute(p[name], ("model", None, None))
+                     for name in ("wi", "wg", "wo")}}
     b, t, d = x.shape
     n_tok = b * t
     chunk = min(chunk, n_tok)

@@ -45,34 +45,40 @@ Tensor = torch.Tensor
 
 
 def rwkv6_template(d: int, n_heads: int, head_dim: int,
-                   dtype: torch.dtype, decay_lora: int = 64) -> Template:
+                   dtype: torch.dtype, fsdp: bool = False,
+                   decay_lora: int = 64) -> Template:
+    dax = "data" if fsdp else None
     hd = n_heads * head_dim
     f32 = torch.float32
     return {
-        "mix_r": ParamSpec((d,), f32, "ones", 0.5),
-        "mix_k": ParamSpec((d,), f32, "ones", 0.5),
-        "mix_v": ParamSpec((d,), f32, "ones", 0.5),
-        "mix_w": ParamSpec((d,), f32, "ones", 0.5),
-        "mix_g": ParamSpec((d,), f32, "ones", 0.5),
-        "wr": ParamSpec((d, hd), dtype, "fan_in"),
-        "wk": ParamSpec((d, hd), dtype, "fan_in"),
-        "wv": ParamSpec((d, hd), dtype, "fan_in"),
-        "wg": ParamSpec((d, hd), dtype, "fan_in"),
-        "wo": ParamSpec((hd, d), dtype, "fan_in"),
+        "mix_r": ParamSpec((d,), f32, (None,), "ones", 0.5),
+        "mix_k": ParamSpec((d,), f32, (None,), "ones", 0.5),
+        "mix_v": ParamSpec((d,), f32, (None,), "ones", 0.5),
+        "mix_w": ParamSpec((d,), f32, (None,), "ones", 0.5),
+        "mix_g": ParamSpec((d,), f32, (None,), "ones", 0.5),
+        "wr": ParamSpec((d, hd), dtype, (dax, "model"), "fan_in"),
+        "wk": ParamSpec((d, hd), dtype, (dax, "model"), "fan_in"),
+        "wv": ParamSpec((d, hd), dtype, (dax, "model"), "fan_in"),
+        "wg": ParamSpec((d, hd), dtype, (dax, "model"), "fan_in"),
+        "wo": ParamSpec((hd, d), dtype, ("model", dax), "fan_in"),
         # data-dependent decay: w_t = exp(-exp(ww + (x W_a) W_b))
-        "ww": ParamSpec((hd,), f32, "normal", 0.5),
-        "w_lora_a": ParamSpec((d, decay_lora), dtype, "fan_in"),
-        "w_lora_b": ParamSpec((decay_lora, hd), dtype, "fan_in", 0.1),
-        "u_bonus": ParamSpec((n_heads, head_dim), f32, "normal", 0.5),
-        "ln_x_w": ParamSpec((hd,), f32, "ones"),
+        "ww": ParamSpec((hd,), f32, ("model",), "normal", 0.5),
+        "w_lora_a": ParamSpec((d, decay_lora), dtype, (dax, None), "fan_in"),
+        "w_lora_b": ParamSpec((decay_lora, hd), dtype, (None, "model"),
+                              "fan_in", 0.1),
+        "u_bonus": ParamSpec((n_heads, head_dim), f32, ("model", None),
+                             "normal", 0.5),
+        "ln_x_w": ParamSpec((hd,), f32, ("model",), "ones"),
     }
 
 
-def channel_mix_template(d: int, ff: int, dtype: torch.dtype) -> Template:
+def channel_mix_template(d: int, ff: int, dtype: torch.dtype,
+                         fsdp: bool = False) -> Template:
+    dax = "data" if fsdp else None
     return {
-        "mix_k": ParamSpec((d,), torch.float32, "ones", 0.5),
-        "wk": ParamSpec((d, ff), dtype, "fan_in"),
-        "wv": ParamSpec((ff, d), dtype, "fan_in"),
+        "mix_k": ParamSpec((d,), torch.float32, (None,), "ones", 0.5),
+        "wk": ParamSpec((d, ff), dtype, (dax, "model"), "fan_in"),
+        "wv": ParamSpec((ff, d), dtype, ("model", dax), "fan_in"),
     }
 
 

@@ -42,19 +42,25 @@ class SSMState(NamedTuple):
 
 
 def mamba_template(d: int, d_inner: int, d_state: int, d_conv: int,
-                   dt_rank: int, dtype: torch.dtype) -> Template:
+                   dt_rank: int, dtype: torch.dtype,
+                   fsdp: bool = False) -> Template:
+    dax = "data" if fsdp else None
     f32 = torch.float32
     return {
-        "in_proj": ParamSpec((d, 2 * d_inner), dtype, "fan_in"),
-        "conv_w": ParamSpec((d_conv, d_inner), f32, "normal", 0.2),
-        "conv_b": ParamSpec((d_inner,), f32, "zeros"),
+        "in_proj": ParamSpec((d, 2 * d_inner), dtype, (dax, "model"),
+                             "fan_in"),
+        "conv_w": ParamSpec((d_conv, d_inner), f32, (None, "model"),
+                            "normal", 0.2),
+        "conv_b": ParamSpec((d_inner,), f32, ("model",), "zeros"),
         "x_proj": ParamSpec((d_inner, dt_rank + 2 * d_state), dtype,
-                            "fan_in"),
-        "dt_proj_w": ParamSpec((dt_rank, d_inner), f32, "fan_in"),
-        "dt_proj_b": ParamSpec((d_inner,), f32, "ones", 0.01),
-        "a_log": ParamSpec((d_inner, d_state), f32, "normal", 0.5),
-        "d_skip": ParamSpec((d_inner,), f32, "ones"),
-        "out_proj": ParamSpec((d_inner, d), dtype, "fan_in"),
+                            ("model", None), "fan_in"),
+        "dt_proj_w": ParamSpec((dt_rank, d_inner), f32, (None, "model"),
+                               "fan_in"),
+        "dt_proj_b": ParamSpec((d_inner,), f32, ("model",), "ones", 0.01),
+        "a_log": ParamSpec((d_inner, d_state), f32, ("model", None),
+                           "normal", 0.5),
+        "d_skip": ParamSpec((d_inner,), f32, ("model",), "ones"),
+        "out_proj": ParamSpec((d_inner, d), dtype, ("model", dax), "fan_in"),
     }
 
 

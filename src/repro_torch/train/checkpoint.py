@@ -25,6 +25,17 @@ sizes and checksums and fall back to the newest older step that passes
 (:class:`CheckpointCorruptError` when none does).  The fault sites
 (``repro_torch.testing.faults``) bracket every durable transition of the
 save path.  One process writes one shard (``shard_0.npz``).
+
+Sharded trees: a tree with DTensor leaves is saved by every rank of its
+mesh together: each leaf in turn is gathered whole (``full_tensor``) on
+every rank, global rank 0 moves it to host memory and the others drop it
+(a device holds one whole leaf at most), rank 0 writes the file, and the
+ranks meet at a barrier, so the bytes are those of an unsharded
+checkpoint of the same values.  A
+restore into DTensor targets reads the full arrays on every rank and
+splits each per its target's placements: a checkpoint written under one
+mesh restores under another (the elastic re-shard), or into a plain
+tree.
 """
 from __future__ import annotations
 
@@ -43,6 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.launch.mesh import is_dtensor
 from repro_torch.testing import faults
 
 PyTree = Any
@@ -166,6 +178,11 @@ def _step_name(step: int) -> str:
     return f"step_{step:08d}"
 
 
+def step_dir(ckpt_dir: str, step: int) -> str:
+    """The directory ``save_checkpoint`` returns for ``step``."""
+    return os.path.join(ckpt_dir, _step_name(step))
+
+
 def _leaf_digest(raw) -> str:
     return hashlib.blake2b(raw, digest_size=16).hexdigest()
 
@@ -207,9 +224,11 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: PyTree,
                     keep_last: int = 3) -> str:
     """Atomic, fsync'd, checksummed save.  Returns the final step dir."""
     t_save = time.perf_counter()
+    paths, leaves = _flatten_with_paths(tree)
+    if any(is_dtensor(leaf) for leaf in leaves):
+        return _save_sharded(ckpt_dir, step, tree, extra, keep_last)
     os.makedirs(ckpt_dir, exist_ok=True)
     _sweep_stale_tmp(ckpt_dir)
-    paths, leaves = _flatten_with_paths(tree)
     encoded = [_leaf_bytes(leaf) for leaf in leaves]
     raw = [e[0] for e in encoded]
 
@@ -269,6 +288,43 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: PyTree,
         obs.metrics.gauge("checkpoint.save_mbps").set(
             sum(b.nbytes for b in raw) / (t_done - t_save) / 1e6)
     return final
+
+
+def _save_sharded(ckpt_dir: str, step: int, tree: PyTree,
+                  extra: Optional[Dict[str, Any]], keep_last: int) -> str:
+    """Every rank: gather each DTensor leaf whole, one leaf at a time
+    (a collective), which global rank 0 moves to host memory at once and
+    every other rank drops, so a device holds one whole leaf at most;
+    rank 0 writes the plain tree; then a barrier."""
+    import torch.distributed as dist
+    _, leaves = _flatten_with_paths(tree)
+    writer = dist.get_rank() == 0
+    full = []
+    for leaf in leaves:
+        if is_dtensor(leaf):
+            whole = leaf.full_tensor()
+            leaf = whole.detach().cpu() if writer else None
+            del whole
+        full.append(leaf)
+    final = step_dir(ckpt_dir, step)
+    if writer:
+        final = save_checkpoint(ckpt_dir, step, _unflatten(tree, full),
+                                extra=extra, keep_last=keep_last)
+    del full
+    dist.barrier()
+    return final
+
+
+def _place(target, leaf):
+    """A restored leaf for its target: split per a DTensor target's
+    placements (on the target's device, no communication: every rank
+    read the same array), else as read."""
+    if not is_dtensor(target):
+        return leaf
+    from torch.distributed.tensor import distribute_tensor
+    t = torch.as_tensor(leaf).to(target.to_local().device)
+    return distribute_tensor(t, target.device_mesh, target.placements,
+                             src_data_rank=None)
 
 
 # ---------------------------------------------------------- verification
@@ -490,12 +546,13 @@ def _restore_one(ckpt_dir: str, target: PyTree, step: int
                 nbytes / (t_read - t_restore) / 1e6)
         faults.fire("checkpoint.restore.mid", step=step)
 
-        t_paths, _ = _flatten_with_paths(target)
+        t_paths, t_leaves = _flatten_with_paths(target)
         if t_paths != manifest["paths"]:
             raise ValueError(
                 "checkpoint/target structure mismatch:\n"
                 f"  missing: {set(manifest['paths']) - set(t_paths)}\n"
                 f"  extra:   {set(t_paths) - set(manifest['paths'])}")
+        leaves = [_place(t, leaf) for t, leaf in zip(t_leaves, leaves)]
         return _unflatten(target, leaves), step, manifest["extra"]
     finally:
         _RESTORING.discard(os.path.abspath(d))

@@ -7,8 +7,10 @@ Policies:
   "pure_bf16" — bf16 master + bf16 moments; the update math still runs
                 in f32.
 
-Trees are the model's nested dicts of tensors.  The optimizer state is a
-tree congruent with the parameters and lives on their device; its step
+Trees are the model's nested dicts of tensors (DTensors when sharded:
+the master copy and the moments take their parameter's placements, and
+the global gradient norm sums every rank's shards).  The optimizer state
+is a tree congruent with the parameters and lives on their device; its step
 counter is a 0-d int32 CPU tensor, so the schedule and the bias
 corrections are computed on the host in f32 (as the reference computes
 them) and no step waits on the card.  ``OptState`` checkpoints in the
@@ -58,11 +60,16 @@ def init_opt_state(params, cfg: OptConfig) -> OptState:
     return OptState(
         step=torch.zeros((), dtype=torch.int32),
         master=tree_map(lambda p: p.detach().to(mdt, copy=True), params),
-        m=tree_map(lambda p: torch.zeros(p.shape, dtype=sdt,
-                                         device=p.device), params),
-        v=tree_map(lambda p: torch.zeros(p.shape, dtype=sdt,
-                                         device=p.device), params),
+        m=tree_map(lambda p: _zeros_like(p, sdt), params),
+        v=tree_map(lambda p: _zeros_like(p, sdt), params),
     )
+
+
+def _zeros_like(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Dense zeros of ``p``'s shape on its device; a DTensor's keep its
+    placements."""
+    return torch.zeros_like(p, dtype=dtype,
+                            memory_format=torch.contiguous_format)
 
 
 def _f32(x) -> torch.Tensor:

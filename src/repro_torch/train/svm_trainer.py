@@ -52,13 +52,18 @@ class SVMTrainerConfig:
 
 
 class LiquidSVM:
-    """Fit -> select -> test over cells, on ``device`` (None: the card)."""
+    """Fit -> select -> test over cells, on ``device`` (None: the card).
+    ``mesh`` and ``mesh_axes`` split the cells over the ranks of a
+    ``DeviceMesh`` (``api.session.SVM``)."""
 
     def __init__(self, config: SVMTrainerConfig = SVMTrainerConfig(),
-                 device: Union[None, str, torch.device] = None):
+                 device: Union[None, str, torch.device] = None,
+                 mesh=None, mesh_axes: Optional[Tuple[str, ...]] = None):
         from repro_torch.kernels import runtime
         self.config = config
         self.device = runtime.resolve_device(device)
+        self.mesh = mesh
+        self.mesh_axes = mesh_axes
         self._fitted = False
 
     def fit(self, x, y: np.ndarray, ckpt_dir: Optional[str] = None
@@ -68,7 +73,8 @@ class LiquidSVM:
         rates come from the retained validation surface)."""
         from repro_torch.api.session import SVM
         cfg = self.config
-        sess = SVM(x, y, config=cfg, device=self.device)
+        sess = SVM(x, y, config=cfg, device=self.device, mesh=self.mesh,
+                   mesh_axes=self.mesh_axes)
         tr = sess.train(ckpt_dir=ckpt_dir)
         rule = "npl" if cfg.scenario == "npsvm" else "argmin"
         sel = sess.select(rule)

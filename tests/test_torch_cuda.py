@@ -941,3 +941,34 @@ def test_moe_ssm_smoke_on_the_card_equals_the_cpu(cuda, arch):
     for a, b in zip(got, run(p_cpu, torch.device("cpu"))):
         scale = float(b.abs().max())
         assert float((a - b).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_mesh_fit_equals_unmeshed_fit(cuda, tmp_path):
+    """A fit on a (1, 1) ("data", "model") mesh of one NCCL rank in this
+    process equals the fit without a mesh bitwise: every array of the
+    train result and the held-out decisions (the wave is one rank's whole
+    block, gathered through a one-rank group)."""
+    import torch.distributed as dist
+    from repro_torch.data.synthetic import covtype_like
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.train.svm_trainer import LiquidSVM, SVMTrainerConfig
+    x, y = covtype_like(n=900, d=5, seed=1, label_noise=0.02, n_modes=3)
+    y = np.where(y == 0, -1, 1)
+    cfg = SVMTrainerConfig(n_folds=3, max_iters=150, cell_method="voronoi",
+                           cell_size=100, seed=0, n_slots_per_wave=4)
+    plain = LiquidSVM(cfg, device=cuda).fit(x, y)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = mesh_mod.make_mesh((1, 1), ("data", "model"))
+        meshed = LiquidSVM(cfg, device=cuda, mesh=mesh,
+                           mesh_axes=("data", "model")).fit(x, y)
+        for k in ("coefs", "gamma", "lam", "tau", "val_loss", "surf_loss",
+                  "surf_fa", "surf_det", "iters"):
+            assert np.array_equal(getattr(plain.train_result, k),
+                                  getattr(meshed.train_result, k)), k
+        assert np.array_equal(plain.decision_function(x[:300]),
+                              meshed.decision_function(x[:300]))
+    finally:
+        dist.destroy_process_group()

@@ -899,7 +899,7 @@ def test_decode_parts_define_every_head_dim_once():
     import re
     from repro_torch.kernels.decode_attention import ops as dec_ops
     src = (runtime.CSRC / "decode_attention.cu").read_text()
-    assert runtime.build_parts(runtime.CSRC / "decode_attention.cu") == 3
+    assert runtime.build_parts(runtime.CSRC / "decode_attention.cu") == 8
     switch = [int(d) for d in re.findall(r"case (\d+): return \(int\)dim_",
                                          src)]
     assert tuple(sorted(switch)) == dec_ops.HEAD_DIMS

@@ -404,11 +404,18 @@ def test_grad_accum_equivalence():
 
 
 def test_trainer_mesh_raises_and_names_the_missing_work():
+    """``Trainer(mesh=...)`` is ported (``test_torch_lm_mesh.py``); what
+    raises is what it cannot use, naming what is missing: placements
+    without their mesh, and a mesh of another device type than the
+    run's."""
+    from types import SimpleNamespace
     cfg = get_arch("stablelm-1.6b").smoke
     pipe = TokenPipeline(TokenPipelineConfig(vocab=cfg.vocab, seq_len=8,
                                              global_batch=2))
-    for kw in ({"mesh": object()}, {"param_shardings": {}}):
-        with pytest.raises(NotImplementedError, match="A4"):
+    for kw, match in (({"param_shardings": {}}, "pass the mesh"),
+                      ({"mesh": SimpleNamespace(device_type="cuda")},
+                       "cuda mesh for a run on cpu")):
+        with pytest.raises(ValueError, match=match):
             Trainer(cfg, OptConfig(), TrainLoopConfig(), pipe, device=CPU,
                     **kw)
 

@@ -815,17 +815,25 @@ def test_liquid_svm_needs_a_card_or_cpu(monkeypatch):
 
 
 def test_unported_paths_raise():
-    """The device mesh (slots sharded over several cards) is the one
-    training path not ported; per-wave ``ckpt_dir`` resume is
-    (``test_torch_resume.py``), as are the npl / roc rules
-    (``test_torch_session.py``)."""
+    """The device mesh, the last training path that raised, is ported
+    (``test_torch_mesh.py`` runs it on gloo ranks), as are per-wave
+    ``ckpt_dir`` resume (``test_torch_resume.py``) and the npl / roc rules
+    (``test_torch_session.py``).  What still raises is a mesh the call
+    cannot use: a wave that does not divide over the ranks of the named
+    axes (before any slot is staged), and a mesh of another device type
+    than the operands."""
+    from types import SimpleNamespace
     from repro_torch.distributed import cell_trainer as t_ct
     cfg = t_cv.CVConfig()
-    with pytest.raises(NotImplementedError):
-        t_ct.train_cells_waves(lambda lo, hi: None, 2, 1, None, None, None,
-                               cfg, 1, 1, CPU, mesh=object())
-    with pytest.raises(NotImplementedError):
-        t_ct.predict_cells(None, None, None, None, mesh=object())
+    four = SimpleNamespace(mesh_dim_names=("data",), shape=(4,),
+                           device_type="cpu")
+    with pytest.raises(ValueError, match="do not divide over 4"):
+        t_ct.train_cells_waves(lambda lo, hi: None, 2, 2, None, None, None,
+                               cfg, 1, 1, CPU, mesh=four,
+                               axis_names=("data",))
+    with pytest.raises(ValueError, match="cuda mesh"):
+        t_ct.predict_cells(torch.zeros((4, 1, 2)), None, None, None,
+                           mesh=SimpleNamespace(device_type="cuda"))
     assert t_select.get_rule("npl") is t_select.rule_npl
 
 
