@@ -111,7 +111,17 @@ kernels from ``src/repro_torch/csrc/`` into ``build/kernels/`` and then:
      on the one card (gloo, spawned): the fit split over a (2,) mesh,
      each rank's block bitwise its one-process solve, the two ranks'
      results equal and held against the one-rank fit cell by cell,
-     ``ef_psum`` over the two ranks;
+     ``ef_psum`` over the two ranks; then the launch tooling
+     (``launch``): ``python -m repro_torch.launch.serve`` for
+     stablelm-1.6b and gemma3-4b (window attention) in processes of
+     their own, each launching B9 once an attention layer and B10 once a
+     layer a decode step, their first launches replayed here against the
+     plain versions; ``launch.train --full --steps 3`` (stablelm-1.6b at
+     full width on the card, finite losses); and the dry run of
+     stablelm-1.6b's ``train_4k`` cell on the (16, 16) production mesh
+     (``launch.dryrun``: a fake process group, fake tensors, on the CPU,
+     started beside the build), its per-device FLOPs, bytes and
+     collective bytes printed;
   7. cell construction at UCI Covertype's full size (covtype_like rows,
      580,986 x 54, written to a memmap under ``build/chip_smoke_cells/``,
      removed at the start and the end of the phase): holds the
@@ -142,6 +152,7 @@ before printing any result.
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import concurrent.futures
 import contextlib
@@ -3379,6 +3390,154 @@ def mesh_phase(torch, dev, tables, smi: str):
     return paths
 
 
+# the launch tooling (A5): the serve launcher at its defaults (the smoke
+# config on the card: 4 prompts of 16 tokens, 16 new; gemma3-4b for its
+# window attention), the train launcher at stablelm-1.6b's full width, and
+# the dry run of stablelm-1.6b's train_4k cell on the (16, 16) production
+# mesh (a fake process group on the CPU, started beside the build); each
+# launcher in a process of its own, files under LAUNCH_DIR (removed at the
+# start and the end)
+LAUNCH_SERVE = ("stablelm-1.6b", "gemma3-4b")
+LAUNCH_SERVE_NEW = 16
+LAUNCH_TRAIN = ("--arch", "stablelm-1.6b", "--full", "--steps", "3")
+LAUNCH_DRYRUN = ("--arch", "stablelm-1.6b", "--shape", "train_4k",
+                 "--mesh", "single")
+LAUNCH_DIR = ROOT / "build" / "chip_smoke_launch"
+
+
+def _src_env(**extra) -> dict:
+    path = [str(ROOT / "src")] + ([os.environ["PYTHONPATH"]]
+                                  if os.environ.get("PYTHONPATH") else [])
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(path), **extra)
+
+
+def start_dryrun():
+    """``python -m repro_torch.launch.dryrun`` on LAUNCH_DRYRUN in a niced
+    CPU process of its own (no card visible to it), beside the build.
+    Returns (process, its JSON-lines file, its log, start time); the
+    process is killed at exit if it still runs."""
+    shutil.rmtree(LAUNCH_DIR, ignore_errors=True)
+    LAUNCH_DIR.mkdir(parents=True)
+    out, log = LAUNCH_DIR / "dryrun.jsonl", LAUNCH_DIR / "dryrun.log"
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun",
+             *LAUNCH_DRYRUN, "--out", str(out)], cwd=ROOT, stdout=f,
+            stderr=subprocess.STDOUT, preexec_fn=lambda: os.nice(10),
+            env=_src_env(CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1"))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out, log, time.perf_counter()
+
+
+def launch_serve_child(arch: str, out_path: str) -> None:
+    """Run in a process of its own: ``repro_torch.launch.serve --arch
+    <arch>`` at its defaults (the card), B9 and B10 counted from 0 and
+    their first launches recorded.  Saves the launcher's exit code and
+    output, the counts and the recorded calls to ``out_path``."""
+    import io
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import serve
+    tables = (fa_ops.launches, dec_ops.launches)
+    calls = {"flash_attention": [], "decode_attention": []}
+    buf = io.StringIO()
+    zero_counts(tables)
+    with recorded(fa_ops, "flash_attention", calls["flash_attention"],
+                  keep=1), \
+            recorded(dec_ops, "decode_attention_fused",
+                     calls["decode_attention"], keep=1), \
+            contextlib.redirect_stdout(buf):
+        rc = serve.main(["--arch", arch, "--new", str(LAUNCH_SERVE_NEW)])
+    torch.save({"rc": rc, "stdout": buf.getvalue(),
+                "counts": read_counts(tables), "calls": calls}, out_path)
+
+
+def _last_json(text: str) -> dict:
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def launch_phase(torch, dev, dry):
+    """The launchers as a user runs them.  Returns (each serve run's
+    launch counts, the replayed launches' errors, their timing cases).
+
+    1. ``launch.serve`` for each of LAUNCH_SERVE in a process of its own:
+       exit code 0, ``out_shape`` (4, 32), B9 once an attention layer
+       (the prefill) and B10 once a layer a decode step, nothing else;
+       its first B9 and B10 launches replayed here against their plain
+       versions (``attn_replay``);
+    2. ``launch.train`` at stablelm-1.6b's full width for 3 steps on the
+       card: finite losses, ``wall_s``;
+    3. the dry run started by ``start_dryrun``: exit code 0 and its
+       result, with the reference's keys less the compiled program's."""
+    from repro_torch.configs import get_arch
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    paths, errs, cases = {}, {}, []
+    for arch in LAUNCH_SERVE:
+        out = LAUNCH_DIR / f"serve_{arch}.pt"
+        t1 = time.perf_counter()
+        subprocess.run(
+            [sys.executable, "-c",
+             f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+             f"import chip_smoke; chip_smoke.launch_serve_child({arch!r}, "
+             f"{str(out)!r})"], cwd=ROOT, env=_src_env(), check=True,
+            timeout=600)
+        wall = time.perf_counter() - t1
+        got = torch.load(out, map_location=dev)
+        res = _last_json(got["stdout"])
+        if got["rc"] != 0 or res["out_shape"] != [4, 16 + LAUNCH_SERVE_NEW]:
+            raise Mismatch(f"launch.serve {arch}: exit {got['rc']}, "
+                           f"out_shape {res.get('out_shape')}")
+        cfg = get_arch(arch).smoke
+        n_attn = sum(cfg.period_pattern[i % cfg.period][0].startswith("attn")
+                     for i in range(cfg.n_layers))
+        label = f"launch.serve[{arch}]"
+        require_launches(label, got["counts"], {
+            "flash_attention": n_attn,
+            "decode_attention": n_attn * (LAUNCH_SERVE_NEW - 1)})
+        paths[label] = got["counts"]
+        for name in ("flash_attention", "decode_attention"):
+            err, case = attn_replay(torch, f"launch.serve {arch}",
+                                    "first launch", name,
+                                    got["calls"][name][0])
+            errs[case[0]] = err
+            cases.append(case)
+        emit({"phase": "launch_serve", "arch": arch, **res,
+              "launches": got["counts"], "process_s": wall})
+    t1 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *LAUNCH_TRAIN],
+        cwd=ROOT, env=_src_env(), capture_output=True, text=True,
+        timeout=900)
+    if run.returncode != 0:
+        raise Mismatch(f"launch.train: exit {run.returncode}: "
+                       f"{run.stderr[-3000:]}")
+    res = _last_json(run.stdout)
+    if not (np.isfinite(res["loss_first"]) and np.isfinite(res["loss_last"])
+            and res["steps"] == 3):
+        raise Mismatch(f"launch.train: {res}")
+    emit({"phase": "launch_train", **res,
+          "process_s": time.perf_counter() - t1})
+    proc, out, log, t_start = dry
+    rc = proc.wait(timeout=900)
+    if rc != 0 or not out.exists():
+        tail = log.read_text()[-3000:] if log.exists() else ""
+        raise Mismatch(f"launch.dryrun: exit {rc}: {tail}")
+    r = _last_json(out.read_text())
+    keys = {"arch", "shape", "mesh", "kind", "variant", "n_devices", "flops",
+            "bytes_accessed", "collective_bytes", "collective_counts",
+            "memory", "trace_s"}
+    if set(r) != keys or r["n_devices"] != 256 or not r["flops"] > 0:
+        raise Mismatch(f"launch.dryrun: {r}")
+    emit({"phase": "launch_dryrun", **r,
+          "process_s_from_start": time.perf_counter() - t_start})
+    shutil.rmtree(LAUNCH_DIR, ignore_errors=True)
+    emit({"phase": "launch", "seconds": time.perf_counter() - t0})
+    return paths, errs, cases
+
+
 def attn_tol(want) -> float:
     """Kernel vs plain attention on one card: f32 sums of the same products
     in another order, 2e-5 on values ~1.  In bf16 the kernel also rounds P
@@ -4365,6 +4524,7 @@ def main() -> int:
         initializer=os.nice, initargs=(10,))
     cpu_small = cpu_pool.submit(small_fit_run, "cpu")
     cpu_staged = cpu_pool.submit(staged_small_run, "cpu")
+    dry = start_dryrun()
     t0 = time.perf_counter()
     logs = runtime.build()
     build_s = time.perf_counter() - t0
@@ -4668,6 +4828,12 @@ def main() -> int:
     launches = {name: n + sum(c.get(name, 0) for c in mesh_paths.values())
                 for name, n in launches.items()}
 
+    # ------------------------------------------ 6c. the launch tooling (A5)
+    launch_paths, launch_errs, launch_cases = launch_phase(torch, dev, dry)
+    emit({"phase": "launch_launches", "per_path": launch_paths})
+    launches = {name: n + sum(c.get(name, 0) for c in launch_paths.values())
+                for name, n in launches.items()}
+
     # ------------------------------------------- 7. cell construction
     t0 = time.perf_counter()
     x_cells, y_cells = covtype_like(n=CELLS_N, d=DIM, n_classes=N_CLASSES,
@@ -4888,6 +5054,21 @@ def main() -> int:
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None if lib is None else cuda_ms(torch, lib)})
     del moe_cases
+    launch_rows = []
+    for label, family, name, kern, plain, lib, (b_ms, b_by) in launch_cases:
+        launch_rows.append({
+            "name": label, "route": "cuda", "source": KERNELS[name][0],
+            "replaces": KERNELS[name][1],
+            "launches": launch_paths[f"launch.serve[{family.split()[-1]}]"][
+                name],
+            "max_abs_err": launch_errs[label],
+            "ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None if lib is None else cuda_ms(torch, lib)})
+    del launch_cases
+    emit({"phase": "launch_kernel_times", "rows": launch_rows,
+          "library": "torch.nn.functional.scaled_dot_product_attention",
+          "card": smi.splitlines()[0]})
     emit({"phase": "lm_moe_ssm_kernel_times", "rows": moe_rows,
           "library": "torch.nn.functional.scaled_dot_product_attention",
           "card": smi.splitlines()[0]})

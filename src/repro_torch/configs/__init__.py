@@ -40,6 +40,13 @@ class ArchSpec:
     smoke: ModelConfig
     shapes: Tuple[ShapeSpec, ...]
 
+    def shape(self, name: str) -> ShapeSpec:
+        for s in self.shapes:
+            if s.name == name:
+                return s
+        raise KeyError(f"{self.arch_id} does not run shape {name!r} "
+                       f"(available: {[s.name for s in self.shapes]})")
+
 
 def get_arch(arch_id: str) -> ArchSpec:
     if arch_id not in _MODULES:
@@ -47,3 +54,9 @@ def get_arch(arch_id: str) -> ArchSpec:
     mod = importlib.import_module(_MODULES[arch_id])
     return ArchSpec(arch_id=arch_id, config=mod.CONFIG, smoke=mod.SMOKE,
                     shapes=mod.SHAPES)
+
+
+def all_cells() -> Tuple[Tuple[str, str], ...]:
+    """Every runnable (arch, shape) pair: the dry run's matrix."""
+    return tuple((aid, s.name) for aid in ARCH_IDS
+                 for s in get_arch(aid).shapes)

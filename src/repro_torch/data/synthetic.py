@@ -131,3 +131,13 @@ def regression_1d(n: int = 1000, seed: int = 0, hetero: bool = True):
     noise_scale = 0.08 + (0.25 * (x[:, 0] + 1.0) if hetero else 0.0)
     y = np.sin(3.0 * x[:, 0]) + noise_scale * rng.normal(size=n)
     return x, y.astype(np.float32)
+
+
+def train_test_split(x: np.ndarray, y: np.ndarray, test_frac: float = 0.25,
+                     seed: int = 0):
+    """A seeded random split: (x_train, y_train, x_test, y_test)."""
+    rng = np.random.default_rng(seed)
+    p = rng.permutation(len(x))
+    n_test = int(len(x) * test_frac)
+    te, tr = p[:n_test], p[n_test:]
+    return x[tr], y[tr], x[te], y[te]

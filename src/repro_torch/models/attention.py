@@ -20,9 +20,10 @@ runs the plain ``decode_attention`` below.
 
 The cache is updated IN PLACE: the new token's k/v (int8 plus its scale
 for a quantised cache) are written into the cache tensors at the ring
-position, and the returned cache is the same dict.  The JAX package
-returns a new cache; in place saves a copy of every layer's cache per
-decoded token.
+position (:func:`ring_write`; a cache split over the sequence on the
+rank that holds the slot), and the returned cache is the same dict.  The
+JAX package returns a new cache; in place saves a copy of every layer's
+cache per decoded token.
 """
 from __future__ import annotations
 
@@ -151,6 +152,22 @@ def quantize_kv(x: Tensor) -> Tuple[Tensor, Tensor]:
     return q8, sc
 
 
+def _split_heads(x: Tensor, n: int, d: int) -> Tensor:
+    """(B, T, n d) -> (B, T, n, d).  A DTensor whose last dim is split
+    over a mesh dim that does not divide the n heads (gemma3-4b's 8 heads
+    over 16 ranks) has that dim gathered first: DTensor cannot unflatten
+    an uneven split."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh = x.device_mesh
+        last = Shard(x.ndim - 1)
+        pl = [Replicate() if p == last and n % mesh.size(i) else p
+              for i, p in enumerate(x.placements)]
+        if pl != list(x.placements):
+            x = x.redistribute(mesh, pl)
+    return x.reshape(x.shape[0], x.shape[1], n, d)
+
+
 def attention_block(
     p: Dict[str, Tensor],
     x: Tensor,                     # (B, T, d)
@@ -176,10 +193,10 @@ def attention_block(
     cache.  Prefill: cache is None and the returned {"k", "v"} (the
     rotated keys and the values) become the cache.
     """
-    b, t, _ = x.shape
-    q = layers.linear(x, p["wq"], dtype).reshape(b, t, n_heads, head_dim)
-    k = layers.linear(x, p["wk"], dtype).reshape(b, t, n_kv, head_dim)
-    v = layers.linear(x, p["wv"], dtype).reshape(b, t, n_kv, head_dim)
+    q = _split_heads(layers.linear(x, p["wq"], dtype), n_heads, head_dim)
+    k = _split_heads(layers.linear(x, p["wk"], dtype), n_kv, head_dim)
+    v = _split_heads(layers.linear(x, p["wv"], dtype), n_kv, head_dim)
+    b, t = q.shape[:2]
     if "q_norm" in p:
         q = _qk_norm(q, p["q_norm"])
         k = _qk_norm(k, p["k_norm"])
@@ -209,24 +226,62 @@ def attention_block(
         for name, new in (("k", k), ("v", v)):
             if quantized:
                 q8, sc = quantize_kv(new)
-                cache[name][:, pos:pos + t] = q8
-                cache[name + "_scale"][:, pos:pos + t] = sc
+                ring_write(cache[name], q8, pos)
+                ring_write(cache[name + "_scale"], sc, pos)
             else:
-                cache[name][:, pos:pos + t] = new.to(cache[name].dtype)
-        dec_window = window if mask_kind == "window" else 0
-        if impl != "ref":
-            out = fused_decode(q, cache, scale, window=dec_window,
-                               cache_pos=int(cache_pos))
-        else:
-            k_eff, v_eff = cache["k"], cache["v"]
+                ring_write(cache[name], new.to(cache[name].dtype), pos)
+        names = ("k", "v") + (("k_scale", "v_scale") if quantized else ())
+
+        def attend(q_, *leaves):
+            c = dict(zip(names, leaves))
+            dec_window = window if mask_kind == "window" else 0
+            if impl != "ref":
+                return fused_decode(q_, c, scale, window=dec_window,
+                                    cache_pos=int(cache_pos))
+            k_eff, v_eff = c["k"], c["v"]
             if quantized:
-                k_eff = k_eff.float() * cache["k_scale"]
-                v_eff = v_eff.float() * cache["v_scale"]
-            out = decode_attention(q, k_eff, v_eff, scale, window=dec_window,
-                                   cache_pos=int(cache_pos))
+                k_eff = k_eff.float() * c["k_scale"]
+                v_eff = v_eff.float() * c["v_scale"]
+            return decode_attention(q_, k_eff, v_eff, scale,
+                                    window=dec_window,
+                                    cache_pos=int(cache_pos))
+
+        leaves = tuple(cache[n] for n in names)
+        if is_dtensor(q):
+            # each rank's rows against their whole cache: the sequence
+            # split over seq_axes is gathered first
+            out = layers.run_on_rows(attend, (q,) + leaves)
+        else:
+            out = attend(q, *leaves)
 
     out = out.reshape(b, t, n_heads * head_dim)
     return layers.linear(out, p["wo"], dtype), new_cache
+
+
+def ring_write(dst: Tensor, new: Tensor, pos: int) -> None:
+    """``dst[:, pos:pos + T] = new`` in place (dst (B, S, ...), new (B, T,
+    ...)).  A DTensor ``dst`` split over its sequence dim is written on
+    its local blocks: ``new`` takes dst's layout with that dim whole, and
+    each rank writes the slots it holds."""
+    t = new.shape[1]
+    if not is_dtensor(dst):
+        dst[:, pos:pos + t] = new
+        return
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh = dst.device_mesh
+    pl = [Replicate() if p == Shard(1) else p for p in dst.placements]
+    if not is_dtensor(new):       # the same on every rank: replicated
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    src = new.redistribute(mesh, pl).to_local()
+    shape, offset = compute_local_shape_and_global_offset(
+        dst.shape, mesh, dst.placements)
+    lo, hi = max(pos, offset[1]), min(pos + t, offset[1] + shape[1])
+    if lo < hi:
+        dst.to_local()[:, lo - offset[1]:hi - offset[1]] = \
+            src[:, lo - pos:hi - pos]
 
 
 def fused_decode(q: Tensor, cache: Dict[str, Tensor], scale: float,

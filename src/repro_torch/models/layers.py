@@ -184,6 +184,19 @@ def redistribute(x: Any, spec: Tuple[Any, ...]) -> Any:
     return x.redistribute(mesh, placements(spec, mesh))
 
 
+def sum_partial(x: Any) -> Any:
+    """A DTensor whose pending sums (``Partial`` placements) are summed
+    over their ranks, every other placement kept; a plain tensor as is.
+    A product contracted over a split dim leaves such a sum, and torch
+    2.11's DTensor cannot add a split operand to it ("redistribute from
+    S(0) to P(sum) not supported")."""
+    if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in x.placements])
+
+
 def run_on_rows(fn: Callable[..., Any], rows: Tuple[Any, ...],
                 whole: Tuple[Any, ...] = (), sums: bool = False) -> Any:
     """``fn(*rows, *whole)`` with sharded operands run on local tensors:

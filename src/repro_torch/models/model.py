@@ -33,6 +33,14 @@ Entry points:
                 ring slot, the rwkv and mamba state leaves whole)
     encode      (B, T[, d_frontend]) -> logits at every position (the
                 encoder-only hubert; no cache)
+
+Every entry point runs under a mesh too: with DTensor inputs and
+parameters, the plain tensors it builds (positions, masks) count as
+replicated (``layers.mesh_context``), attention runs on each rank's rows
+(``layers.run_on_rows``), and ``decode_step`` takes a cache whose kv
+leaves are split over ``batch_axes`` and ``seq_axes`` (the reference's
+``cache_pspec``): the new token's k/v are written on the rank that holds
+its ring slot.
 """
 from __future__ import annotations
 
@@ -115,8 +123,8 @@ class ModelConfig:
     # (FSDP), through the templates' partition specs
     fsdp_params: bool = False
     batch_axes: Tuple[str, ...] = ()   # mesh axes the batch is sharded over
-    # mesh axes decode caches shard seq over: carried for the launch
-    # tooling, no effect in the model
+    # mesh axes decode caches shard seq over (``launch.shapes``
+    # places the caches; decode reads any placement)
     seq_axes: Tuple[str, ...] = ()
     shard_activations: bool = False    # layer-boundary h sharded over
                                        # 'model' on d (big-arch training)
@@ -144,6 +152,10 @@ class ModelConfig:
     @property
     def rwkv_heads(self) -> int:
         return self.d_model // self.rwkv_head_dim
+
+    @property
+    def is_decoder(self) -> bool:
+        return all(m != "attn_bidir" for m, _ in self.period_pattern)
 
     def param_count(self) -> int:
         return layers.param_count(build_template(self))
@@ -384,7 +396,10 @@ def _layer(cfg: ModelConfig, mixer: str, mlp: str, p, h: Tensor,
         new_cache["shift_ffn"] = cm_carry
     if cache is not None and mixer in _STATEFUL:
         for name, leaf in new_cache.items():
-            cache[name].copy_(leaf)
+            dst = cache[name]
+            if is_dtensor(dst):   # the new state in the cache's layout
+                leaf = leaf.redistribute(dst.device_mesh, dst.placements)
+            dst.copy_(leaf)
         new_cache = cache
     return _constrain(cfg, h + out), aux, new_cache
 
@@ -565,11 +580,12 @@ def prefill(cfg: ModelConfig, params, x: Tensor) -> Tuple[Tensor, Dict[str, Any]
     The returned attention caches have length T (the prompt); the serve
     layer pads them to the generation budget before decode_step."""
     b, t = x.shape[0], x.shape[1]
-    h, _, new_cache = backbone(cfg, params, x,
-                               _positions(b, t, 0, x.device),
-                               collect_cache=True)
-    logits = layers.linear(h[:, -1:], _head_matrix(cfg, params),
-                           cfg.dtype).float()[:, 0]
+    with layers.mesh_context(x):
+        h, _, new_cache = backbone(cfg, params, x,
+                                   _positions(b, t, 0, x.device),
+                                   collect_cache=True)
+        logits = layers.linear(h[:, -1:], _head_matrix(cfg, params),
+                               cfg.dtype).float()[:, 0]
     return logits, new_cache
 
 
@@ -581,11 +597,12 @@ def decode_step(cfg: ModelConfig, params, token: Tensor,
     the position of the token (its cache slot is pos mod S).  Returns
     (logits (B, vocab) f32, the updated cache)."""
     b = token.shape[0]
-    h, _, new_cache = backbone(cfg, params, token,
-                               _positions(b, 1, int(pos), token.device),
-                               cache=cache, pos=int(pos))
-    logits = layers.linear(h[:, -1], _head_matrix(cfg, params),
-                           cfg.dtype).float()
+    with layers.mesh_context(token):
+        h, _, new_cache = backbone(cfg, params, token,
+                                   _positions(b, 1, int(pos), token.device),
+                                   cache=cache, pos=int(pos))
+        logits = layers.linear(h[:, -1], _head_matrix(cfg, params),
+                               cfg.dtype).float()
     return logits, new_cache
 
 
@@ -594,5 +611,6 @@ def encode(cfg: ModelConfig, params, x: Tensor) -> Tensor:
     """Encoder-only (hubert): logits (B, T, vocab) f32 at every position,
     one unchunked head over the small vocabulary."""
     b, t = x.shape[0], x.shape[1]
-    h, _, _ = backbone(cfg, params, x, _positions(b, t, 0, x.device))
-    return logits_fn(cfg, params, h)
+    with layers.mesh_context(x):
+        h, _, _ = backbone(cfg, params, x, _positions(b, t, 0, x.device))
+        return logits_fn(cfg, params, h)

@@ -125,7 +125,8 @@ def mamba_mixer(p: Dict[str, Tensor], x: Tensor, *, d_inner: int,
     xs, conv_carry = _causal_conv(xs, p["conv_w"], p["conv_b"], conv_carry)
     xs = F.silu(xs.float()).to(dtype)
 
-    proj = layers.linear(xs, p["x_proj"], dtype).float()
+    # sharded, x_proj contracts over the split d_inner: its sum first
+    proj = layers.sum_partial(layers.linear(xs, p["x_proj"], dtype)).float()
     dt_in, b_t, c_t = torch.split(proj, [dt_rank, d_state, d_state], dim=-1)
     dt = F.softplus(dt_in @ p["dt_proj_w"] + p["dt_proj_b"])   # (B, T, D)
     a = -torch.exp(p["a_log"])                                 # (D, N)

@@ -38,8 +38,8 @@ one-shot Gram (B7) and the one-cell predict (B8) one row, SV counts off
 the tile and P = 1; the ridge, expectile and quantile solvers on CUDA
 operands with no mask and no warm start; B9 and B10 refusing an operand
 that requires grad; rwkv6's smoke config on the card against its own
-stepped recurrence and the CPU's greedy tokens.  This file imports no
-jax.
+stepped recurrence and the CPU's greedy tokens; the serve launcher on the
+card launching B9 and B10.  This file imports no jax.
 """
 from __future__ import annotations
 
@@ -972,3 +972,20 @@ def test_one_rank_nccl_mesh_fit_equals_unmeshed_fit(cuda, tmp_path):
                               meshed.decision_function(x[:300]))
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_serve_launcher_on_the_card_launches_b9_and_b10(cuda, capsys):
+    """``launch.serve`` at its defaults (the card): the prefill runs B9
+    and the decode steps B10."""
+    import json
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import serve
+    fa_ops.launches["flash_attention"] = 0
+    dec_ops.launches["decode_attention"] = 0
+    assert serve.main(["--arch", "stablelm-1.6b"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["out_shape"] == [4, 32]
+    assert fa_ops.launches["flash_attention"] >= 1
+    assert dec_ops.launches["decode_attention"] >= 1
