@@ -111,7 +111,14 @@ kernels from ``src/repro_torch/csrc/`` into ``build/kernels/`` and then:
      on the one card (gloo, spawned): the fit split over a (2,) mesh,
      each rank's block bitwise its one-process solve, the two ranks'
      results equal and held against the one-rank fit cell by cell,
-     ``ef_psum`` over the two ranks; then the launch tooling
+     ``ef_psum`` over the two ranks; then the head-parallel prefill
+     (``mesh_prefill``): stablelm-1.6b at full width over a (1, 2)
+     ("data", "model") mesh of two ranks on the one card, in f32 and
+     bf16, B9 once a layer at each rank's 16 heads (its first launch
+     replayed against the plain version), the embedding vocab-parallel,
+     the logits against the unsharded prefill, and B9 at every config's
+     local heads at the production mesh's 16 'model' ranks; then the
+     launch tooling
      (``launch``): ``python -m repro_torch.launch.serve`` for
      stablelm-1.6b and gemma3-4b (window attention) in processes of
      their own, each launching B9 once an attention layer and B10 once a
@@ -121,7 +128,10 @@ kernels from ``src/repro_torch/csrc/`` into ``build/kernels/`` and then:
      stablelm-1.6b's ``train_4k`` cell on the (16, 16) production mesh
      (``launch.dryrun``: a fake process group, fake tensors, on the CPU,
      started beside the build), its per-device FLOPs, bytes and
-     collective bytes printed;
+     collective bytes printed; then the examples (``examples``):
+     ``examples/torch_quickstart.py`` and ``examples/torch_serve_svm.py``
+     at their defaults on the card, in this process, their launches
+     counted alone and their reports held;
   7. cell construction at UCI Covertype's full size (covtype_like rows,
      580,986 x 54, written to a memmap under ``build/chip_smoke_cells/``,
      removed at the start and the end of the phase): holds the
@@ -374,6 +384,15 @@ MESH_TWO_BACKEND = "cpu:gloo,cuda:gloo"
 # every fit of the phase packs its cells for the two ranks, so the fit
 # without a mesh solves, in one process, the very wave the ranks split
 MESH_PACK = 2
+# head-parallel prefill (A4b): stablelm-1.6b (LM_ARCH) at full width over
+# a (1, 2) ("data", "model") mesh of two ranks on the one card, each rank
+# its 16 of the 32 heads, on MESH_PREFILL_B x MESH_PREFILL_T tokens; B9 at
+# every config's local heads at the production mesh on LOCAL_HEADS_T
+# tokens of one row
+MESH_PREFILL_B, MESH_PREFILL_T = 4, 512
+LOCAL_HEADS_T = 4096
+# the examples run on the card at their defaults (examples/<name>.py)
+EXAMPLES = ("torch_quickstart", "torch_serve_svm")
 
 # cell-construction slice: UCI Covertype at full size (581,012 rows of 54
 # features, 7 classes; covtype_like rounds n down to 580,986), the spatial
@@ -612,20 +631,24 @@ def _snap(v):
 
 @contextlib.contextmanager
 def recorded(mod, name: str, calls: list, keep: int = None, device=None,
-             snap: bool = True):
+             snap: bool = True, key=None):
     """Inside, every call of ``mod.name`` also appends ``(args, kwargs,
     out)`` to ``calls``: copies taken before and after the call (``snap``),
     else the arguments themselves and no output.  Only the first ``keep``
-    calls, and with ``device`` only calls whose first argument lies there.
-    So a path's own launches can be replayed against their plain versions
-    or timed at their shapes; the counts stay the wrapper's."""
+    calls (of each ``key(args, kwargs)`` where ``key`` is given), and with
+    ``device`` only calls whose first argument lies there.  So a path's
+    own launches can be replayed against their plain versions or timed at
+    their shapes; the counts stay the wrapper's."""
     inner = getattr(mod, name)
+    taken = collections.Counter()
 
     def rec(*args, **kwargs):
-        take = ((keep is None or len(calls) < keep)
+        k = None if key is None else key(args, kwargs)
+        take = ((keep is None or taken[k] < keep)
                 and (device is None or args[0].device == device))
         if not take:
             return inner(*args, **kwargs)
+        taken[k] += 1
         if not snap:
             calls.append((args, kwargs, None))
             return inner(*args, **kwargs)
@@ -638,6 +661,11 @@ def recorded(mod, name: str, calls: list, keep: int = None, device=None,
         yield calls
     finally:
         setattr(mod, name, inner)
+
+
+def _sym(args, kw) -> bool:
+    """Whether a recorded ``sq_dists`` call is B1's symmetric body."""
+    return bool(kw.get("symmetric", args[2] if len(args) > 2 else False))
 
 
 def replay_kernels(torch, label: str, rec: dict, expect: dict) -> dict:
@@ -662,7 +690,7 @@ def replay_kernels(torch, label: str, rec: dict, expect: dict) -> dict:
 
     for args, kw, out in rec.get("sq_dists", []):
         x, z = args[:2]
-        sym = bool(kw.get("symmetric", args[2] if len(args) > 2 else False))
+        sym = _sym(args, kw)
         want = sq_dists_ref(x, z, symmetric=sym)
         tol = 64 * eps * float((x * x).sum(-1).max() + (z * z).sum(-1).max())
         if sym and not torch.equal(out, out.transpose(-1, -2)):
@@ -696,18 +724,20 @@ def replay_kernels(torch, label: str, rec: dict, expect: dict) -> dict:
 
 
 @contextlib.contextmanager
-def recorded_kernels(dev, keep: int = None):
+def recorded_kernels(dev, keep: int = None, by_body: bool = False):
     """``recorded`` over B1 (and B1-sym), B2 and B4's driver at once, on
-    the card's operands: yields the dict ``replay_kernels`` takes."""
+    the card's operands: yields the dict ``replay_kernels`` takes.
+    ``by_body``: ``keep`` counts B1 and B1-sym apart."""
     from repro_torch.kernels.cd_solver import ops as cd_ops
     from repro_torch.kernels.kernel_matrix import ops as km_ops
     rec = {"sq_dists": [], "gram_from_d2": [], "cd": []}
     with contextlib.ExitStack() as st:
-        for mod, name, key in ((km_ops, "sq_dists", "sq_dists"),
-                               (km_ops, "gram_from_d2", "gram_from_d2"),
-                               (cd_ops, "_epochs", "cd")):
-            st.enter_context(recorded(mod, name, rec[key], keep=keep,
-                                      device=dev))
+        for mod, name, slot in ((km_ops, "sq_dists", "sq_dists"),
+                                (km_ops, "gram_from_d2", "gram_from_d2"),
+                                (cd_ops, "_epochs", "cd")):
+            st.enter_context(recorded(
+                mod, name, rec[slot], keep=keep, device=dev,
+                key=_sym if by_body and slot == "sq_dists" else None))
         yield rec
 
 
@@ -3390,6 +3420,346 @@ def mesh_phase(torch, dev, tables, smi: str):
     return paths
 
 
+def mesh_prefill_ranks(seed: int):
+    """One rank of the head-parallel prefill on one card
+    (``run_local`` over MESH_TWO_BACKEND), in f32 and in bf16:
+    stablelm-1.6b at full width, its parameters drawn from ``seed`` and
+    split over a (1, 2) ("data", "model") mesh by their templates'
+    placements, a prefill of MESH_PREFILL_B x MESH_PREFILL_T seeded tokens
+    with B9's launches counted and its first launch recorded, and the
+    regions that ran.  Rank 0 also runs the unsharded prefill first.  The
+    vocab-split logits are gathered by c10d (torch 2.11's DTensor gather
+    of CUDA tensors over gloo ends the rank with SIGSEGV)."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import layers, model as model_mod
+    dev = runtime.resolve_device(None)
+    rank = dist.get_rank()
+    mesh = mesh_mod.make_mesh((1, 2), ("data", "model"))
+    tables = (fa_ops.launches,)
+    out = {"rank": rank, "device": str(dev)}
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(get_arch(LM_ARCH).config, dtype=dtype)
+        params = model_mod.init_params(cfg, torch.Generator(
+            device=dev).manual_seed(seed))
+        tok = torch.randint(0, cfg.vocab, (MESH_PREFILL_B, MESH_PREFILL_T),
+                            generator=torch.Generator(device=dev).manual_seed(
+                                seed + 1), device=dev, dtype=torch.int32)
+        want = None
+        if rank == 0:
+            want = model_mod.prefill(cfg, params, tok)[0].cpu()
+        sharded = layers.tree_map(lambda a, pl: distribute_tensor(
+            a, mesh, pl, src_data_rank=None), params,
+            layers.sharding_tree(model_mod.build_template(cfg), mesh))
+        del params
+        torch.cuda.empty_cache()
+        tok_d = distribute_tensor(tok, mesh, [Replicate(), Replicate()],
+                                  src_data_rank=None)
+        calls = []
+        zero_counts(tables)
+        layers.REGION_TRACE = []
+        try:
+            with recorded(fa_ops, "flash_attention", calls, keep=1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, _ = model_mod.prefill(cfg, sharded, tok_d)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            regions = sorted({(n, tuple(sorted(i.items())))
+                              for n, i in layers.REGION_TRACE})
+        finally:
+            layers.REGION_TRACE = None
+        got = layers.all_gather(logits.to_local(), 1,
+                                mesh.get_group("model")).cpu()
+        args, kw, o = calls[0]
+        out[str(dtype)[6:]] = {
+            "seconds": secs, "launches": read_counts(tables),
+            "regions": regions, "logits": got, "want": want,
+            "call": (tuple(a.cpu() for a in args), kw, o.cpu())}
+        del sharded, logits
+        torch.cuda.empty_cache()
+    return out
+
+
+def local_head_shapes(model: int = 16):
+    """(arch, heads, kv heads, head dim) a rank runs B9 at when each
+    attention config's prefill is head-parallel over ``model`` 'model'
+    ranks (the production mesh's 16); configs whose heads the ranks do
+    not divide run every head on each rank's rows and are left out."""
+    from repro_torch.configs import ARCH_IDS, get_arch
+    out = []
+    for arch in ARCH_IDS:
+        c = get_arch(arch).config
+        if (not any(m.startswith("attn") for m, _ in c.period_pattern)
+                or c.n_heads % model
+                or (c.n_kv_heads % model and model % c.n_kv_heads)):
+            continue
+        out.append((arch, c.n_heads // model,
+                    max(c.n_kv_heads // model, 1), c.head_dim,
+                    "bidir" if not c.is_decoder else "causal"))
+    return out
+
+
+def mesh_prefill(torch, dev, tables):
+    """Head-parallel prefill (A4b) on the one card.  Returns (the ranks'
+    launch counts, the replayed launches' errors, their timing cases).
+
+    1. Two ranks (MESH_TWO_BACKEND, ``mesh_prefill_ranks``): stablelm-1.6b
+       at full width over a (1, 2) ("data", "model") mesh, each rank its
+       16 of the 32 heads, in f32 and in bf16: B9 once a layer at the
+       local 16 heads, the embedding vocab-parallel (50,176 rows a rank),
+       no ``run_on_rows``; the gathered logits equal on both ranks and
+       held against the unsharded prefill: in f32 within ``attn_tol``
+       (the sharded sums only reorder f32 additions), in bf16 within
+       LM_LOGIT_TOL of the largest logit (each rank rounds its part of
+       every row-split product to bf16 before the sum, another order of
+       bf16 roundings, as the kernel-vs-plain paths are held); the greedy
+       tokens compared; each rank's first B9 launch replayed here against
+       the plain version (``attn_replay``).
+    2. B9 at the local heads of every head-parallel config at the
+       production mesh (``local_head_shapes``: 1 x LOCAL_HEADS_T tokens,
+       seeded operands, bf16) against the plain version."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.local import run_local
+    t0 = time.perf_counter()
+    cfg = get_arch(LM_ARCH).config
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    ranks = run_local(mesh_prefill_ranks, 2, SEED, backend=MESH_TWO_BACKEND,
+                      threads=None, timeout=600, work_dir=str(MESH_DIR))
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    paths, errs, cases, report = {}, {}, [], {}
+    h_loc = cfg.n_heads // 2
+    regions = [("attention", (("heads", h_loc), ("kv_heads", h_loc))),
+               ("embed", (("vocab_rows", cfg.vocab // 2),))]
+    for dt in ("float32", "bfloat16"):
+        want = ranks[0][dt]["want"]
+        for r in ranks:
+            got = r[dt]
+            label = f"mesh prefill (1, 2) {dt} rank {r['rank']}"
+            require_launches(label, got["launches"],
+                             {"flash_attention": cfg.n_layers})
+            paths[f"prefill_two_ranks[{dt} rank {r['rank']}]"] = got[
+                "launches"]
+            if got["regions"] != regions:
+                raise Mismatch(f"{label}: regions {got['regions']}, "
+                               f"expected {regions}")
+            name = f"{label}: logits vs the unsharded prefill"
+            if dt == "float32":
+                check(name, float((got["logits"] - want).abs().max()),
+                      attn_tol(want))
+            else:
+                _tol_share(name, got["logits"].float(), want.float(),
+                           LM_LOGIT_TOL)
+            args, kw, out = got["call"]
+            err, case = attn_replay(torch, f"mesh prefill (1, 2) rank "
+                                    f"{r['rank']}", "first launch",
+                                    "flash_attention",
+                                    (tuple(a.to(dev) for a in args), kw,
+                                     out.to(dev)))
+            errs[case[0]] = err
+            cases.append(case + (f"prefill_two_ranks[{dt} rank "
+                                 f"{r['rank']}]",))
+        if not torch.equal(ranks[0][dt]["logits"], ranks[1][dt]["logits"]):
+            raise Mismatch(f"mesh prefill {dt}: the two ranks' logits "
+                           f"differ")
+        report[dt] = {
+            "prefill_s": [r[dt]["seconds"] for r in ranks],
+            "logits_max_abs_diff": float((ranks[0][dt]["logits"].float()
+                                          - want.float()).abs().max()),
+            "max_abs_logit": float(want.float().abs().max()),
+            "greedy_equal": int((ranks[0][dt]["logits"].argmax(-1)
+                                 == want.argmax(-1)).sum())}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for arch, h, hk, d, kind in local_head_shapes():
+        q = torch.randn(1, LOCAL_HEADS_T, h, d, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn(1, LOCAL_HEADS_T, hk, d, generator=gen,
+                            device=dev, dtype=torch.bfloat16)
+                for _ in range(2))
+        out = fa_ops.flash_attention(q, k, v, mask_kind=kind)
+        err, case = attn_replay(torch, f"{arch} at 16 'model' ranks",
+                                "local heads", "flash_attention",
+                                ((q, k, v), {"mask_kind": kind}, out))
+        errs[case[0]] = err
+        cases.append(case + (None,))
+    emit({"phase": "mesh_prefill", "arch": cfg.name, "mesh": [1, 2],
+          "backend": MESH_TWO_BACKEND,
+          "tokens": [MESH_PREFILL_B, MESH_PREFILL_T],
+          "devices": [r["device"] for r in ranks],
+          "regions": [n for n, _ in regions], **report,
+          "local_head_shapes": local_head_shapes(),
+          "seconds": time.perf_counter() - t0})
+    return paths, errs, cases
+
+
+def examples_phase(torch, dev, tables, card: str):
+    """EXAMPLES at their defaults on the card, in this process (each
+    module's ``main``), their launches counted alone and what they report
+    (their last line) held as ``tests/test_torch_examples.py`` holds it on
+    the CPU.  Each example's first launch of every kernel it runs (B1 and
+    B1-sym apart) is recorded, replayed against its plain version
+    (``replay_kernels``; B3 within ``predict_bound``) and timed at that
+    shape: the ``example_kernel_times`` rows.  A launched kernel with no
+    replay fails.  Returns each example's launch counts."""
+    import importlib.util
+    import io
+    from repro_torch import obs
+    from repro_torch.kernels.kernel_matrix import ops as km_ops
+    from repro_torch.kernels.kernel_matrix import ref as km_ref
+    from repro_torch.kernels.svm_predict import ops as sp_ops
+    from repro_torch.kernels.svm_predict import ref as sp_ref
+    paths, rows = {}, []
+    t0 = time.perf_counter()
+    tracing = obs.tracer.enabled
+    for name in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        b3 = []
+        zero_counts(tables)
+        t1 = time.perf_counter()
+        try:
+            with recorded_kernels(dev, keep=1, by_body=True) as rec, \
+                    recorded(sp_ops, "svm_predict_cells", b3, keep=1,
+                             device=dev), \
+                    contextlib.redirect_stdout(buf):
+                mod.main([])
+            torch.cuda.synchronize()
+        finally:
+            obs.configure(trace=tracing)   # torch_serve_svm turns it on
+        secs = time.perf_counter() - t1
+        counts = read_counts(tables)
+        res = _last_json(buf.getvalue())
+        ok = res["device"].startswith("cuda")
+        if name == "torch_quickstart":
+            lo, mid, hi = res["qt_coverage"]
+            ok &= (res["mc_error"] < 0.4 and lo < mid < hi
+                   and res["npl_test_fa_at_0.01"] <= 0.1)
+            need = ("sq_dists_sym", "gram_from_d2", "sq_dists")
+        else:
+            n = res["submitted"]
+            ok &= (res["served"] == res["async_served"]
+                   == res["swap_served"] == n and res["accuracy"] > 0.8
+                   and bool(res["drifted"]))
+            need = ("sq_dists_sym", "gram_from_d2", "svm_predict_cells")
+        if not ok or not all(counts[k] > 0 for k in need):
+            raise Mismatch(f"example {name}: {res}, launches {counts}")
+        paths[f"example[{name}]"] = counts
+        replayable = ("sq_dists", "sq_dists_sym", "gram_from_d2",
+                      "cd_wave_epoch", "svm_predict_cells")
+        other = [k for k, v in counts.items() if v and k not in replayable]
+        if other:
+            raise Mismatch(f"example {name}: launched {other}, which this "
+                           f"phase does not replay")
+        label = f"example {name}"
+        rep = replay_kernels(torch, label, rec, {
+            k: 1 for k in replayable[:4] if counts[k]})
+        errs, replayed = dict(rep["max_abs_err"]), dict(rep["replayed"])
+        if counts["svm_predict_cells"]:
+            if not b3:
+                raise Mismatch(f"{label}: svm_predict_cells launched but "
+                               f"none recorded on {dev}")
+            (xt, sv, co, ga), kw, out = b3[0]
+            kind = kw.get("kind", "gauss_rbf")
+            dd2 = 64 * float(np.finfo(np.float32).eps) * float(
+                (xt * xt).sum(-1).max() + (sv * sv).sum(-1).max())
+            errs["svm_predict_cells"] = check_bound(
+                f"{label}: svm_predict_cells", out.cpu(),
+                sp_ref.svm_predict_cells_ref(xt, sv, co, ga,
+                                             kind=kind).cpu(),
+                predict_bound(torch, km_ref.sq_dists_ref, xt, sv, co, ga,
+                              kind, dd2).cpu(), shape=list(out.shape))
+            replayed["svm_predict_cells"] = 1
+        calls = {("sq_dists_sym" if _sym(a, k) else "sq_dists"): (a, k)
+                 for a, k, _ in rec["sq_dists"]}
+        calls.update({"gram_from_d2": (a, k)
+                      for a, k, _ in rec["gram_from_d2"]})
+        calls.update({"svm_predict_cells": (a, k) for a, k, _ in b3})
+        for kern, (args, kw) in sorted(calls.items()):
+            fn, plain, lib, shape, b = _example_case(
+                torch, km_ops, km_ref, sp_ops, sp_ref, kern, args, kw)
+            rows.append({
+                "name": f"{kern}[{name}: {shape}]", "route": "cuda",
+                "source": KERNELS[kern][0], "replaces": KERNELS[kern][1],
+                "launches": counts[kern], "max_abs_err": errs[kern],
+                "ms": cuda_ms(torch, fn), "plain_ms": cuda_ms(torch, plain),
+                "bound_ms": b[0], "bound_by": b[1],
+                "library_ms": None if lib is None else cuda_ms(torch, lib)})
+        emit({"phase": "example", "name": name, "seconds": secs,
+              "launches": counts, "replayed": replayed,
+              "report": res})
+    emit({"phase": "example_kernel_times", "rows": rows, "card": card})
+    emit({"phase": "examples", "seconds": time.perf_counter() - t0})
+    return paths
+
+
+def _example_case(torch, km_ops, km_ref, sp_ops, sp_ref, kern: str,
+                  args, kw):
+    """A recorded launch of B1, B1-sym, B2 or B3 as a timing case: (the
+    kernel, its plain version, the library call or None, the shape, the
+    bound: each operand read once and the result written once, the
+    operations as the kernel table's rows count them)."""
+    f32 = 4
+    if kern in ("sq_dists", "sq_dists_sym"):
+        x, z = args[0], args[1]
+        sym = kern == "sq_dists_sym"
+        s = int(np.prod(x.shape[:-2]))
+        n, m, d = x.shape[-2], z.shape[-2], x.shape[-1]
+        ops = (s * (n * (n + 1) // 2 * (2 * d + 3) + n * 2 * d) if sym
+               else s * n * m * (2 * d + 3) + s * (n + m) * 2 * d)
+        nbytes = f32 * (s * n * d + (0 if sym else s * m * d) + s * n * m)
+        return (lambda: km_ops.sq_dists(x, z, symmetric=sym),
+                lambda: km_ref.sq_dists_ref(x, z, symmetric=sym), None,
+                f"{s}x{n}x{m}, d {d}", bound(nbytes, ops))
+    if kern == "gram_from_d2":
+        d2, gamma = args[:2]
+        kind = kw.get("kind", args[2] if len(args) > 2 else "gauss_rbf")
+        dout = kw.get("out_dtype", args[3] if len(args) > 3 else "f32")
+        if d2.dim() == 3:
+            g4 = gamma[:, :, None, None]
+            n_out = d2.numel() * gamma.shape[1]
+            plain = (lambda: km_ref.gram_from_d2_ref(d2[:, None], g4, kind,
+                                                     dout))
+            neg = (-(d2[:, None].float() / torch.clamp(g4 * g4, min=1e-12))
+                   ).contiguous()
+            g_bytes, shape = f32 * gamma.numel(), (
+                f"{d2.shape[0]}x{gamma.shape[1]}x{d2.shape[1]}x"
+                f"{d2.shape[2]}")
+        else:
+            g = float(gamma)
+            n_out = d2.numel()
+            plain = lambda: km_ref.gram_from_d2_ref(d2, gamma, kind, dout)
+            neg = (-(d2.float() / max(g * g, 1e-12))).contiguous()
+            g_bytes, shape = 0, "x".join(str(v) for v in d2.shape)
+        lib = (lambda: torch.exp(neg)) if kind == "gauss_rbf" else None
+        nbytes = (d2.numel() * d2.element_size() + g_bytes
+                  + n_out * (2 if dout == "bf16" else f32))
+        return (lambda: km_ops.gram_from_d2(d2, gamma, kind=kind,
+                                            out_dtype=dout),
+                plain, lib, f"{shape}, {kind}, {dout}",
+                bound(nbytes, 4 * n_out))
+    xt, sv, co, ga = args
+    kind = kw.get("kind", "gauss_rbf")
+    c, m, d = xt.shape
+    k, p = sv.shape[1], co.shape[2]
+    return (lambda: sp_ops.svm_predict_cells(xt, sv, co, ga, kind=kind),
+            lambda: sp_ref.svm_predict_cells_ref(xt, sv, co, ga, kind=kind),
+            None, f"{c}x{m}x{k}x{d}, P {p}",
+            bound(f32 * (c * m * d + c * k * d + c * k * p + c * p
+                         + c * m * p),
+                  c * m * k * (2 * d + 3) + c * (m + k) * 2 * d
+                  + 4 * c * m * k * p))
+
+
 # the launch tooling (A5): the serve launcher at its defaults (the smoke
 # config on the card: 4 prompts of 16 tokens, 16 new; gemma3-4b for its
 # window attention), the train launcher at stablelm-1.6b's full width, and
@@ -4828,10 +5198,22 @@ def main() -> int:
     launches = {name: n + sum(c.get(name, 0) for c in mesh_paths.values())
                 for name, n in launches.items()}
 
+    prefill_paths, prefill_errs, prefill_cases = mesh_prefill(torch, dev,
+                                                              tables)
+    emit({"phase": "mesh_prefill_launches", "per_path": prefill_paths})
+    launches = {name: n + sum(c.get(name, 0) for c in prefill_paths.values())
+                for name, n in launches.items()}
+
     # ------------------------------------------ 6c. the launch tooling (A5)
     launch_paths, launch_errs, launch_cases = launch_phase(torch, dev, dry)
     emit({"phase": "launch_launches", "per_path": launch_paths})
     launches = {name: n + sum(c.get(name, 0) for c in launch_paths.values())
+                for name, n in launches.items()}
+
+    # ------------------------------------------------- 6d. the examples
+    example_paths = examples_phase(torch, dev, tables, smi.splitlines()[0])
+    emit({"phase": "example_launches", "per_path": example_paths})
+    launches = {name: n + sum(c.get(name, 0) for c in example_paths.values())
                 for name, n in launches.items()}
 
     # ------------------------------------------- 7. cell construction
@@ -5066,6 +5448,21 @@ def main() -> int:
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None if lib is None else cuda_ms(torch, lib)})
     del launch_cases
+    mesh_rows = []
+    for (label, family, name, kern, plain, lib, (b_ms, b_by),
+         path) in prefill_cases:
+        mesh_rows.append({
+            "name": label, "route": "cuda", "source": KERNELS[name][0],
+            "replaces": KERNELS[name][1],
+            "launches": prefill_paths[path][name] if path else 0,
+            "max_abs_err": prefill_errs[label],
+            "ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None if lib is None else cuda_ms(torch, lib)})
+    del prefill_cases
+    emit({"phase": "mesh_kernel_times", "rows": mesh_rows,
+          "library": "torch.nn.functional.scaled_dot_product_attention",
+          "card": smi.splitlines()[0]})
     emit({"phase": "launch_kernel_times", "rows": launch_rows,
           "library": "torch.nn.functional.scaled_dot_product_attention",
           "card": smi.splitlines()[0]})

@@ -5,15 +5,17 @@ torch the host has.
     PYTHONPATH=src python3 scripts/mesh_cpu_ranks.py [--out FILE]
 
 Runs the rank job of ``tests/test_torch_lm_mesh.py`` (``_lm_job``: 8 gloo
-ranks on one host; one train step of qwen3-moe's and stablelm-1.6b's
-smoke configs in f32 on a (4, 2) ``("data", "model")`` mesh, activations
-sharded, stablelm with FSDP specs and recomputed periods; then
-``Trainer(mesh=...)`` 3 steps on (4, 2) with a checkpoint, restored and
-run 2 more steps on (2, 4) and on (4, 2)), and holds it to the test's
-bounds against the port's own unsharded runs on the same weights and
-batches: loss within 2e-4 and parameters within 5e-3 of the unsharded
-step, the gradient norm within 1e-5 relative, every rank equal and every
-new parameter on its template's placements; the elastic run within 1e-4
+ranks on one host; one train step of each case of its ``STEPS`` in f32 on
+a ``("data", "model")`` mesh, activations sharded: qwen3-moe on (4, 2)
+and (2, 4), stablelm-1.6b with FSDP specs and recomputed periods at
+vocabularies 503 and 512, gemma3-4b at vocabulary 1024 and with its heads
+over 8 ranks; then ``Trainer(mesh=...)`` 3 steps on (4, 2) with a
+checkpoint, restored and run 2 more steps on (2, 4) and on (4, 2)), and
+holds it to the test's bounds against the port's own unsharded runs on
+the same weights and batches: loss within 2e-4 and parameters within 5e-3
+of the unsharded step, the gradient norm within 1e-5 relative, every rank
+equal, every new parameter on its template's placements and the regions
+that ran on local shards those the test expects; the elastic run within 1e-4
 of the same-mesh run; ``Trainer`` on the mesh within 2e-4 / 5e-3 of the
 unsharded ``Trainer``.  The test also holds these runs against the JAX
 package; this script imports no JAX, so it runs where only torch is
@@ -54,7 +56,7 @@ def unsharded(ocfg):
     seeded weights and batch 0: (rank job inputs, {arch: (loss, grad
     norm, params)})."""
     inputs, local = {}, {}
-    for arch, kw in lm_mesh.STEPS.items():
+    for label, (arch, kw, _) in lm_mesh.STEPS.items():
         cfg = lm_mesh._cfg(arch, **kw)
         params = model_mod.init_params(cfg, torch.Generator().manual_seed(0))
         params_np = layers.tree_map(lambda t: t.numpy().copy(), params)
@@ -64,9 +66,9 @@ def unsharded(ocfg):
         p, _, m = make_train_step(cfg, ocfg)(
             params, init_opt_state(params, ocfg),
             {k: torch.from_numpy(v) for k, v in batch.items()})
-        local[arch] = (float(m["loss"]), float(m["grad_norm"]),
-                       lm_mesh._tree_np(p))
-        inputs[arch] = (params_np, batch)
+        local[label] = (float(m["loss"]), float(m["grad_norm"]),
+                        lm_mesh._tree_np(p))
+        inputs[label] = (params_np, batch)
     return inputs, local
 
 
@@ -85,7 +87,7 @@ def main() -> int:
            "ranks": WORLD, "backend": "gloo", "cpus": os.cpu_count()}
     ok = True
     for arch in sorted(lm_mesh.STEPS):
-        loss, gnorm, params, placed = outs[0][arch]
+        loss, gnorm, params, placed, _ = outs[0][arch]
         d_loss = abs(loss - local[arch][0])
         worst = lm_mesh._worst(params, local[arch][2])
         d_norm = abs(gnorm - local[arch][1]) / local[arch][1]
@@ -93,11 +95,16 @@ def main() -> int:
                    and lm_mesh._worst(o[arch][2], params) == 0.0
                    for o in outs)
         every_placed = all(o[arch][3] for o in outs)
-        res[arch] = {"mesh": [4, 2], "loss": loss, "loss_diff": d_loss,
-                     "max_param_diff": worst, "grad_norm_rel_diff": d_norm,
-                     "ranks_equal": same, "placements": every_placed}
+        regions = all(o[arch][4] == lm_mesh.expected_regions(arch)
+                      for o in outs)
+        res[arch] = {"mesh": list(lm_mesh.STEPS[arch][2]), "loss": loss,
+                     "loss_diff": d_loss, "max_param_diff": worst,
+                     "grad_norm_rel_diff": d_norm, "ranks_equal": same,
+                     "placements": every_placed,
+                     "regions": sorted(n for n, _ in outs[0][arch][4]),
+                     "regions_as_expected": regions}
         ok &= (d_loss < 2e-4 and worst < 5e-3 and d_norm <= 1e-5 and same
-               and every_placed)
+               and every_placed and regions)
     e = outs[0]["elastic"]
     (le, pe), (ls, ps) = e["elastic"], e["same"]
     worst_e = lm_mesh._worst(pe, ps)

@@ -35,8 +35,6 @@ VARIANTS: Dict[str, Dict[str, Any]] = {
     "kv8": {"kv_cache_dtype": "int8"},
     "moe_gather": {"moe_impl": "gather"},
     "moe_gather_cap1": {"moe_impl": "gather", "moe_capacity_factor": 1.0},
-    "moe_pregather": {"moe_impl": "gather", "moe_capacity_factor": 1.0,
-                      "moe_pregather": True},
     "moe_bigchunk": {"moe_impl": "gather", "moe_capacity_factor": 1.0,
                      "moe_chunk": 8192},
     "noactshard": {"shard_activations": False},

@@ -34,8 +34,12 @@ Under a mesh (DTensor operands) the mode sees the ops that the rank runs
 on its local blocks, and the collectives it issues, with their local
 shapes: the figures are one rank's (rank 0's under the dry run's fake
 process group).  For an evenly split op that is the global cost divided
-by the device count, the reference's per-device figure; a region that
-runs whole on each rank (``layers.run_on_rows``) counts whole.  The
+by the device count, the reference's per-device figure; so are the
+regions on local shards (``layers.Region``: head-parallel attention,
+the vocab-parallel embedding and cross-entropy, the expert-parallel
+MoE), whose collectives are the c10d ones they issue; what runs whole on
+each rank's rows (``layers.run_on_rows``: decode attention, heads the
+'model' ranks do not divide, an unsplit vocabulary) counts whole.  The
 shape computations DTensor runs on global fake tensors to plan a
 sharding are not the rank's work and are left out.
 """
@@ -86,11 +90,13 @@ SOURCE_CHAIN = {"_to_copy", "to", "mul", "t", "transpose", "permute",
                 "_reshape_alias", "convert_element_type"}
 
 # c10d collectives, by the name they are reported under: the functional
-# ones DTensor issues, and the plain ones of the cell gather and ef_psum
+# ones DTensor issues, and the plain ones of the cell gather, ef_psum and
+# the regions on local shards (``models.layers.Region``)
 COLLECTIVES = {
     "all_gather_into_tensor": "all_gather_into_tensor",
     "_allgather_base_": "all_gather_into_tensor",
     "reduce_scatter_tensor": "reduce_scatter_tensor",
+    "_reduce_scatter_base_": "reduce_scatter_tensor",
     "all_reduce": "all_reduce",
     "allreduce_": "all_reduce",
     "all_to_all_single": "all_to_all_single",

@@ -22,6 +22,27 @@ from repro_torch.models import model as model_mod
 from repro_torch.serve.engine import generate
 
 
+def run(cfg, dev: torch.device, batch: int, prompt_len: int, new: int,
+        temperature: float = 0.0, seed: int = 0):
+    """Parameters and a prompt drawn from ``seed`` on ``dev``, then
+    ``generate`` -> (prompt, tokens, wall seconds of the generation)."""
+    params = model_mod.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed))
+    prompt = torch.randint(
+        0, cfg.vocab, (batch, prompt_len), dtype=torch.int32,
+        generator=torch.Generator(device=dev).manual_seed(seed + 1),
+        device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.time()
+    out = generate(cfg, params, prompt, max_new_tokens=new,
+                   temperature=temperature, generator=gen)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return prompt, out, time.time() - t0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=list(ARCH_IDS))
@@ -40,21 +61,8 @@ def main(argv=None) -> int:
         print(f"{args.arch} is encoder-only; no autoregressive serve path")
         return 0
     dev = runtime.resolve_device(args.device)
-    params = model_mod.init_params(
-        cfg, torch.Generator(device=dev).manual_seed(args.seed))
-    prompt = torch.randint(
-        0, cfg.vocab, (args.batch, args.prompt_len), dtype=torch.int32,
-        generator=torch.Generator(device=dev).manual_seed(args.seed + 1),
-        device=dev)
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t0 = time.time()
-    out = generate(cfg, params, prompt, max_new_tokens=args.new,
-                   temperature=args.temperature, generator=gen)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    dt = time.time() - t0
+    _, out, dt = run(cfg, dev, args.batch, args.prompt_len, args.new,
+                     args.temperature, args.seed)
     print(json.dumps({
         "arch": args.arch, "out_shape": list(out.shape),
         "tokens_per_s": round(args.batch * args.new / dt, 1),

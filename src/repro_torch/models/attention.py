@@ -191,8 +191,16 @@ def attention_block(
     Decode: pass cache + cache_pos with T == 1; the new token is written
     at ``cache_pos mod S`` (in place) and attention runs over the full
     cache.  Prefill: cache is None and the returned {"k", "v"} (the
-    rotated keys and the values) become the cache.
+    rotated keys and the values) become the cache (None in training,
+    ``impl == "train"``, where nothing keeps it).  Sharded, prefill and
+    training run head-parallel over 'model' where the heads allow it
+    (:func:`head_parallel`), else on each rank's rows with every head.
     """
+    kw = dict(n_heads=n_heads, n_kv=n_kv, head_dim=head_dim,
+              mask_kind=mask_kind, window=window, rope_theta=rope_theta,
+              rotary_frac=rotary_frac, dtype=dtype, impl=impl, chunk=chunk)
+    if cache is None and head_parallel(x, p, n_heads, n_kv, head_dim):
+        return _attention_heads(p, x, positions, **kw)
     q = _split_heads(layers.linear(x, p["wq"], dtype), n_heads, head_dim)
     k = _split_heads(layers.linear(x, p["wk"], dtype), n_kv, head_dim)
     v = _split_heads(layers.linear(x, p["wv"], dtype), n_kv, head_dim)
@@ -213,7 +221,7 @@ def attention_block(
             out = layers.run_on_rows(
                 lambda q_, k_, v_: run_attention(q_, k_, v_, mask_kind,
                                                  window, scale, impl, chunk),
-                (q, k, v))
+                (q, k, v), name="attention")
         else:
             out = run_attention(q, k, v, mask_kind, window, scale, impl,
                                 chunk)
@@ -250,12 +258,93 @@ def attention_block(
         if is_dtensor(q):
             # each rank's rows against their whole cache: the sequence
             # split over seq_axes is gathered first
-            out = layers.run_on_rows(attend, (q,) + leaves)
+            out = layers.run_on_rows(attend, (q,) + leaves,
+                                     name="decode_attention")
         else:
             out = attend(q, *leaves)
 
     out = out.reshape(b, t, n_heads * head_dim)
     return layers.linear(out, p["wo"], dtype), new_cache
+
+
+def head_parallel(x, p: Dict[str, Tensor], n_heads: int, n_kv: int,
+                  head_dim: int) -> bool:
+    """Whether the block runs head-parallel over the mesh's 'model' dim:
+    x sharded, wq/wk/wv split there on their columns and wo on its rows,
+    the query heads divided evenly, and each rank's query heads reading
+    kv heads of its own (``n_kv`` a multiple of the 'model' ranks) or one
+    kv head shared with its neighbours (the ranks a multiple of
+    ``n_kv``).  Otherwise (gemma3-4b's 8 heads or llama4-maverick's 40
+    over 16 ranks) the block runs on each rank's rows with every head."""
+    if (not is_dtensor(x) or layers.model_split(x, 0)
+            or not all(layers.model_split(p[n], 1) for n in ("wq", "wk", "wv"))
+            or not layers.model_split(p["wo"], 0)):
+        return False
+    m = x.device_mesh.size(x.device_mesh.mesh_dim_names.index("model"))
+    return (n_heads % m == 0 and (n_kv % m == 0 or m % n_kv == 0)
+            and (n_kv * head_dim) % m == 0)
+
+
+def _attention_heads(p: Dict[str, Tensor], x, positions: Tensor, *,
+                     n_heads: int, n_kv: int, head_dim: int, mask_kind: str,
+                     window: int, rope_theta: float, rotary_frac: float,
+                     dtype: torch.dtype, impl: str, chunk: int):
+    """Head-parallel attention on local shards (a :class:`layers.Region`):
+    x's rows with d whole, each rank's n_heads / model query heads (wq's
+    column block) and the kv heads they read: wk's and wv's column blocks
+    where the kv heads divide over 'model', else the one kv head the
+    rank's group of model / n_kv neighbours shares, its columns gathered
+    within that group only.  The output times wo's row block is a sum over
+    'model', reduce-scattered onto d (or all-reduced) into x's layout."""
+    reg = layers.Region(x)
+    m = reg.model_size
+    xl = reg.act(x)                                     # (B_loc, T, d)
+    b, t = xl.shape[:2]
+    hl = n_heads // m
+    wk, wv = reg.weight(p["wk"]), reg.weight(p["wv"])
+    if n_kv % m:                       # the group's kv head, whole
+        sub = reg.model_subgroup(m // n_kv)
+        wk, wv = (layers.all_gather(w, 1, sub) for w in (wk, wv))
+    hkl = wk.shape[1] // head_dim
+    q = layers.linear(xl, reg.weight(p["wq"]), dtype).reshape(b, t, hl,
+                                                              head_dim)
+    k = layers.linear(xl, wk, dtype).reshape(b, t, hkl, head_dim)
+    v = layers.linear(xl, wv, dtype).reshape(b, t, hkl, head_dim)
+    if "q_norm" in p:
+        q = _qk_norm(q, reg.weight(p["q_norm"]))
+        k = _qk_norm(k, reg.weight(p["k_norm"]))
+    pos = reg.rows(positions)
+    q = layers.apply_rope(q, pos, rope_theta, rotary_frac)
+    k = layers.apply_rope(k, pos, rope_theta, rotary_frac)
+    out = run_attention(q, k, v, mask_kind, window, float(head_dim ** -0.5),
+                        impl, chunk)
+    layers.trace_region("attention", heads=hl, kv_heads=hkl)
+    y = layers.linear(out.reshape(b, t, hl * head_dim),
+                      reg.weight(p["wo"]), dtype)
+    return reg.out(y), (None if impl == "train"
+                        else _heads_cache(reg, k, v, n_kv))
+
+
+def _heads_cache(reg, k: Tensor, v: Tensor, n_kv: int) -> Dict[str, Tensor]:
+    """The prefill cache of head-parallel attention as DTensors (B, T,
+    n_kv, D): the local kv heads split over 'model'; a kv head shared by
+    several ranks is gathered so that every rank holds them all (the
+    reference's cache keeps the heads whole)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    m = reg.model_size
+    out = {}
+    for name, t in (("k", k), ("v", v)):
+        if n_kv % m == 0:
+            pl = reg.layout(Shard(2))
+        else:
+            t = layers.all_gather(t, 2, reg.model_group)[:, :, ::m // n_kv]
+            pl = reg.layout(Replicate())
+        shape = (reg.like.shape[0],) + tuple(t.shape[1:2]) + (
+            n_kv, t.shape[3])
+        out[name] = DTensor.from_local(
+            t.contiguous(), reg.mesh, pl, run_check=False,
+            shape=torch.Size(shape), stride=layers._contiguous_stride(shape))
+    return out
 
 
 def ring_write(dst: Tensor, new: Tensor, pos: int) -> None:

@@ -198,7 +198,8 @@ def sum_partial(x: Any) -> Any:
 
 
 def run_on_rows(fn: Callable[..., Any], rows: Tuple[Any, ...],
-                whole: Tuple[Any, ...] = (), sums: bool = False) -> Any:
+                whole: Tuple[Any, ...] = (), sums: bool = False, *,
+                name: str) -> Any:
     """``fn(*rows, *whole)`` with sharded operands run on local tensors:
     the ``rows`` operands (dim 0 the batch; ``None`` passes through) take
     the first one's batch split, every other mesh dim replicated, and the
@@ -206,9 +207,13 @@ def run_on_rows(fn: Callable[..., Any], rows: Tuple[Any, ...],
     one device would.  The result (a tensor) is split like the rows; with
     ``sums``, ``fn`` returns per-rank sums over its rows (a tuple) and each
     becomes their total over the ranks.  Differentiable (``to_local`` /
-    ``from_local``).  It carries the regions whose DTensor sharding rules
-    are missing or differ across torch versions: the embedding gather,
-    attention and the cross-entropy."""
+    ``from_local``).  It carries what has no split to use (a
+    :class:`Region` takes the rest): decode attention (each rank's rows
+    against their whole cache), attention whose heads the 'model' ranks
+    do not divide, and the embedding and cross-entropy of a vocabulary
+    that is not split over 'model'.  ``name`` names the region in
+    ``REGION_TRACE``."""
+    trace_region("run_on_rows", region=name)
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     lead = next(t for t in rows + whole if is_dtensor(t))
     mesh = lead.device_mesh
@@ -241,6 +246,326 @@ def run_on_rows(fn: Callable[..., Any], rows: Tuple[Any, ...],
     # (replicated) gradient comes back to every rank whole
     return tuple(DTensor.from_local(o, mesh, part, run_check=False)
                  for o in out)
+
+
+# --------------------------------------------------------------------------
+# regions on local shards, with explicit collectives
+# --------------------------------------------------------------------------
+
+# a list while a test records the regions that ran (name, local sizes),
+# else None
+REGION_TRACE: Optional[list] = None
+
+
+def trace_region(name: str, **info) -> None:
+    if REGION_TRACE is not None:
+        REGION_TRACE.append((name, info))
+
+
+def _gather_dim(x: Tensor, dim: int, group) -> Tensor:
+    """The group's blocks of ``x`` concatenated along ``dim`` in rank
+    order (every block the same shape)."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
+    dist.all_gather_into_tensor(out, xt, group=group)
+    return out.movedim(0, dim)
+
+
+def _scatter_dim(x: Tensor, dim: int, group) -> Tensor:
+    """The sum of the group's ``x`` over its ranks, this rank's block of
+    it along ``dim`` (split evenly)."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((xt.shape[0] // n,) + tuple(xt.shape[1:]))
+    dist.reduce_scatter_tensor(out, xt, group=group)
+    return out.movedim(0, dim)
+
+
+def _reduce(x: Tensor, group, op=None) -> Tensor:
+    import torch.distributed as dist
+    out = x.contiguous().clone()
+    if dist.get_world_size(group) > 1:
+        dist.all_reduce(out, op=op or dist.ReduceOp.SUM, group=group)
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    """All-gather along a dim; backward the dual reduce-scatter of the
+    ranks' partial gradients (``grad_sum``), or, where every rank
+    computed the same gradient, this rank's block of it."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, grad_sum):
+        ctx.dim, ctx.group, ctx.grad_sum = dim, group, grad_sum
+        return _gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        if ctx.grad_sum:
+            return _scatter_dim(g, ctx.dim, ctx.group), None, None, None
+        n = dist.get_world_size(ctx.group)
+        own = g.chunk(n, ctx.dim)[dist.get_rank(ctx.group)]
+        return own.contiguous(), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Reduce-scatter along a dim; backward the all-gather."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _scatter_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim(g, ctx.dim, ctx.group), None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    """Sum over the group; backward the identity (the sum is used the
+    same way on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumGrad(torch.autograd.Function):
+    """The identity; backward the sum of the ranks' partial gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.group), None
+
+
+def all_gather(x: Tensor, dim: int, group, grad_sum: bool = True) -> Tensor:
+    return _AllGather.apply(x, dim, group, grad_sum)
+
+
+def all_reduce(x: Tensor, group) -> Tensor:
+    return _AllReduce.apply(x, group)
+
+
+def all_reduce_max(x: Tensor, group) -> Tensor:
+    """The elementwise max over the group (no gradient)."""
+    import torch.distributed as dist
+    return _reduce(x.detach(), group, dist.ReduceOp.MAX)
+
+
+def local_offset(t) -> Tuple[int, ...]:
+    """Where the local block of the DTensor ``t`` starts in the global
+    tensor (DTensor's own uneven-split arithmetic)."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    return tuple(compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, t.placements)[1])
+
+
+def model_split(t, dim: int) -> bool:
+    """Whether the DTensor ``t`` is split over the mesh's 'model' dim on
+    its tensor dim ``dim``."""
+    from torch.distributed.tensor import Shard
+    if not is_dtensor(t):
+        return False
+    names = tuple(t.device_mesh.mesh_dim_names or ())
+    return ("model" in names
+            and t.placements[names.index("model")] == Shard(dim % t.ndim))
+
+
+class Region:
+    """One region of the sharded step run on local shards: its operands'
+    local blocks (``to_local`` with the gradient placements stated) and
+    its collectives issued explicitly on the process group of a named
+    mesh dim, never through DTensor's sharding rules, so it runs the same
+    on every torch version.  The region's own split is over 'model'
+    (heads, vocabulary, experts); the batch stays split over the mesh
+    dims ``like`` (a batch operand: dim 0 its rows) is split over; every
+    other split of a weight (FSDP over 'data') is gathered.  The result
+    comes back as a DTensor in the activations' layout (:meth:`out`) or
+    as per-rank sums (:meth:`sums`).
+
+    Gradients: a weight's local gradient is a sum over the batch ranks
+    (``Partial``) and over 'model' where the weight is replicated there
+    (each rank's heads, vocabulary block or experts give their part); an
+    explicit gather's backward is the reduce-scatter over the same group
+    (its own block where every rank computed the same)."""
+
+    def __init__(self, like, mesh=None):
+        from torch.distributed.tensor import Shard
+        self.mesh = like.device_mesh if is_dtensor(like) else mesh
+        names = tuple(self.mesh.mesh_dim_names or ())
+        self.model = names.index("model") if "model" in names else None
+        self.batch = tuple(
+            i for i, p in enumerate(like.placements)
+            if p == Shard(0) and i != self.model) if is_dtensor(like) else ()
+        self.like = like if is_dtensor(like) else None
+        self.d_split = False
+
+    # ------------------------------------------------------------ groups
+    def group(self, dim: int):
+        return self.mesh.get_group(dim)
+
+    @property
+    def model_size(self) -> int:
+        return 1 if self.model is None else self.mesh.size(self.model)
+
+    @property
+    def model_rank(self) -> int:
+        return (0 if self.model is None
+                else self.mesh.get_local_rank(self.model))
+
+    @property
+    def model_group(self):
+        return None if self.model is None else self.group(self.model)
+
+    def model_subgroup(self, size: int):
+        """The group of this rank's ``size`` consecutive 'model' ranks
+        (created by its members alone, once a mesh)."""
+        import torch.distributed as dist
+        groups = getattr(self.mesh, "_region_subgroups", None)
+        if groups is None:
+            groups = {}
+            setattr(self.mesh, "_region_subgroups", groups)
+        if size not in groups:
+            ranks = dist.get_process_group_ranks(self.model_group)
+            lo = self.model_rank // size * size
+            groups[size] = dist.new_group(ranks[lo:lo + size],
+                                          use_local_synchronization=True)
+        return groups[size]
+
+    # ---------------------------------------------------------- operands
+    def layout(self, model=None) -> list:
+        """Placements of a batch operand in the region: its rows split as
+        the batch, 'model' as ``model`` (replicated by default)."""
+        from torch.distributed.tensor import Replicate, Shard
+        pl = [Shard(0) if i in self.batch else Replicate()
+              for i in range(self.mesh.ndim)]
+        if model is not None:
+            pl[self.model] = model
+        return pl
+
+    def rows(self, t) -> Optional[Tensor]:
+        """This rank's rows of a batch operand (tokens, labels, a mask,
+        positions); a plain tensor counts as replicated."""
+        if t is None:
+            return None
+        if is_dtensor(t):
+            return t.redistribute(self.mesh, self.layout()).to_local()
+        if self.like is None:
+            return t
+        off, n = self.row_block()
+        return t[off:off + n]
+
+    def row_block(self) -> Tuple[int, int]:
+        """(first row, row count) of this rank's rows of the batch."""
+        from torch.distributed.tensor._utils import (
+            compute_local_shape_and_global_offset)
+        shape, off = compute_local_shape_and_global_offset(
+            self.like.shape, self.mesh, self.layout())
+        return off[0], shape[0]
+
+    def act(self, x) -> Tensor:
+        """This rank's rows of the activation ``x`` (B, ..., d) with d
+        whole: d gathered over 'model' where it is split there (backward:
+        the reduce-scatter), else as it is (backward: the sum of the ranks'
+        partial gradients).  :meth:`out` returns the region's result in
+        the same layout."""
+        from torch.distributed.tensor import Shard
+        last = Shard(x.ndim - 1)
+        split = (self.model is not None
+                 and x.placements[self.model] == last
+                 and x.shape[-1] % self.model_size == 0)
+        pl = self.layout(last if split else None)
+        if list(x.placements) != pl:
+            x = x.redistribute(self.mesh, pl)
+        self.d_split = split
+        xl = x.to_local()
+        if self.model is None:
+            return xl
+        if split:
+            return all_gather(xl, xl.ndim - 1, self.model_group)
+        return _SumGrad.apply(xl, self.model_group)
+
+    def weight(self, w) -> Tensor:
+        """The local block of the weight ``w``: its 'model' split kept,
+        every other split gathered on that dim's group (FSDP)."""
+        from torch.distributed.tensor import Partial, Replicate
+        grad = [p if p.is_shard() else Partial()
+                if i == self.model or i in self.batch else Replicate()
+                for i, p in enumerate(w.placements)]
+        wl = w.to_local(grad_placements=grad)
+        for i in reversed(range(self.mesh.ndim)):
+            p = w.placements[i]
+            if i != self.model and p.is_shard():
+                wl = all_gather(wl, p.dim, self.group(i), i in self.batch)
+        return wl
+
+    def gather_rows(self, x: Tensor) -> Tensor:
+        """Every rank's rows of the local ``x`` (dim 0), over the batch
+        dims; backward the reduce-scatter of the ranks' partial
+        gradients."""
+        for i in reversed(self.batch):
+            x = all_gather(x, 0, self.group(i))
+        return x
+
+    # ----------------------------------------------------------- results
+    def out(self, y: Tensor):
+        """The region's local result ``y`` (B_loc, ..., d), a partial sum
+        over 'model', summed there and returned as a DTensor in the
+        activations' layout: reduce-scattered onto d where :meth:`act` found
+        d split (or ``d_split`` was set), else all-reduced."""
+        from torch.distributed.tensor import DTensor, Shard
+        if self.model is None:
+            pl = self.layout()
+        elif self.d_split:
+            y = _ReduceScatter.apply(y, y.ndim - 1, self.model_group)
+            pl = self.layout(Shard(y.ndim - 1))
+        else:
+            y = all_reduce(y, self.model_group)
+            pl = self.layout()
+        shape = list(y.shape)
+        if self.like is not None:
+            shape[0] = self.like.shape[0]
+        if self.d_split:
+            shape[-1] *= self.model_size
+        return DTensor.from_local(y, self.mesh, pl, run_check=False,
+                                  shape=torch.Size(shape),
+                                  stride=_contiguous_stride(shape))
+
+    def sums(self, *vals: Tensor, over_model: bool = False):
+        """Per-rank sums as DTensors whose value is their total over the
+        batch ranks (and over 'model' with ``over_model``); in backward
+        the total's gradient comes back to every rank whole."""
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        pl = [Partial() if i in self.batch or (over_model and i == self.model)
+              else Replicate() for i in range(self.mesh.ndim)]
+        return tuple(DTensor.from_local(v, self.mesh, pl, run_check=False)
+                     for v in vals)
+
+
+def _contiguous_stride(shape) -> Tuple[int, ...]:
+    out, acc = [], 1
+    for s in reversed(tuple(shape)):
+        out.append(acc)
+        acc *= int(s)
+    return tuple(reversed(out))
 
 
 def shape_tree(template: Template, mesh=None) -> Dict[str, Any]:
@@ -376,11 +701,37 @@ def embed_template(vocab: int, d: int, dtype: torch.dtype) -> Template:
                              "fan_in", 1.0)}
 
 
-def embed_lookup(emb: Tensor, tokens: Tensor, dtype: torch.dtype) -> Tensor:
+def embed_lookup(emb: Tensor, tokens: Tensor, dtype: torch.dtype,
+                 shard_d: bool = False) -> Tensor:
     """Rows of ``emb`` at ``tokens`` (any integer dtype), in ``dtype``.
-    Sharded, each rank gathers its tokens' rows from the whole table
-    (:func:`run_on_rows`)."""
+    A table whose vocabulary is split over 'model' is looked up
+    vocab-parallel (:func:`_embed_vocab_parallel`; ``shard_d``: the result
+    split on d over 'model', the activations' layout); any other sharded
+    table is gathered whole for each rank's tokens (:func:`run_on_rows`)."""
+    if model_split(emb, 0):
+        return _embed_vocab_parallel(emb, tokens, dtype, shard_d)
     if is_dtensor(tokens) or is_dtensor(emb):
         return run_on_rows(lambda tok, table: table[tok.long()].to(dtype),
-                           (tokens,), (emb,))
+                           (tokens,), (emb,), name="embed")
     return emb[tokens.long()].to(dtype)
+
+
+def _embed_vocab_parallel(emb, tokens, dtype: torch.dtype, shard_d: bool):
+    """Each rank looks up the tokens inside its block of the vocabulary
+    (zeros elsewhere; the block from DTensor's own offsets, so an uneven
+    split is right) with d gathered whole (FSDP), and the sum over
+    'model' -- one nonzero row a token, so exact -- is reduce-scattered
+    onto d (``shard_d``) or all-reduced.  In backward the table's gradient
+    stays on the rank's block."""
+    reg = Region(tokens, mesh=emb.device_mesh)
+    tok = reg.rows(tokens).long()
+    table = reg.weight(emb)                                   # (V_loc, d)
+    v0, n = local_offset(emb)[0], table.shape[0]
+    own = (tok >= v0) & (tok < v0 + n)
+    rows = table[torch.where(own, tok - v0, torch.zeros_like(tok))]
+    rows = torch.where(own[..., None], rows.to(dtype),
+                       torch.zeros((), dtype=dtype, device=rows.device))
+    reg.d_split = (shard_d and reg.model is not None
+                   and emb.shape[1] % reg.model_size == 0)
+    trace_region("embed", vocab_rows=n)
+    return reg.out(rows)

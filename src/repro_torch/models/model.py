@@ -36,11 +36,14 @@ Entry points:
 
 Every entry point runs under a mesh too: with DTensor inputs and
 parameters, the plain tensors it builds (positions, masks) count as
-replicated (``layers.mesh_context``), attention runs on each rank's rows
-(``layers.run_on_rows``), and ``decode_step`` takes a cache whose kv
-leaves are split over ``batch_axes`` and ``seq_axes`` (the reference's
-``cache_pspec``): the new token's k/v are written on the rank that holds
-its ring slot.
+replicated (``layers.mesh_context``).  Four regions run on local shards
+with explicit collectives over 'model' (``layers.Region``): attention
+head-parallel in prefill, encode and training, the embedding and the
+cross-entropy vocab-parallel, the MoE expert-parallel; what has no split
+to use runs on each rank's rows (``layers.run_on_rows``).  ``decode_step``
+takes a cache whose kv leaves are split over ``batch_axes`` and
+``seq_axes`` (the reference's ``cache_pspec``): the new token's k/v are
+written on the rank that holds its ring slot.
 """
 from __future__ import annotations
 
@@ -97,9 +100,6 @@ class ModelConfig:
     moe_chunk: int = 1024          # tokens a routing chunk
     moe_capacity_factor: float = 1.25
     moe_impl: str = "einsum"       # einsum | gather (the same function)
-    # gather FSDP expert weights over 'data' once a layer, outside the
-    # chunk loop (sharded parameters only)
-    moe_pregather: bool = False
     aux_loss_weight: float = 0.01  # weight of the MoE load-balance loss
     # ssm
     ssm_d_state: int = 16
@@ -371,8 +371,7 @@ def _apply_mlp(cfg: ModelConfig, kind: str, p, h: Tensor, cache
         out, aux = moe_mod.moe_mlp(
             p, h, top_k=cfg.top_k, n_experts=cfg.n_experts, act=cfg.act,
             dtype=cfg.dtype, capacity_factor=cfg.moe_capacity_factor,
-            chunk=cfg.moe_chunk, impl=cfg.moe_impl,
-            pregather=cfg.moe_pregather)
+            chunk=cfg.moe_chunk, impl=cfg.moe_impl)
         return out, aux, None
     return layers.glu_mlp(p, h, cfg.act, cfg.dtype), None, None
 
@@ -408,7 +407,9 @@ def _embed_in(cfg: ModelConfig, params, x: Tensor) -> Tensor:
     if cfg.input_kind == "embed":
         return layers.linear(x.to(cfg.dtype), params["frontend"]["proj"],
                              cfg.dtype)
-    h = layers.embed_lookup(params["embed"]["tok"], x, cfg.dtype)
+    h = layers.embed_lookup(params["embed"]["tok"], x, cfg.dtype,
+                            shard_d=cfg.shard_activations
+                            and bool(cfg.batch_axes))
     if cfg.tie_embeddings:
         # gemma-style: sqrt(d) rounded to the dtype, the product rounded
         # once (exact in f32 before that rounding: both factors are bf16)
@@ -525,14 +526,17 @@ def chunked_ce(cfg: ModelConfig, params, h: Tensor, labels: Tensor,
     (T, vocab) logits at once: ``ce_chunk`` time steps at a time.  h (B,
     T, d); the head's operands are rounded to the compute dtype and the
     logits are accumulated and kept in f32 (the reference's
-    ``preferred_element_type``).  Sharded, each rank sums its own rows
-    against the whole head matrix (``layers.run_on_rows``: DTensor's
-    vocab-parallel gather raised on a sharded vocabulary)."""
+    ``preferred_element_type``).  Sharded, a head matrix whose vocabulary
+    is split over 'model' runs vocab-parallel (:func:`_ce_vocab_parallel`);
+    any other sums each rank's own rows against the whole head matrix
+    (``layers.run_on_rows``)."""
     w = _head_matrix(cfg, params)
-    if is_dtensor(h):
+    if is_dtensor(h) and layers.model_split(w, 1):
+        loss_sum, count = _ce_vocab_parallel(cfg, h, w, labels, mask)
+    elif is_dtensor(h):
         loss_sum, count = layers.run_on_rows(
             lambda h_, l_, m_, w_: _ce_sums(cfg, h_, w_, l_, m_),
-            (h, labels, mask), (w,), sums=True)
+            (h, labels, mask), (w,), sums=True, name="ce")
     else:
         loss_sum, count = _ce_sums(cfg, h, w, labels, mask)
     return loss_sum / torch.clamp(count, min=1.0)
@@ -558,6 +562,47 @@ def _ce_sums(cfg: ModelConfig, h: Tensor, w: Tensor, labels: Tensor,
         loss_sum = loss_sum + torch.sum((lse - gold) * mi)
         count = count + torch.sum(mi)
     return loss_sum, count
+
+
+def _ce_vocab_parallel(cfg: ModelConfig, h, w, labels, mask
+                       ) -> Tuple[Tensor, Tensor]:
+    """The cross-entropy sums on local shards (a ``layers.Region``): each
+    rank's rows of h with d whole against its block of the vocabulary,
+    chunk by chunk as :func:`_ce_sums`: the f32 logits of the block, the
+    row max by an all-reduce max over 'model' (detached), the sum of
+    exponentials by an all-reduce, the gold logit from the rank that owns
+    it (an all-reduce of the masked value).  Each rank's logits get
+    softmax minus one-hot on its own block as their gradient, and h the
+    sum of the blocks' parts."""
+    reg = layers.Region(h)
+    hl = reg.act(h)                                    # (B_loc, T, d)
+    wl = reg.weight(w).to(cfg.dtype).float()           # (d, V_loc)
+    v0, n = layers.local_offset(w)[1], wl.shape[1]
+    lab = reg.rows(labels).long() - v0
+    b, t, _ = hl.shape
+    mk = reg.rows(mask)
+    if mk is None:
+        mk = torch.ones((b, t), dtype=torch.float32, device=hl.device)
+    g = reg.model_group
+    chunk = min(cfg.ce_chunk, t)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=hl.device)
+    count = torch.zeros((), dtype=torch.float32, device=hl.device)
+    for lo in range(0, t, chunk):
+        logit = hl[:, lo:lo + chunk].to(cfg.dtype).float() @ wl
+        mx = layers.all_reduce_max(torch.amax(logit, dim=-1), g)
+        se = layers.all_reduce(torch.sum(torch.exp(logit - mx[..., None]),
+                                         dim=-1), g)
+        li = lab[:, lo:lo + chunk]
+        own = (li >= 0) & (li < n)
+        gold = torch.gather(logit, -1, torch.where(
+            own, li, torch.zeros_like(li))[..., None])[..., 0]
+        gold = layers.all_reduce(torch.where(own, gold, torch.zeros_like(
+            gold)), g)
+        mi = mk[:, lo:lo + chunk].float()
+        loss_sum = loss_sum + torch.sum((mx + torch.log(se) - gold) * mi)
+        count = count + torch.sum(mi)
+    layers.trace_region("ce", vocab_cols=n)
+    return reg.sums(loss_sum, count)
 
 
 def loss_fn(cfg: ModelConfig, params, batch: Dict[str, Tensor]) -> Tensor:

@@ -24,6 +24,10 @@ Two dispatch implementations, the reference's:
 
 Top-k breaks ties towards the lower expert index, as ``lax.top_k`` does
 (a zero-padded token has all its logits equal).
+
+Sharded with the experts split over 'model', each rank runs its own
+experts on local shards (:func:`moe_mlp`) and one collective sums their
+parts of the output.
 """
 from __future__ import annotations
 
@@ -103,8 +107,13 @@ def route_chunk(logits: Tensor, top_k: int, capacity: int, n_experts: int
 
 def _chunk_moe(p: Dict[str, Tensor], xc: Tensor, *, top_k: int,
                capacity: int, n_experts: int, act: str, dtype: torch.dtype,
-               impl: str = "einsum") -> Tuple[Tensor, Tensor]:
-    """One token chunk.  xc (C_t, d) -> (C_t, d), and its aux loss."""
+               impl: str = "einsum", experts: Tuple[int, int] = None
+               ) -> Tuple[Tensor, Tensor]:
+    """One token chunk.  xc (C_t, d) -> (C_t, d), and its aux loss.  With
+    ``experts`` = (first, count), p holds only those experts' weights (a
+    rank's local block): only their slots are built and combined, and y
+    is their part of the sum over the experts, in f32 (the caller sums
+    the parts over the ranks and rounds once)."""
     ct, d = xc.shape
     logits = xc.float() @ p["router"].float()                   # (C_t, E)
     r = route_chunk(logits, top_k, capacity, n_experts)
@@ -112,18 +121,27 @@ def _chunk_moe(p: Dict[str, Tensor], xc: Tensor, *, top_k: int,
     n = ct * top_k
     gate_flat = r["gate"].reshape(n)
     x_rep = torch.repeat_interleave(xc.to(dtype), top_k, dim=0)  # (C_t k, d)
+    e0, ne = (0, n_experts) if experts is None else experts
+    if experts is not None:
+        # the slots of the local experts; every other assignment goes to
+        # the local dump slot
+        slot = slot - e0 * capacity
+        dropped = dropped | (slot < 0) | (slot >= ne * capacity)
+        slot = torch.where(dropped, torch.full_like(slot, ne * capacity),
+                           slot)
 
     if impl == "gather":
         # row of each slot: the one assignment kept there, else the zero
         # row n; only the dump slot (dropped) is written more than once
-        src = torch.full((n_experts * capacity + 1,), n, dtype=torch.long,
+        src = torch.full((ne * capacity + 1,), n, dtype=torch.long,
                          device=xc.device)
         src = src.scatter(0, slot, torch.arange(n, device=xc.device))
         x_pad = torch.cat([x_rep, x_rep.new_zeros((1, d))])
-        buf = x_pad[src[:-1]].reshape(n_experts, capacity, d)
+        buf = x_pad[src[:-1]].reshape(ne, capacity, d)
     elif impl == "einsum":
         disp = F.one_hot(torch.where(keep, r["pos"], capacity),
                          capacity + 1)[..., :capacity].to(dtype)  # (C_t k, E, cap)
+        disp = disp[:, e0:e0 + ne]
         buf = torch.einsum("tec,td->ecd", disp, x_rep)
     else:
         raise ValueError(f"unknown moe impl {impl!r} (einsum | gather)")
@@ -131,25 +149,21 @@ def _chunk_moe(p: Dict[str, Tensor], xc: Tensor, *, top_k: int,
     h = layers.act_fn(act, _expert_product(buf, p["wg"].to(dtype), True))
     h = h.to(dtype) * _expert_product(buf, p["wi"].to(dtype), False)
     out_e = _expert_product(h, p["wo"].to(dtype), False)        # (E, cap, d)
-    if is_dtensor(out_e):
-        # every combine below views (E, cap) as one dim, which DTensor
-        # (torch 2.11) cannot plan for an expert dim split over 'model':
-        # each rank combines the whole chunk, as one device does
-        out_e = layers.redistribute(out_e, (None, None, None))
 
     if impl == "gather":
-        flat_out = torch.cat([out_e.reshape(n_experts * capacity, d),
+        flat_out = torch.cat([out_e.reshape(ne * capacity, d),
                               out_e.new_zeros((1, d))])         # dump row
         y = flat_out[slot] * gate_flat[:, None].to(dtype)
         y = torch.where(dropped[:, None], torch.zeros_like(y), y)
-        y = y.reshape(ct, top_k, d).sum(dim=1).to(dtype)
     else:
         # the products in f32 (exact: both factors are in the dtype), the
         # sum over k in f32, one rounding
-        comb = layers.redistribute(disp * gate_flat[:, None, None].to(dtype),
-                                   (None, None, None))
+        comb = disp * gate_flat[:, None, None].to(dtype)
         y = torch.einsum("tec,ecd->td", comb.float(), out_e.float())
+    if experts is None:
         y = y.reshape(ct, top_k, d).sum(dim=1).to(dtype)
+    else:
+        y = y.float().reshape(ct, top_k, d).sum(dim=1)
 
     # load-balance aux (Switch-style): mean gate prob x assignment fraction
     probs = torch.softmax(logits, dim=-1)
@@ -166,40 +180,87 @@ def capacity_for(chunk: int, top_k: int, n_experts: int,
 
 def moe_mlp(p: Dict[str, Tensor], x: Tensor, *, top_k: int, n_experts: int,
             act: str, dtype: torch.dtype, capacity_factor: float = 2.0,
-            chunk: int = 4096, impl: str = "einsum",
-            pregather: bool = False) -> Tuple[Tensor, Tensor]:
+            chunk: int = 4096, impl: str = "einsum") -> Tuple[Tensor, Tensor]:
     """x (B, T, d) -> (out (B, T, d), aux loss).  The B*T tokens run in
     chunks of min(chunk, B*T), the last one zero-padded; the aux loss is
     the mean over chunks.  Under autograd each chunk is recomputed in
-    backward (the reference's chunk remat).  ``pregather`` re-shards FSDP
-    (data-axis) expert weights to model-only sharding once a layer,
-    outside the chunk loop (a no-op on plain tensors)."""
-    if pregather:
-        p = {**p, **{name: layers.redistribute(p[name], ("model", None, None))
-                     for name in ("wi", "wg", "wo")}}
+    backward (the reference's chunk remat).
+
+    Sharded (x a DTensor), the layer runs expert-parallel on local shards
+    (a ``layers.Region``): each rank takes its rows of x with d whole, the
+    router whole and its n_experts / model experts (FSDP splits gathered
+    once a layer, outside the chunk loop), routes every chunk as one
+    device does, builds and runs only its experts' slots and combines
+    their part of each token's output in f32; one all-reduce (or
+    reduce-scatter onto d) over 'model' sums the parts, rounded to the
+    dtype once.  The chunks are the unsharded run's: a rank whose rows
+    are whole chunks routes them alone, else every rank routes the whole
+    batch (gathered) and keeps its rows.  The aux loss is each rank's
+    share of the mean over the chunks."""
     b, t, d = x.shape
-    n_tok = b * t
-    chunk = min(chunk, n_tok)
-    n_chunks = -(-n_tok // chunk)
-    pad = n_chunks * chunk - n_tok
-    xt = x.reshape(n_tok, d)
+    chunk = min(chunk, b * t)
+    n_chunks = -(-(b * t) // chunk)
+    experts, share, reg = None, 1, None
+    if is_dtensor(x):
+        reg = _expert_region(p, x, n_experts)
+        ne = n_experts // reg.model_size
+        experts = (reg.model_rank * ne, ne)
+        w = {name: reg.weight(p[name])
+             for name in ("router", "wi", "wg", "wo")}
+        xl = reg.act(x)                                 # (B_loc, T, d)
+        n_loc = xl.shape[0] * t
+        n_rows = 1
+        for i in reg.batch:
+            n_rows *= reg.mesh.size(i)
+        alone = b % n_rows == 0 and n_loc % chunk == 0
+        share = reg.model_size        # ranks that compute the same aux term
+        if not alone:
+            xl = reg.gather_rows(xl)
+            share *= n_rows
+        xt = xl.reshape(-1, d)
+    else:
+        w, xt = p, x.reshape(b * t, d)
+    pad = -xt.shape[0] % chunk
     if pad:
         xt = F.pad(xt, (0, 0, 0, pad))
-    capacity = capacity_for(chunk, top_k, n_experts, capacity_factor)
-    body = functools.partial(_chunk_moe, top_k=top_k, capacity=capacity,
-                             n_experts=n_experts, act=act, dtype=dtype,
-                             impl=impl)
-    remat = n_chunks > 1 and torch.is_grad_enabled()
+    body = functools.partial(
+        _chunk_moe, top_k=top_k, capacity=capacity_for(
+            chunk, top_k, n_experts, capacity_factor),
+        n_experts=n_experts, act=act, dtype=dtype, impl=impl,
+        experts=experts)
+    remat = xt.shape[0] > chunk and torch.is_grad_enabled()
     ys, auxs = [], []
-    for c in range(n_chunks):
-        xc = xt[c * chunk:(c + 1) * chunk]
-        if remat:
-            y, aux = checkpoint(body, p, xc, use_reentrant=False)
-        else:
-            y, aux = body(p, xc)
+    for lo in range(0, xt.shape[0], chunk):
+        xc = xt[lo:lo + chunk]
+        y, aux = (checkpoint(body, w, xc, use_reentrant=False) if remat
+                  else body(w, xc))
         ys.append(y)
         auxs.append(aux)
-    out = torch.cat(ys)[:n_tok].reshape(b, t, d)
+    y = torch.cat(ys)
+    aux = torch.mean(torch.stack(auxs)) * (len(auxs) / (n_chunks * share))
+    if reg is None:
+        out = y[:b * t].reshape(b, t, d)
+    else:
+        r0 = reg.row_block()[0] if not alone else 0
+        y = y[r0 * t:r0 * t + n_loc]
+        layers.trace_region("moe", experts=ne)
+        out = reg.out(y.reshape(-1, t, d)).to(dtype)
+        (aux,) = reg.sums(aux, over_model=True)
     if "shared" in p:
         out = out + layers.glu_mlp(p["shared"], x, act, dtype)
-    return out, torch.mean(torch.stack(auxs))
+    return out, aux
+
+
+def _expert_region(p: Dict[str, Tensor], x, n_experts: int):
+    """The region of a sharded MoE layer: x's batch not over 'model', the
+    experts split evenly over 'model'; anything else raises."""
+    reg = layers.Region(x)
+    if (reg.model is None or layers.model_split(x, 0)
+            or not all(layers.model_split(p[n], 0)
+                       for n in ("wi", "wg", "wo"))
+            or n_experts % reg.model_size):
+        raise ValueError(
+            f"a sharded MoE layer needs its {n_experts} experts split "
+            f"evenly over the mesh's 'model' dim and its batch not split "
+            f"there (mesh {reg.mesh}, x {x.placements})")
+    return reg

@@ -422,6 +422,12 @@ def _attn_bound(q, k, v, mask_kind, window, want):
     ("causal", 0, 2, 77, 77, 8, 2, 8),        # command-r smoke: CUDA cores
     ("bidir", 0, 1, 65, 33, 8, 8, 8),
     ("window", 16, 1, 150, 150, 4, 4, 8),
+    # local heads of head-parallel prefill at 16 'model' ranks: a rank's
+    # query heads and the one kv head they share
+    ("causal", 0, 1, 300, 300, 2, 1, 160),    # stablelm-12b
+    ("causal", 0, 1, 300, 300, 4, 1, 128),    # qwen3-moe, internvl2
+    ("causal", 0, 1, 300, 300, 6, 1, 128),    # command-r-plus: G 6
+    ("bidir", 0, 2, 130, 130, 1, 1, 80),      # hubert-xlarge
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, mask_kind, window, b, t,

@@ -1,9 +1,16 @@
 """The port's sharded LM training on CPU process groups: the templates'
-partition specs, one train step on a (4, 2) ``("data", "model")`` mesh of
-gloo ranks for qwen3-moe (experts over 'model', activations sharded) and
-stablelm-1.6b (FSDP, recomputed periods), and the elastic re-shard of a
-checkpoint from a (4, 2) mesh to a (2, 4) one.  The twins of
-``test_distributed_lm.py`` and ``test_elastic.py``.
+partition specs, one train step on a ``("data", "model")`` mesh of gloo
+ranks for each case of ``STEPS`` (qwen3-moe with its experts over 'model'
+and activations sharded, on (4, 2) and on (2, 4) where two ranks share a
+kv head; stablelm-1.6b with FSDP and recomputed periods, its vocabulary
+of 503 unsplit and of 512 split over 'model'; gemma3-4b's tied
+embeddings with a vocabulary of 1024 split, and its 4 heads over 8 ranks,
+which do not divide), and the elastic re-shard of a checkpoint from a
+(4, 2) mesh to a (2, 4) one.  The twins of ``test_distributed_lm.py``
+and ``test_elastic.py``.  Each step records the regions it ran
+(``layers.REGION_TRACE``): head-parallel attention, vocab-parallel
+embedding and cross-entropy and the expert-parallel MoE on local shards,
+or ``run_on_rows`` where there is no split to use.
 
 The JAX package's sharded step cannot run on this box (ROADMAP C3: jax
 0.9.0 refuses the embedding gather of a table sharded on d over 'model'
@@ -45,10 +52,19 @@ def _cfg(arch: str, **kw):
                                **kw)
 
 
-# the sharded steps: (arch, config changes of the run on the mesh)
+# the sharded steps: label -> (arch, config changes of the run, mesh)
 STEPS = {
-    "qwen3-moe-235b-a22b": dict(),
-    "stablelm-1.6b": dict(fsdp_params=True, remat=True),
+    "qwen3-moe-235b-a22b": ("qwen3-moe-235b-a22b", dict(), (4, 2)),
+    # 2 kv heads over 4 'model' ranks: each pair shares one
+    "qwen3-moe-shared-kv": ("qwen3-moe-235b-a22b", dict(), (2, 4)),
+    "stablelm-1.6b": ("stablelm-1.6b", dict(fsdp_params=True, remat=True),
+                      (4, 2)),
+    "stablelm-1.6b-vocab512": ("stablelm-1.6b", dict(
+        fsdp_params=True, remat=True, vocab=512), (4, 2)),
+    "gemma3-4b-vocab1024": ("gemma3-4b", dict(vocab=1024), (4, 2)),
+    # 4 heads over 8 'model' ranks (gemma3-4b's 8 over 16): every head on
+    # each rank's rows
+    "gemma3-4b-uneven-heads": ("gemma3-4b", dict(), (1, 8)),
 }
 SHARD = dict(batch_axes=("data",), shard_activations=True)
 
@@ -79,16 +95,17 @@ def test_spec_tree_matches_reference(arch, fsdp):
 
 
 # ------------------------------------------------------------ rank jobs
-def _step_on_mesh(cfg, params_np, batch_np):
-    """One train step on a (4, 2) mesh: params split per the template's
-    placements, the batch over 'data'.  -> (loss, grad norm, params)."""
+def _step_on_mesh(cfg, params_np, batch_np, shape=(4, 2)):
+    """One train step on a mesh of ``shape``: params split per the
+    template's placements, the batch over 'data'.  -> (loss, grad norm,
+    params, every param placed, the regions that ran)."""
     from torch.distributed.tensor import distribute_tensor
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.models.layers import (placements, sharding_tree,
                                            tree_items, tree_map)
     from repro_torch.train.lm_trainer import make_train_step
     from repro_torch.train.optimizer import OptConfig, init_opt_state
-    mesh = mesh_mod.make_mesh((4, 2), ("data", "model"), CPU)
+    mesh = mesh_mod.make_mesh(shape, ("data", "model"), CPU)
     params = tree_map(lambda a, pl: distribute_tensor(
         torch.from_numpy(a), mesh, pl, src_data_rank=None), params_np,
         sharding_tree(t_model.build_template(cfg), mesh))
@@ -98,13 +115,19 @@ def _step_on_mesh(cfg, params_np, batch_np):
              for k, v in batch_np.items()}
     ocfg = OptConfig(**LR)
     step = make_train_step(cfg, ocfg)
-    p, o, m = step(params, init_opt_state(params, ocfg), batch)
+    t_layers.REGION_TRACE = []
+    try:
+        p, o, m = step(params, init_opt_state(params, ocfg), batch)
+        regions = {(name, tuple(sorted(info.items())))
+                   for name, info in t_layers.REGION_TRACE}
+    finally:
+        t_layers.REGION_TRACE = None
     placed = all(leaf.placements == want for (_, leaf), (_, want) in zip(
         tree_items(p), tree_items(sharding_tree(
             t_model.build_template(cfg), mesh))))
     return (float(m["loss"].full_tensor()), float(m["grad_norm"].full_tensor()),
             {"/".join(k): v.full_tensor().numpy() for k, v in tree_items(p)},
-            placed)
+            placed, regions)
 
 
 def _elastic(cfg, root):
@@ -143,9 +166,10 @@ def _elastic(cfg, root):
 
 def _lm_job(inputs, root):
     out = {}
-    for arch, (params_np, batch_np) in inputs.items():
-        cfg = _cfg(arch, **STEPS[arch], **SHARD)
-        out[arch] = _step_on_mesh(cfg, params_np, batch_np)
+    for label, (params_np, batch_np) in inputs.items():
+        arch, kw, shape = STEPS[label]
+        cfg = _cfg(arch, **kw, **SHARD)
+        out[label] = _step_on_mesh(cfg, params_np, batch_np, shape)
     out["elastic"] = _elastic(_cfg("stablelm-1.6b", batch_axes=("data",)),
                               root)
     return out
@@ -173,8 +197,12 @@ def lm(tmp_path_factory):
     from repro_torch.train.lm_trainer import make_train_step
     from repro_torch.train.optimizer import OptConfig, init_opt_state
     torch.set_num_threads(1)
-    inputs, ref, local = {}, {}, {}
-    for arch, kw in STEPS.items():
+    inputs, ref, local, done = {}, {}, {}, {}
+    for label, (arch, kw, _) in STEPS.items():
+        key = (arch, tuple(sorted(kw.items())))
+        if key in done:            # the same step on another mesh
+            ref[label], local[label], inputs[label] = done[key]
+            continue
         jc = dataclasses.replace(j_get_arch(arch).smoke, dtype=jnp.float32,
                                  **kw)
         tc = _cfg(arch, **kw)
@@ -187,17 +215,18 @@ def lm(tmp_path_factory):
         p1, _, m1 = jax.jit(j_trainer.make_train_step(jc, jocfg))(
             jp, j_opt.init_opt_state(jp, jocfg),
             {k: jnp.asarray(v) for k, v in batch.items()})
-        ref[arch] = (float(m1["loss"]), float(m1["grad_norm"]),
-                     _tree_np(params_from_reference(jax.device_get(p1))))
+        ref[label] = (float(m1["loss"]), float(m1["grad_norm"]),
+                      _tree_np(params_from_reference(jax.device_get(p1))))
         tp = params_from_reference(jp)
         ocfg = OptConfig(**LR)
         p2, _, m2 = make_train_step(tc, ocfg)(tp, init_opt_state(tp, ocfg),
                                                {k: torch.from_numpy(v)
                                                 for k, v in batch.items()})
-        local[arch] = (float(m2["loss"]), float(m2["grad_norm"]),
-                       _tree_np(p2))
-        inputs[arch] = (t_layers.tree_map(lambda t: t.numpy().copy(), tp),
-                        batch)
+        local[label] = (float(m2["loss"]), float(m2["grad_norm"]),
+                        _tree_np(p2))
+        inputs[label] = (t_layers.tree_map(lambda t: t.numpy().copy(), tp),
+                         batch)
+        done[key] = ref[label], local[label], inputs[label]
     root = str(tmp_path_factory.mktemp("lm_mesh"))
     outs = run_local(_lm_job, 8, inputs, root, timeout=480)
     return ref, local, outs, root
@@ -214,10 +243,10 @@ def test_sharded_step_matches_reference_unsharded(lm, arch):
     """``test_distributed_lm.py``'s bounds against the JAX package's
     unsharded step: loss within 2e-4, every parameter within 5e-3."""
     ref, _, outs, _ = lm
-    loss, gnorm, params, _ = outs[0][arch]
+    loss, gnorm, params, _, _ = outs[0][arch]
     d_loss = abs(loss - ref[arch][0])
     worst = _worst(params, ref[arch][2])
-    print(f"{arch} on (4, 2) vs the reference's unsharded step: loss "
+    print(f"{arch} on {STEPS[arch][2]} vs the reference's unsharded step: loss "
           f"{loss:.7f} vs {ref[arch][0]:.7f} (diff {d_loss:.3g}), grad norm "
           f"diff {abs(gnorm - ref[arch][1]):.3g}, worst param delta "
           f"{worst:.3g}")
@@ -233,10 +262,10 @@ def test_sharded_step_matches_port_unsharded(lm, arch):
     rank holding the same values, and every new parameter on its
     template's placements."""
     _, local, outs, _ = lm
-    loss, gnorm, params, placed = outs[0][arch]
+    loss, gnorm, params, placed, _ = outs[0][arch]
     d_loss = abs(loss - local[arch][0])
     worst = _worst(params, local[arch][2])
-    print(f"{arch} on (4, 2) vs the port's unsharded step: loss diff "
+    print(f"{arch} on {STEPS[arch][2]} vs the port's unsharded step: loss diff "
           f"{d_loss:.3g}, grad norm {gnorm:.7f} vs {local[arch][1]:.7f}, "
           f"worst param delta {worst:.3g}")
     assert d_loss < 2e-4 and worst < 5e-3
@@ -244,6 +273,47 @@ def test_sharded_step_matches_port_unsharded(lm, arch):
     for o in outs:
         assert o[arch][3]
         assert o[arch][0] == loss and _worst(o[arch][2], params) == 0.0
+
+
+def expected_regions(label: str) -> set:
+    """The regions the step of ``label`` must run, with the local sizes
+    each sees: H / model query heads (and the kv heads they read), V /
+    model vocabulary rows and logit columns, E / model experts; the rows
+    path (``run_on_rows``, by region) where the heads or the vocabulary do
+    not split over 'model'."""
+    arch, kw, (_, m) = STEPS[label]
+    cfg = _cfg(arch, **kw)
+    out = set()
+    if cfg.n_heads % m == 0:
+        kv = cfg.n_kv_heads // m if cfg.n_kv_heads % m == 0 else 1
+        out.add(("attention", (("heads", cfg.n_heads // m),
+                               ("kv_heads", kv))))
+    else:
+        out.add(("run_on_rows", (("region", "attention"),)))
+    if cfg.vocab % 64 == 0:
+        out |= {("embed", (("vocab_rows", cfg.vocab // m),)),
+                ("ce", (("vocab_cols", cfg.vocab // m),))}
+    else:
+        out |= {("run_on_rows", (("region", "embed"),)),
+                ("run_on_rows", (("region", "ce"),))}
+    if cfg.n_experts:
+        out.add(("moe", (("experts", cfg.n_experts // m),)))
+    return out
+
+
+@pytest.mark.timeout(900)
+@pytest.mark.parametrize("label", sorted(STEPS))
+def test_regions_run_on_local_shards(lm, label):
+    """Every rank ran exactly the regions ``expected_regions`` names:
+    attention on its H / model heads, the embedding and the cross-entropy
+    on its V / model block, the MoE on its E / model experts, each on
+    local shards (no ``run_on_rows`` for them); the rows path only where
+    the heads (gemma3-4b's uneven 4 over 8) or the vocabulary (503, 1031)
+    do not split."""
+    _, _, outs, _ = lm
+    want = expected_regions(label)
+    for o in outs:
+        assert o[label][4] == want, (label, o[label][4], want)
 
 
 @pytest.mark.timeout(900)
