@@ -116,9 +116,12 @@ kernels from ``src/repro_torch/csrc/`` into ``build/kernels/`` and then:
      ("data", "model") mesh of two ranks on the one card, in f32 and
      bf16, B9 once a layer at each rank's 16 heads (its first launch
      replayed against the plain version), the embedding vocab-parallel,
-     the logits against the unsharded prefill, and B9 at every config's
-     local heads at the production mesh's 16 'model' ranks; then the
-     launch tooling
+     the logits against the unsharded prefill, 4 decode steps with the
+     cache split over the sequence (flash-decoding: B10's partials mode
+     once a layer a step on each rank's half of the ring, its first
+     launch replayed against the plain partials, the logits against the
+     unsharded decode), and B9 at every config's local heads at the
+     production mesh's 16 'model' ranks; then the launch tooling
      (``launch``): ``python -m repro_torch.launch.serve`` for
      stablelm-1.6b and gemma3-4b (window attention) in processes of
      their own, each launching B9 once an attention layer and B10 once a
@@ -391,6 +394,16 @@ MESH_PACK = 2
 # tokens of one row
 MESH_PREFILL_B, MESH_PREFILL_T = 4, 512
 LOCAL_HEADS_T = 4096
+# then MESH_DECODE_NEW tokens decoded with the prompt's cache split over
+# the sequence on the two ranks (flash-decoding with B10's partials), a
+# ring of MESH_PREFILL_T + MESH_DECODE_NEW slots, 258 a rank
+MESH_DECODE_NEW = 4
+# earlier figures of this script on the same card, printed beside this
+# run's: the phase before the split decode was added, and the (1, 1)
+# meshed LM step and the unsharded one before the dense parts ran as
+# regions
+MESH_PREFILL_BEFORE_S = 25.1
+MESH_STEP_BEFORE_S = {"mesh": 5.62, "unsharded": 1.84}
 # the examples run on the card at their defaults (examples/<name>.py)
 EXAMPLES = ("torch_quickstart", "torch_serve_svm")
 
@@ -432,6 +445,11 @@ KERNELS = {  # name -> (wrapper source, TPU kernel it replaces)
         "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:89"),
     "decode_attention": (
+        "src/repro_torch/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention/decode_attention.py:78"),
+    # B10's partials mode: flash-decoding over a cache split over the
+    # sequence (the reference's split-sequence decode executor)
+    "decode_attention_partials": (
         "src/repro_torch/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/decode_attention.py:78"),
     "assign": ("src/repro_torch/csrc/assign.cu",
@@ -1994,6 +2012,8 @@ def attn_replay(torch, family: str, what: str, name: str, call):
                            q.element_size(), BF16_FLOP_PER_S if tensor_cores
                            else FP32_FLOP_PER_S))
         return err, (label, family, name, *case)
+    if name == "decode_attention_partials":
+        return _partials_replay(torch, family, what, call)
     q, k, v, pos, scale = args
     ks, vs = kw.get("k_scale"), kw.get("v_scale")
     win = kw.get("window", 0)
@@ -2021,6 +2041,51 @@ def attn_replay(torch, family: str, what: str, name: str, call):
                                                  win), lib,
             bound(n_bytes, 4 * b * hk * g * nvis * d))
     return err, (label, family, name, *case)
+
+
+def _partials_replay(torch, family: str, what: str, call):
+    """One recorded launch of B10's partials mode (one rank's block of a
+    ring split over the sequence) against the plain partials on the same
+    operands: the f32 output within ``attn_tol``, the log-sum-exp within
+    1e-5 of its magnitude.  Its timing case: SDPA over the same visible
+    keys of the block as the library call, the bound the visible keys'
+    bytes read once (q read, the f32 output and log-sum-exp written)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+    args, kw, (o, lse) = call
+    q, k, v, pos, scale = args[:5]
+    ks, vs = (args[5], args[6]) if len(args) > 5 else (None, None)
+    win, (lo, ring) = kw.get("window", 0), kw["block"]
+    (b, hk, g, d), n = q.shape, k.shape[1]
+    quant = k.dtype == torch.int8
+    s0, nvis = dec_ops.block_visible_range(ring, pos, win, lo, n)
+    label = (f"decode_attention_partials[{family} {what}: B={b},"
+             f"S={n} of {ring} from {lo},Hk={hk},G={g},D={d},"
+             f"{'int8' if quant else str(k.dtype)[6:]},pos={pos},"
+             f"visible={nvis}]")
+    want_o, want_lse = dec_ref.decode_attention_partials_ref(
+        q, k, v, s0, nvis, scale, ks, vs)
+    torch.cuda.synchronize()
+    err = check(label, float((o - want_o).abs().max()), attn_tol(want_o))
+    check(label + "[lse]", float((lse - want_lse).abs().max()),
+          1e-5 * max(1.0, float(want_lse.abs().max())))
+    lib = None
+    if not quant and s0 + nvis <= n:      # the visible run in order
+        kt, vt = (x[:, s0:s0 + nvis].transpose(1, 2).contiguous()
+                  for x in (k, v))
+        lib = (lambda: F.scaled_dot_product_attention(q, kt, vt,
+                                                      scale=scale))
+    n_bytes = (2 * b * nvis * hk * d * k.element_size()
+               + (2 * b * nvis * hk * 4 if quant else 0)
+               + q.numel() * q.element_size() + o.numel() * 4
+               + lse.numel() * 4)
+    case = (lambda: dec_ops.decode_attention_partials(
+                q, k, v, pos, scale, ks, vs, window=win, block=(lo, ring)),
+            lambda: dec_ref.decode_attention_partials_ref(
+                q, k, v, s0, nvis, scale, ks, vs), lib,
+            bound(n_bytes, 4 * b * hk * g * nvis * d))
+    return err, (label, family, "decode_attention_partials", *case)
 
 
 def lm_families(torch, dev, tables):
@@ -3338,7 +3403,8 @@ def mesh_phase(torch, dev, tables, smi: str):
                           "checkpoint_save_s": save_s,
                           "checkpoint_restore_s": restore_s,
                           "restored_unsharded_bitwise": restored}
-        emit({"phase": "mesh_lm_step", **out["lm_step"]})
+        emit({"phase": "mesh_lm_step", **out["lm_step"],
+              "earlier_step_s": MESH_STEP_BEFORE_S})
         del want
         if not (d_loss < MESH_LOSS_TOL and d_param < MESH_PARAM_TOL):
             raise Mismatch(f"mesh lm step: loss diff {d_loss}, param diff "
@@ -3427,22 +3493,33 @@ def mesh_prefill_ranks(seed: int):
     split over a (1, 2) ("data", "model") mesh by their templates'
     placements, a prefill of MESH_PREFILL_B x MESH_PREFILL_T seeded tokens
     with B9's launches counted and its first launch recorded, and the
-    regions that ran.  Rank 0 also runs the unsharded prefill first.  The
-    vocab-split logits are gathered by c10d (torch 2.11's DTensor gather
-    of CUDA tensors over gloo ends the rank with SIGSEGV)."""
+    regions that ran.  Then MESH_DECODE_NEW decode steps with the prompt's
+    cache split over the sequence ('model': each rank its half of the
+    ring, placed as ``launch.shapes.cache_structs`` places it): B10's
+    partials mode counted and its first launch recorded, each step fed
+    the unsharded decode's greedy token.  Each rank first runs the
+    unsharded prefill and decode (the cache to split, the tokens, and on
+    rank 0 the logits to hold them against).  The vocab-split logits are
+    gathered by c10d (torch 2.11's DTensor gather of CUDA tensors over
+    gloo ends the rank with SIGSEGV)."""
     import dataclasses
     import torch
     import torch.distributed as dist
     from torch.distributed.tensor import Replicate, distribute_tensor
     from repro_torch.configs import get_arch
     from repro_torch.kernels import runtime
+    from repro_torch.configs.common import ShapeSpec
+    from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.shapes import cache_structs
     from repro_torch.models import layers, model as model_mod
+    from repro_torch.serve.kv_cache import pad_cache
     dev = runtime.resolve_device(None)
     rank = dist.get_rank()
     mesh = mesh_mod.make_mesh((1, 2), ("data", "model"))
-    tables = (fa_ops.launches,)
+    tables = (fa_ops.launches, dec_ops.launches)
+    ring = MESH_PREFILL_T + MESH_DECODE_NEW
     out = {"rank": rank, "device": str(dev)}
     for dtype in (torch.float32, torch.bfloat16):
         cfg = dataclasses.replace(get_arch(LM_ARCH).config, dtype=dtype)
@@ -3451,9 +3528,21 @@ def mesh_prefill_ranks(seed: int):
         tok = torch.randint(0, cfg.vocab, (MESH_PREFILL_B, MESH_PREFILL_T),
                             generator=torch.Generator(device=dev).manual_seed(
                                 seed + 1), device=dev, dtype=torch.int32)
-        want = None
-        if rank == 0:
-            want = model_mod.prefill(cfg, params, tok)[0].cpu()
+        # the unsharded prefill and decode on every rank: the cache to
+        # split, the greedy tokens to feed, rank 0's logits to hold against
+        want, cache0 = model_mod.prefill(cfg, params, tok)
+        cache0 = pad_cache(cfg, cache0, ring)
+        split0 = layers.tree_map(lambda t: t.clone(), cache0)
+        feed, want_dec = [], []
+        nxt = torch.argmax(want, -1).to(torch.int32)[:, None]
+        for i in range(MESH_DECODE_NEW):
+            feed.append(nxt)
+            lg, cache0 = model_mod.decode_step(cfg, params, nxt, cache0,
+                                               MESH_PREFILL_T + i)
+            want_dec.append(lg.cpu())
+            nxt = torch.argmax(lg, -1).to(torch.int32)[:, None]
+        del cache0
+        want = want.cpu() if rank == 0 else None
         sharded = layers.tree_map(lambda a, pl: distribute_tensor(
             a, mesh, pl, src_data_rank=None), params,
             layers.sharding_tree(model_mod.build_template(cfg), mesh))
@@ -3482,7 +3571,43 @@ def mesh_prefill_ranks(seed: int):
             "seconds": secs, "launches": read_counts(tables),
             "regions": regions, "logits": got, "want": want,
             "call": (tuple(a.cpu() for a in args), kw, o.cpu())}
-        del sharded, logits
+        del logits
+        # decode with the cache split over the sequence (flash-decoding)
+        structs = cache_structs(dataclasses.replace(cfg, seq_axes=("model",)),
+                                ShapeSpec("decode", "decode", ring,
+                                          MESH_PREFILL_B), mesh)
+        cache_d = layers.tree_map(lambda a, st: distribute_tensor(
+            a, mesh, st.placements, src_data_rank=None), split0, structs)
+        del split0
+        dcalls, dec_got = [], []
+        zero_counts(tables)
+        layers.REGION_TRACE = []
+        try:
+            with recorded(dec_ops, "decode_attention_partials", dcalls,
+                          keep=1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i, nxt in enumerate(feed):
+                    lg, cache_d = model_mod.decode_step(
+                        cfg, sharded, distribute_tensor(
+                            nxt, mesh, [Replicate(), Replicate()],
+                            src_data_rank=None), cache_d, MESH_PREFILL_T + i)
+                    dec_got.append(layers.all_gather(
+                        lg.to_local(), 1, mesh.get_group("model")).cpu())
+                torch.cuda.synchronize()
+                dsecs = time.perf_counter() - t0
+            dregions = sorted({(n, tuple(sorted(i.items())))
+                               for n, i in layers.REGION_TRACE})
+        finally:
+            layers.REGION_TRACE = None
+        args, kw, o = dcalls[0]
+        out[str(dtype)[6:]]["decode"] = {
+            "seconds": dsecs, "launches": read_counts(tables),
+            "regions": dregions, "logits": dec_got,
+            "want": want_dec if rank == 0 else None,
+            "call": (tuple(a.cpu() if hasattr(a, "cpu") else a
+                           for a in args), kw, tuple(x.cpu() for x in o))}
+        del sharded, cache_d
         torch.cuda.empty_cache()
     return out
 
@@ -3521,7 +3646,13 @@ def mesh_prefill(torch, dev, tables):
        every row-split product to bf16 before the sum, another order of
        bf16 roundings, as the kernel-vs-plain paths are held); the greedy
        tokens compared; each rank's first B9 launch replayed here against
-       the plain version (``attn_replay``).
+       the plain version (``attn_replay``).  Then MESH_DECODE_NEW decode
+       steps with the cache split over the sequence (each rank its half of
+       the ring): B10's partials mode once a layer a step, attention
+       through the ``decode_attention`` region only (no ``run_on_rows``),
+       the logits held against the unsharded decode within the prefill's
+       bounds, the greedy tokens compared, and each rank's first partials
+       launch replayed against the plain partials.
     2. B9 at the local heads of every head-parallel config at the
        production mesh (``local_head_shapes``: 1 x LOCAL_HEADS_T tokens,
        seeded operands, bf16) against the plain version."""
@@ -3537,7 +3668,14 @@ def mesh_prefill(torch, dev, tables):
     paths, errs, cases, report = {}, {}, [], {}
     h_loc = cfg.n_heads // 2
     regions = [("attention", (("heads", h_loc), ("kv_heads", h_loc))),
-               ("embed", (("vocab_rows", cfg.vocab // 2),))]
+               ("dense", (("ff", cfg.d_ff // 2),)),
+               ("embed", (("vocab_rows", cfg.vocab // 2),)), ("norm", ())]
+    ring = MESH_PREFILL_T + MESH_DECODE_NEW
+    dec_regions = [sorted([
+        ("decode_attention", (("heads", cfg.n_heads), ("seq_block", blk))),
+        ("dense", (("ff", cfg.d_ff // 2),)),
+        ("embed", (("vocab_rows", cfg.vocab // 2),)), ("norm", ())])
+        for blk in (-(-ring // 2), ring - -(-ring // 2))]
     for dt in ("float32", "bfloat16"):
         want = ranks[0][dt]["want"]
         for r in ranks:
@@ -3566,6 +3704,32 @@ def mesh_prefill(torch, dev, tables):
             errs[case[0]] = err
             cases.append(case + (f"prefill_two_ranks[{dt} rank "
                                  f"{r['rank']}]",))
+            dec = got["decode"]
+            path = f"decode_two_ranks[{dt} rank {r['rank']}]"
+            require_launches(f"mesh decode (1, 2) {dt} rank {r['rank']}",
+                             dec["launches"], {"decode_attention_partials":
+                                               cfg.n_layers * MESH_DECODE_NEW})
+            paths[path] = dec["launches"]
+            if dec["regions"] != dec_regions[r["rank"]]:
+                raise Mismatch(f"mesh decode {dt} rank {r['rank']}: regions "
+                               f"{dec['regions']}, expected "
+                               f"{dec_regions[r['rank']]}")
+            for i, (lg, w) in enumerate(zip(dec["logits"],
+                                            ranks[0][dt]["decode"]["want"])):
+                name = (f"mesh decode (1, 2) {dt} rank {r['rank']} step {i}: "
+                        f"logits vs the unsharded decode")
+                if dt == "float32":
+                    check(name, float((lg - w).abs().max()), attn_tol(w))
+                else:
+                    _tol_share(name, lg.float(), w.float(), LM_LOGIT_TOL)
+            args, kw, out = dec["call"]
+            err, case = attn_replay(
+                torch, f"mesh decode (1, 2) rank {r['rank']}", "first launch",
+                "decode_attention_partials",
+                (tuple(a.to(dev) if hasattr(a, "to") else a for a in args),
+                 kw, tuple(x.to(dev) for x in out)))
+            errs[case[0]] = err
+            cases.append(case + (path,))
         if not torch.equal(ranks[0][dt]["logits"], ranks[1][dt]["logits"]):
             raise Mismatch(f"mesh prefill {dt}: the two ranks' logits "
                            f"differ")
@@ -3575,7 +3739,22 @@ def mesh_prefill(torch, dev, tables):
                                           - want.float()).abs().max()),
             "max_abs_logit": float(want.float().abs().max()),
             "greedy_equal": int((ranks[0][dt]["logits"].argmax(-1)
-                                 == want.argmax(-1)).sum())}
+                                 == want.argmax(-1)).sum()),
+            "decode": {
+                "steps": MESH_DECODE_NEW, "ring": ring,
+                "seconds": [r[dt]["decode"]["seconds"] for r in ranks],
+                "logits_max_abs_diff": max(
+                    float((g.float() - w.float()).abs().max())
+                    for r in ranks for g, w in zip(
+                        r[dt]["decode"]["logits"],
+                        ranks[0][dt]["decode"]["want"])),
+                "max_abs_logit": max(float(w.float().abs().max()) for w in
+                                     ranks[0][dt]["decode"]["want"]),
+                "greedy_equal": sum(int((g.argmax(-1) == w.argmax(-1)).sum())
+                                    for g, w in zip(
+                                        ranks[0][dt]["decode"]["logits"],
+                                        ranks[0][dt]["decode"]["want"])),
+                "greedy_of": MESH_DECODE_NEW * MESH_PREFILL_B}}
     gen = torch.Generator(device=dev).manual_seed(SEED)
     for arch, h, hk, d, kind in local_head_shapes():
         q = torch.randn(1, LOCAL_HEADS_T, h, d, generator=gen, device=dev,
@@ -3595,7 +3774,8 @@ def mesh_prefill(torch, dev, tables):
           "devices": [r["device"] for r in ranks],
           "regions": [n for n, _ in regions], **report,
           "local_head_shapes": local_head_shapes(),
-          "seconds": time.perf_counter() - t0})
+          "seconds": time.perf_counter() - t0,
+          "earlier_seconds": MESH_PREFILL_BEFORE_S})
     return paths, errs, cases
 
 
@@ -5200,6 +5380,12 @@ def main() -> int:
 
     prefill_paths, prefill_errs, prefill_cases = mesh_prefill(torch, dev,
                                                               tables)
+    # the kernels line's row of B10's partials mode: rank 0's first bf16
+    # launch of the split decode, one rank's half of the ring
+    partials_case = next(c for c in prefill_cases
+                         if c[2] == "decode_attention_partials"
+                         and c[-1] == "decode_two_ranks[bfloat16 rank 0]")
+    errs["decode_attention_partials"] = prefill_errs[partials_case[0]]
     emit({"phase": "mesh_prefill_launches", "per_path": prefill_paths})
     launches = {name: n + sum(c.get(name, 0) for c in prefill_paths.values())
                 for name, n in launches.items()}
@@ -5289,6 +5475,7 @@ def main() -> int:
             bound(f32 * (n_t * n_t + 6 * f_t * n_t * p_t),
                   cd_ops_count // s_t)),
     })
+    timing["decode_attention_partials"] = partials_case[3:7]
     lm_rows = []
     for label, kern, plain, lib, b in lm_timing_cases(torch, dev, lm_cfg):
         long_ctx = "B=" in label

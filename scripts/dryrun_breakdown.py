@@ -3,6 +3,8 @@
 
     PYTHONPATH=src python3 scripts/dryrun_breakdown.py --arch stablelm-1.6b --shape train_4k
         [--mesh single|multi] [--layers N] [--top 12]
+    PYTHONPATH=src python3 scripts/dryrun_breakdown.py --arch stablelm-1.6b --shape decode_32k
+    PYTHONPATH=src python3 scripts/dryrun_breakdown.py --arch qwen3-moe-235b-a22b --shape train_4k --layers 2 --plain-loop
 
 Runs the cell as ``python -m repro_torch.launch.dryrun`` does (rank 0 of
 a fake process group, fake tensors, ``launch.op_cost.CostMode``) and files
@@ -11,10 +13,18 @@ each counted op under:
   * its call site: the innermost frame in ``repro_torch/models`` or
     ``repro_torch/train`` (backward ops land on ``lm_trainer``'s
     ``autograd.grad`` line, a recomputed forward on its own lines);
-  * the issuer of each collective: ``region`` (the c10d collectives of
-    ``models.layers.Region``), ``dtensor:<op>`` (a DTensor sharding plan
-    of that aten op, or ``dtensor:redistribute`` for an explicit
+  * the issuer of each collective: ``region:<function>`` (the c10d
+    collectives of ``models.layers.Region``, by the model function that
+    issued them: ``_decode_split`` and ``merge_partials`` are the decode
+    attention's, ``glu_mlp_region`` the dense MLP's, ``backward`` the
+    duals autograd runs), ``dtensor:<op>`` (a DTensor sharding plan of
+    that aten op, or ``dtensor:redistribute`` for an explicit
     redistribution), else ``other``.
+
+``--plain-loop`` runs the MoE's chunk loop trip by trip under the meter
+(``models.layers.scan_override(None)``), as the model runs it, in place
+of the meter's count of it as a scan (``op_cost.loop_trips``): the two
+counts should be equal.
 
 Prints one JSON line: the cell's totals, the seconds the step took to
 trace (``trace_s``, this counting included), the ``--top`` call sites by
@@ -37,6 +47,11 @@ from repro_torch.launch import dryrun, op_cost  # noqa: E402
 from repro_torch.launch import shapes as shapes_mod  # noqa: E402
 
 _REGION = {"_gather_dim", "_scatter_dim", "_reduce"}
+# layers.py's collective plumbing, skipped when naming a region's issuer
+_PLUMBING = _REGION | {"forward", "backward", "apply", "all_gather",
+                       "all_reduce", "all_reduce_max", "all_reduce_sum_grad",
+                       "act", "out", "weight", "weights", "gather_rows",
+                       "<lambda>", "<listcomp>", "<dictcomp>", "tree_map"}
 _REDISTRIBUTE = {"redistribute_local_tensor", "redistribute"}
 
 
@@ -56,7 +71,11 @@ def _issuer() -> str:
     for f in frames:
         if f.f_code.co_name in _REGION and f.f_code.co_filename.endswith(
                 "models/layers.py"):
-            return "region"
+            for g in frames:
+                if ("repro_torch/models" in g.f_code.co_filename.replace(
+                        "\\", "/") and g.f_code.co_name not in _PLUMBING):
+                    return f"region:{g.f_code.co_name}"
+            return "region:backward"
     for f in frames:                   # the aten op DTensor was planning
         op = f.f_locals.get("op_call")
         if op is not None:
@@ -75,6 +94,8 @@ def main() -> int:
     ap.add_argument("--mesh", default="single", choices=list(dryrun.MESHES))
     ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--plain-loop", action="store_true",
+                    help="trace the MoE chunk loop trip by trip")
     args = ap.parse_args()
 
     flops = collections.Counter()
@@ -99,13 +120,22 @@ def main() -> int:
     overrides = {} if args.layers is None else {"n_layers": args.layers}
     spec = shapes_mod.input_specs(args.arch, args.shape, mesh,
                                   overrides=overrides)
+    step = dryrun.build_step_fn(spec)
+    if args.plain_loop:
+        from repro_torch.models import layers
+        scan_step = step
+
+        def step(*a):
+            with layers.scan_override(None):
+                return scan_step(*a)
     t0 = time.time()
-    _, _, cm = dryrun._run(dryrun.build_step_fn(spec), spec["args"], mesh)
+    _, _, cm = dryrun._run(step, spec["args"], mesh)
     trace_s = time.time() - t0
     print(json.dumps({
         "arch": args.arch, "shape": args.shape, "mesh": mesh_name,
-        "n_layers": spec["cfg"].n_layers, "trace_s": trace_s,
-        "flops": cm.cost.flops,
+        "n_layers": spec["cfg"].n_layers, "plain_loop": args.plain_loop,
+        "trace_s": trace_s, "flops": cm.cost.flops,
+        "bytes": cm.cost.bytes,
         "collective_bytes": dict(cm.collective_bytes),
         "flops_by_site": dict(flops.most_common(args.top)),
         "collective_bytes_by_issuer": dict(coll.most_common()),

@@ -39,12 +39,24 @@ times only B3 at the serving wave's shape for banks of B3_PATH_P columns,
 each through the plan's choice and with each copy path forced
 (``BULK_BANK_WAYS`` 0: per-thread copies; 32: the TMA spans wherever the
 tile allows them), and prints one JSON line.
+
+    python3 scripts/kernel_turns.py --root . --b10
+
+builds only B10, and only where its library is missing or stale, and
+times only its rows (the three B10_ROWS shapes with bf16 and int8
+caches, SDPA beside the bf16 ones), each with the digest of its output
+bytes, and prints one JSON line: quick turns for B10 alone, run again
+and again in turns.  Where it built, the line also holds ``ptxas``:
+ptxas's registers, stack and spills of each B10 instance at D 64 with a
+bf16 query and cache and G 1 (the B10_ROWS' bf16 instances), by heads a
+block and path.
 """
 from __future__ import annotations
 
 import argparse
 import hashlib
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -140,12 +152,74 @@ def decode_steps(torch, dev) -> dict:
     return out
 
 
+def b10_rows(torch, gen, dev, rows: dict, digests: dict) -> None:
+    """B10 at B10_ROWS with bf16 and int8 caches (SDPA beside the bf16
+    rows), each with the digest of its output."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.models.attention import quantize_kv
+    hk, d = 32, 64
+    for name, b, n_keys in B10_ROWS:
+        q = torch.randn(b, hk, 1, d, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        kc, vc = (torch.randn(b, n_keys, hk, d, generator=gen, device=dev,
+                              dtype=torch.bfloat16) for _ in range(2))
+        iters = 50 if n_keys < 1000 else 10
+        rows[name] = cuda_ms(torch, lambda: dec_ops.decode_attention_fused(
+            q, kc, vc, n_keys - 1, d ** -0.5), iters)
+        digests[name] = digest(dec_ops.decode_attention_fused(
+            q, kc, vc, n_keys - 1, d ** -0.5).float())
+        kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
+        rows[name + "[sdpa]"] = cuda_ms(
+            torch, lambda: F.scaled_dot_product_attention(q, kt, vt), iters)
+        del kt, vt
+        (k8, ks), (v8, vs) = quantize_kv(kc), quantize_kv(vc)
+        del kc, vc
+        label = name[:-1] + ",int8]" if "[" in name else name + "[int8]"
+        rows[label] = cuda_ms(torch, lambda: dec_ops.decode_attention_fused(
+            q, k8, v8, n_keys - 1, d ** -0.5, ks, vs), iters)
+        digests[label] = digest(dec_ops.decode_attention_fused(
+            q, k8, v8, n_keys - 1, d ** -0.5, ks, vs).float())
+        del k8, v8, ks, vs
+        torch.cuda.empty_cache()
+
+
+# decode_fwd_kernel<bf16, bf16, D 64, G 1, HB, DIRECT>, mangled (in an
+# anonymous namespace: the second bf16 a back reference)
+B10_BF16_D64_G1 = re.compile(
+    r"decode_fwd_kernelI13__nv_bfloat16S\d*_Li64ELi1ELi(\d+)ELb([01])E")
+
+
+def b10_ptxas(log: str) -> dict:
+    """{"HB <h>, direct|ring": "<registers>; <stack and spill line>"} of
+    the B10 instances B10_BF16_D64_G1 matches, from an ``-Xptxas -v``
+    log."""
+    out, key = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            hit = B10_BF16_D64_G1.search(m.group(1))
+            key = (f"HB {hit.group(1)}, "
+                   f"{'direct' if hit.group(2) == '1' else 'ring'}"
+                   if hit else None)
+            continue
+        if key is None:
+            continue
+        if "stack frame" in line or "Used" in line:
+            out[key] = "; ".join(filter(None, (
+                out.get(key), line.split(" : ", 1)[-1].strip())))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=".", help="checkout whose src/ to time")
     ap.add_argument("--label", default="")
     ap.add_argument("--b3-paths", action="store_true",
                     help="time only B3's copy paths at the serving wave")
+    ap.add_argument("--b10", action="store_true",
+                    help="build and time only B10's rows, with digests")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -156,12 +230,14 @@ def main() -> int:
     from repro_torch.kernels.assign import ops as as_ops
     from repro_torch.kernels.cd_solver import ops as cd_ops
     from repro_torch.kernels.svm_predict import ops as sp_ops
-    from repro_torch.kernels.decode_attention import ops as dec_ops
-    from repro_torch.models.attention import quantize_kv
-    import torch.nn.functional as F
 
-    runtime.build(("kernel_matrix", "cd_solver", "decode_attention",
-                   "svm_predict", "assign"))
+    ptxas = None
+    if not args.b10:
+        runtime.build(("kernel_matrix", "cd_solver", "decode_attention",
+                       "svm_predict", "assign"))
+    elif runtime._stale("decode_attention"):
+        ptxas = b10_ptxas(runtime.build(("decode_attention",))
+                          ["decode_attention"]["log"])
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     rows, digests = {}, {}
@@ -192,6 +268,11 @@ def main() -> int:
         print(json.dumps({"label": args.label, "card": card(), "ms": rows}))
         return 0
 
+    if args.b10:
+        b10_rows(torch, gen, dev, rows, digests)
+        print(json.dumps({"label": args.label, "card": card(), "ms": rows,
+                          "digests": digests, "ptxas": ptxas}))
+        return 0
     d2_rows(torch, gen, dev, rows, digests)
     for name, (c, m, k, d, p) in (("svm_predict_cells", (256, 8, 2048, 54, 7)),
                                   ("svm_predict_cells[LM head]", LM_HEAD)):
@@ -228,27 +309,7 @@ def main() -> int:
                                5, 1)
     del k, lo, hi, c, g, one
 
-    hk, d = 32, 64
-    for name, b, n_keys in B10_ROWS:
-        q = torch.randn(b, hk, 1, d, generator=gen, device=dev,
-                        dtype=torch.bfloat16)
-        kc, vc = (torch.randn(b, n_keys, hk, d, generator=gen, device=dev,
-                              dtype=torch.bfloat16) for _ in range(2))
-        iters = 50 if n_keys < 1000 else 10
-        rows[name] = cuda_ms(torch, lambda: dec_ops.decode_attention_fused(
-            q, kc, vc, n_keys - 1, d ** -0.5), iters)
-        kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
-        rows[name + "[sdpa]"] = cuda_ms(
-            torch, lambda: F.scaled_dot_product_attention(q, kt, vt), iters)
-        del kt, vt
-        (k8, ks), (v8, vs) = quantize_kv(kc), quantize_kv(vc)
-        del kc, vc
-        rows[name[:-1] + ",int8]" if "[" in name else name + "[int8]"] = \
-            cuda_ms(torch, lambda: dec_ops.decode_attention_fused(
-                q, k8, v8, n_keys - 1, d ** -0.5, ks, vs), iters)
-        del k8, v8, ks, vs
-        torch.cuda.empty_cache()
-
+    b10_rows(torch, gen, dev, rows, digests)
     decode = decode_steps(torch, dev)
     print(json.dumps({"label": args.label, "card": card(), "ms": rows,
                       "digests": digests, "decode_ms_per_step": decode}))

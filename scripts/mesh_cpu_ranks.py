@@ -9,13 +9,14 @@ ranks on one host; one train step of each case of its ``STEPS`` in f32 on
 a ``("data", "model")`` mesh, activations sharded: qwen3-moe on (4, 2)
 and (2, 4), stablelm-1.6b with FSDP specs and recomputed periods at
 vocabularies 503 and 512, gemma3-4b at vocabulary 1024 and with its heads
-over 8 ranks; then ``Trainer(mesh=...)`` 3 steps on (4, 2) with a
+over 8 ranks, jamba and rwkv6 on (4, 2); then ``Trainer(mesh=...)`` 3 steps on (4, 2) with a
 checkpoint, restored and run 2 more steps on (2, 4) and on (4, 2)), and
 holds it to the test's bounds against the port's own unsharded runs on
 the same weights and batches: loss within 2e-4 and parameters within 5e-3
 of the unsharded step, the gradient norm within 1e-5 relative, every rank
-equal, every new parameter on its template's placements and the regions
-that ran on local shards those the test expects; the elastic run within 1e-4
+equal, every new parameter on its template's placements, the regions
+that ran on local shards those the test expects, and no op of a layer's
+forward with a DTensor operand (none planned by DTensor); the elastic run within 1e-4
 of the same-mesh run; ``Trainer`` on the mesh within 2e-4 / 5e-3 of the
 unsharded ``Trainer``.  The test also holds these runs against the JAX
 package; this script imports no JAX, so it runs where only torch is
@@ -87,7 +88,7 @@ def main() -> int:
            "ranks": WORLD, "backend": "gloo", "cpus": os.cpu_count()}
     ok = True
     for arch in sorted(lm_mesh.STEPS):
-        loss, gnorm, params, placed, _ = outs[0][arch]
+        loss, gnorm, params, placed, _, _ = outs[0][arch]
         d_loss = abs(loss - local[arch][0])
         worst = lm_mesh._worst(params, local[arch][2])
         d_norm = abs(gnorm - local[arch][1]) / local[arch][1]
@@ -97,14 +98,16 @@ def main() -> int:
         every_placed = all(o[arch][3] for o in outs)
         regions = all(o[arch][4] == lm_mesh.expected_regions(arch)
                       for o in outs)
+        planned = sorted({op for o in outs for op in o[arch][5]})
         res[arch] = {"mesh": list(lm_mesh.STEPS[arch][2]), "loss": loss,
                      "loss_diff": d_loss, "max_param_diff": worst,
                      "grad_norm_rel_diff": d_norm, "ranks_equal": same,
                      "placements": every_placed,
                      "regions": sorted(n for n, _ in outs[0][arch][4]),
-                     "regions_as_expected": regions}
+                     "regions_as_expected": regions,
+                     "dtensor_planned_ops": planned}
         ok &= (d_loss < 2e-4 and worst < 5e-3 and d_norm <= 1e-5 and same
-               and every_placed and regions)
+               and every_placed and regions and not planned)
     e = outs[0]["elastic"]
     (le, pe), (ls, ps) = e["elastic"], e["same"]
     worst_e = lm_mesh._worst(pe, ps)

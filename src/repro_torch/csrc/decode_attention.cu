@@ -59,6 +59,11 @@
 //     ticket (atomicAdd) picks the block that arrives last; it merges the
 //     partials in split order, so the output is the same bits whatever the
 //     arrival order, and resets its ticket to 0 for the next call.
+//   * The partials mode (flash-decoding over a cache split over the
+//     sequence): the same launch on one block of the ring writes its output
+//     in f32 (po) and the log-sum-exp of its keys' logits (plse, m + log l)
+//     instead of o, so the caller can merge the blocks; the default mode's
+//     arithmetic and stores are unchanged.
 //   The reference's -1e30 for masked logits and the 1e-30 floor on the sum
 //   stay.  expf and IEEE division, no fast math.
 //   Tried on the card and slower: a ring at the LM path's step (depth 1 to
@@ -196,6 +201,11 @@ __device__ __forceinline__ void to_float(const int8_t* p, float* out) {
   }
 }
 
+// the log-sum-exp of no key
+__device__ __forceinline__ float neg_inf() {
+  return -__int_as_float(0x7f800000);
+}
+
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
@@ -276,6 +286,7 @@ __global__ void __launch_bounds__(THREADS)
 decode_fwd_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
                   const CT* __restrict__ vc, const float* __restrict__ ksc,
                   const float* __restrict__ vsc, QT* __restrict__ o,
+                  float* __restrict__ po, float* __restrict__ plse,
                   float* __restrict__ ws, int* __restrict__ cnt, int S, int Hk,
                   int ng, int s0, int nvis, int chunk, int nst, float scale) {
   using T = Tile<CT, D, G, HB>;
@@ -468,6 +479,17 @@ decode_fwd_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
     wt[i] = expf(ms[i] - mg[(i / G) % HB * G + i % G]);
   __syncthreads();
   float* wsb = ws + ((size_t)b * ng + gsl) * Hk * nsp * G * (D + 2);
+  // element d of output row r = (b, head, slice, g): normalised in q's
+  // type, or (partials mode) in f32 with the row's log-sum-exp mx + log l
+  auto put = [&](size_t r, int d, float out, float lsum, float mx) {
+    const float val = out / fmaxf(lsum, 1e-30f);
+    if (po == nullptr) {
+      store1(o + r * D + d, val);
+    } else {
+      po[r * D + d] = val;
+      if (d == 0) plse[r] = lsum > 0.f ? mx + logf(lsum) : neg_inf();
+    }
+  };
   for (int i = tid; i < HB * G * D; i += THREADS) {
     const int h = i / (G * D), g = i / D % G, d = i % D;
     float lsum = 0.f, out = 0.f;
@@ -479,8 +501,8 @@ decode_fwd_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
     }
     const int hk = hk0 + h;
     if (nsp == 1) {
-      store1(o + ((((size_t)b * Hk + hk) * ng + gsl) * G + g) * D + d,
-             out / fmaxf(lsum, 1e-30f));
+      put(((((size_t)b * Hk + hk) * ng + gsl) * G + g), d, out, lsum,
+          mg[h * G + g]);
     } else {                  // partial of (b, hk), split sp
       float* wp = wsb + ((size_t)hk * nsp + sp) * G * (D + 2) + g * (D + 2);
       wp[d] = out;
@@ -525,15 +547,16 @@ decode_fwd_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
       lsum = fmaf(__ldcg(pj + D + 1), w, lsum);
       out = fmaf(__ldcg(pj + d), w, out);
     }
-    store1(o + ((((size_t)b * Hk + hk0 + h) * ng + gsl) * G + g) * D + d,
-           out / fmaxf(lsum, 1e-30f));
+    put(((((size_t)b * Hk + hk0 + h) * ng + gsl) * G + g), d, out, lsum,
+        mg[h * G + g]);
   }
   if (tid == 0) cnt[pair] = 0;
 }
 
 template <typename QT, typename CT, int D, int G, int HB, bool DIRECT>
 cudaError_t run(const void* q, const void* k, const void* v, const float* ks,
-                const float* vs, void* o, float* ws, int* cnt, int B, int S,
+                const float* vs, void* o, float* po, float* plse, float* ws,
+                int* cnt, int B, int S,
                 int Hk, int ng, int s0, int nvis, int nsplit, int chunk,
                 int nst, int smem, int smem_max, float scale,
                 cudaStream_t st) {
@@ -551,14 +574,16 @@ cudaError_t run(const void* q, const void* k, const void* v, const float* ks,
   decode_fwd_kernel<QT, CT, D, G, HB, DIRECT>
       <<<dim3(Hk / HB * ng, B, nsplit), THREADS, smem, st>>>(
           static_cast<const QT*>(q), static_cast<const CT*>(k),
-          static_cast<const CT*>(v), ks, vs, static_cast<QT*>(o), ws, cnt, S,
+          static_cast<const CT*>(v), ks, vs, static_cast<QT*>(o), po, plse, ws,
+          cnt, S,
           Hk, ng, s0, nvis, chunk, nst, scale);
   return cudaGetLastError();
 }
 
 template <typename QT, typename CT, int D, int G, int HB>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* ks,
-                   const float* vs, void* o, float* ws, int* cnt, int B, int S,
+                   const float* vs, void* o, float* po, float* plse, float* ws,
+                   int* cnt, int B, int S,
                    int Hk, int ng, int s0, int nvis, int nsplit, int chunk,
                    float scale, cudaStream_t st) {
   using T = Tile<CT, D, G, HB>;
@@ -568,24 +593,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* ks,
   const int nt = (chunk + T::TK - 1) / T::TK;
   if constexpr (!T::QUANT && HB == 1) {
     if (nsplit == 1 && nt <= NST_MAX)
-      return run<QT, CT, D, G, HB, true>(q, k, v, ks, vs, o, ws, cnt, B, S,
+      return run<QT, CT, D, G, HB, true>(q, k, v, ks, vs, o, po, plse, ws,
+                                         cnt, B, S,
                                          Hk, ng, s0, nvis, nsplit, chunk, 0,
                                          T::MERGE, T::MERGE, scale, st);
   }
   const int nst = nt <= NST_MAX ? max(nt, 1) : 2;
   return run<QT, CT, D, G, HB, false>(
-      q, k, v, ks, vs, o, ws, cnt, B, S, Hk, ng, s0, nvis, nsplit, chunk,
-      nst, max(nst * T::STG, T::MERGE), max(NST_MAX * T::STG, T::MERGE), scale,
-      st);
+      q, k, v, ks, vs, o, po, plse, ws, cnt, B, S, Hk, ng, s0, nvis, nsplit,
+      chunk, nst, max(nst * T::STG, T::MERGE),
+      max(NST_MAX * T::STG, T::MERGE), scale, st);
 }
 
-#define DEC_ARGS q, k, v, ks, vs, o, ws, cnt, B, S, Hk, ng, s0, nvis, \
-                 nsplit, chunk, scale, st
+#define DEC_ARGS q, k, v, ks, vs, o, po, plse, ws, cnt, B, S, Hk, ng, s0, \
+                 nvis, nsplit, chunk, scale, st
 
 template <typename QT, typename CT, int D, int HB>
 cudaError_t dispatch_g(int G, const void* q, const void* k, const void* v,
-                       const float* ks, const float* vs, void* o, float* ws,
-                       int* cnt, int B, int S, int Hk, int ng, int s0,
+                       const float* ks, const float* vs, void* o, float* po,
+                       float* plse, float* ws, int* cnt, int B, int S, int Hk,
+                       int ng, int s0,
                        int nvis, int nsplit, int chunk, float scale,
                        cudaStream_t st) {
   switch (G) {
@@ -603,7 +630,8 @@ cudaError_t dispatch_g(int G, const void* q, const void* k, const void* v,
 template <int D>
 cudaError_t dispatch_one(int q_dtype, int cache_int8, const void* q,
                          const void* k, const void* v, const float* ks,
-                         const float* vs, void* o, float* ws, int* cnt, int G,
+                         const float* vs, void* o, float* po, float* plse,
+                         float* ws, int* cnt, int G,
                          int B, int S, int Hk, int ng, int s0, int nvis,
                          int nsplit, int chunk, float scale, cudaStream_t st) {
   using BF = __nv_bfloat16;
@@ -618,8 +646,9 @@ cudaError_t dispatch_one(int q_dtype, int cache_int8, const void* q,
 template <int D>
 cudaError_t dispatch_multi(int cache_int8, int heads, const void* q,
                            const void* k, const void* v, const float* ks,
-                           const float* vs, void* o, float* ws, int* cnt,
-                           int G, int B, int S, int Hk, int ng, int s0,
+                           const float* vs, void* o, float* po,
+                           float* plse, float* ws, int* cnt, int G, int B,
+                           int S, int Hk, int ng, int s0,
                            int nvis, int nsplit, int chunk, float scale,
                            cudaStream_t st) {
   using BF = __nv_bfloat16;
@@ -642,11 +671,12 @@ cudaError_t dispatch_multi(int cache_int8, int heads, const void* q,
 #endif
 #define DIM_PARAMS                                                            \
   const void *q, const void *k, const void *v, const float *ks,               \
-      const float *vs, void *o, float *ws, int *cnt, int G, int B, int S,      \
+      const float *vs, void *o, float *po, float *plse, float *ws, int *cnt,   \
+      int G, int B, int S,                                                     \
       int Hk, int ng, int s0, int nvis, int nsplit, int chunk, float scale,    \
       cudaStream_t st
-#define DIM_ARGS q, k, v, ks, vs, o, ws, cnt, G, B, S, Hk, ng, s0, nvis, \
-                 nsplit, chunk, scale, st
+#define DIM_ARGS q, k, v, ks, vs, o, po, plse, ws, cnt, G, B, S, Hk, ng, s0, \
+                 nvis, nsplit, chunk, scale, st
 #define DIM_DECL(D) \
   cudaError_t dim_##D(int q_dtype, int cache_int8, DIM_PARAMS);
 #define DIM_DEF(D)                                                       \
@@ -703,12 +733,16 @@ DIM_DEF(256)
 // ring positions s0, s0 + 1, .. (mod S), nvis of them, cut into nsplit
 // runs of chunk keys (the last may be shorter, none empty).  heads: kv
 // heads a block (1; 2 or 4 with an int8 cache, 2 with a bf16 one, for bf16
-// queries, D 16 or 64 and Hk a multiple).  nsplit > 1 needs
+// queries, D 16 or 64 and Hk a multiple).  Partials mode: out_f32 (q's
+// shape, f32) and lse (B, Hk, ng G, f32) non-null take the output
+// normalised over these keys and their log-sum-exp, and o is not written
+// (it may be null).  nsplit > 1 needs
 // ws (B ng Hk nsplit G (D + 2) floats, no initial value) and cnt (B ng Hk /
 // heads ints, zero; left zero); nsplit <= 64.  Returns cudaGetLastError().
 extern "C" int decode_attention_fwd(const void* q, const void* k,
                                     const void* v, const void* k_scale,
-                                    const void* v_scale, void* o, void* ws_,
+                                    const void* v_scale, void* o,
+                                    void* out_f32, void* lse, void* ws_,
                                     void* cnt_, int B, int S, int Hk, int G,
                                     int ng, int D, int q_dtype, int cache_int8,
                                     int heads, int s0, int nvis, int nsplit,
@@ -718,6 +752,9 @@ extern "C" int decode_attention_fwd(const void* q, const void* k,
   const float* vs = static_cast<const float*>(v_scale);
   float* ws = static_cast<float*>(ws_);
   int* cnt = static_cast<int*>(cnt_);
+  float* po = static_cast<float*>(out_f32);
+  float* plse = static_cast<float*>(lse);
+  if ((po == nullptr) != (plse == nullptr)) return (int)cudaErrorInvalidValue;
   if (nsplit < 1 || nsplit > SPLIT_MAX || G > G_MAX || ng < 1 || heads < 1 ||
       Hk % heads || (heads > 1 && ((D != 16 && D != 64) || q_dtype == 0)) ||
       (heads == 4 && !cache_int8) || heads > 4 || heads == 3)

@@ -13,6 +13,12 @@ one device must not overlap on two streams).  A group of query heads the
 kernel has no instance of runs as consecutive slices of it, each slice
 its own blocks of the one launch (:func:`group_slices`: 16 as two slices
 of 8).  ``launches`` counts kernel launches.
+
+The partials mode (:func:`decode_attention_partials`, the flash-decoding
+split of a cache over the sequence) runs the same kernel on one block of
+the ring and returns its output in f32, normalised over the block's
+visible keys, with their log-sum-exp; the caller merges the blocks.  Its
+launches count apart, as ``decode_attention_partials``.
 """
 from __future__ import annotations
 
@@ -38,7 +44,8 @@ SPLIT_MIN_KEYS = 256            # keys a split streams at least
 BLOCKS_PER_SM = 4               # resident blocks an SM a split aims for
 LONG_KEYS = 4096                # visible keys from which a run is "long"
 
-launches: Dict[str, int] = {"decode_attention": 0}
+launches: Dict[str, int] = {"decode_attention": 0,
+                             "decode_attention_partials": 0}
 _tickets: Dict[int, torch.Tensor] = {}   # device index -> zeroed int32
 
 
@@ -46,9 +53,9 @@ def _lib() -> ctypes.CDLL:
     lib = runtime.library("decode_attention")
     if not getattr(lib, "_bound", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.decode_attention_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
-                                             i, i, i, i, i, i, i, i, i, i, f,
-                                             p]
+        lib.decode_attention_fwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i,
+                                             i, i, i, i, i, i, i, i, i, i, i,
+                                             i, f, p]
         lib.decode_attention_fwd.restype = i
         lib._bound = True
     return lib
@@ -64,6 +71,27 @@ def visible_range(s: int, pos: int, window: int = 0) -> Tuple[int, int]:
     if window <= 0 or window >= s:
         return 0, s
     return (pos - window + 1) % s, window
+
+
+def block_visible_range(s_total: int, pos: int, window: int, lo: int,
+                        n: int) -> Tuple[int, int]:
+    """The visible keys of a ring of ``s_total`` (:func:`visible_range`)
+    that lie in the block [lo, lo + n) of it, as one run of the block's
+    own positions: key (s0 + j) mod n for j < nvis (nvis 0: none).  The
+    run of the ring meets the block in at most two pieces, and then they
+    touch the block's two ends, so they join into one run modulo n."""
+    g0, nv = visible_range(s_total, pos, window)
+    pieces = []
+    for a, b in ((g0, min(g0 + nv, s_total)), (0, g0 + nv - s_total)):
+        a, b = max(a, lo), min(b, lo + n)
+        if a < b:
+            pieces.append((a - lo, b - lo))
+    if not pieces:
+        return 0, 0
+    if len(pieces) == 1:
+        return pieces[0][0], pieces[0][1] - pieces[0][0]
+    (a1, b1), (a2, b2) = pieces            # [a1, n) and then [0, b2)
+    return a1, (b1 - a1) + (b2 - a2)
 
 
 def heads_per_block(b: int, hk: int, d: int, cache: torch.dtype,
@@ -115,14 +143,8 @@ def _ticket_counters(device: torch.device, pairs: int) -> torch.Tensor:
     return buf
 
 
-def decode_attention_fused(q: torch.Tensor, k_cache: torch.Tensor,
-                           v_cache: torch.Tensor, cache_pos: int,
-                           scale: float,
-                           k_scale: Optional[torch.Tensor] = None,
-                           v_scale: Optional[torch.Tensor] = None,
-                           window: int = 0) -> torch.Tensor:
-    """q (B, Hk, G, D); caches (B, S, Hk, D) in q's dtype, or int8 with f32
-    scales (B, S, Hk, 1).  Returns (B, Hk, G, D) in q's dtype."""
+def _check(q, k_cache, v_cache, k_scale, v_scale, caller: str) -> bool:
+    """Operand checks of both modes; returns whether the cache is int8."""
     runtime.check_tensor("q", q, tuple(_Q_DTYPES), ndim=4)
     b, hk, g, d = q.shape
     s = k_cache.shape[1] if k_cache.dim() == 4 else -1
@@ -130,40 +152,41 @@ def decode_attention_fused(q: torch.Tensor, k_cache: torch.Tensor,
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         runtime.check_tensor(name, t, (q.dtype, torch.int8), ndim=4)
         if t.shape != (b, s, hk, d) or t.dtype != k_cache.dtype:
-            raise ValueError(f"decode_attention_fused: q {tuple(q.shape)}, "
+            raise ValueError(f"{caller}: q {tuple(q.shape)}, "
                              f"{name} {tuple(t.shape)} {t.dtype} disagree")
     if quant != (k_scale is not None) or (k_scale is None) != (v_scale is None):
-        raise ValueError("decode_attention_fused: an int8 cache needs both "
+        raise ValueError(f"{caller}: an int8 cache needs both "
                          "scales, and only an int8 cache takes them")
     if quant:
         for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
             runtime.check_tensor(name, t, (torch.float32,), ndim=4)
             if t.shape != (b, s, hk, 1):
-                raise ValueError(f"decode_attention_fused: {name} "
+                raise ValueError(f"{caller}: {name} "
                                  f"{tuple(t.shape)} is not {(b, s, hk, 1)}")
-    pos = int(cache_pos)
     operands = [q, k_cache, v_cache] + ([k_scale, v_scale] if quant else [])
     if q.device.type == "cpu":
         if any(t.device != q.device for t in operands):
-            raise ValueError("decode_attention_fused: operands on several "
-                             "devices")
-        return ref.decode_attention_ref(q, k_cache, v_cache, pos, scale,
-                                        k_scale, v_scale, window)
-
+            raise ValueError(f"{caller}: operands on several devices")
+        return quant
     runtime.check_launch("decode_attention", operands, q.device)
-    if (d not in HEAD_DIMS or g not in GROUPS or b > _GRID_MAX or s < 1
-            or pos < 0):
-        raise ValueError(f"decode_attention_fused: head_dim {d} not in "
+    if (d not in HEAD_DIMS or g not in GROUPS or b > _GRID_MAX or s < 1):
+        raise ValueError(f"{caller}: head_dim {d} not in "
                          f"{HEAD_DIMS}, group {g} not in {GROUPS}, B={b}, "
-                         f"Hk={hk}, S={s} or cache_pos={pos} out of range")
+                         f"Hk={hk} or S={s} out of range")
     if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
-        raise ValueError("decode_attention_fused: the kernel copies 16-byte "
+        raise ValueError(f"{caller}: the kernel copies 16-byte "
                          "chunks; q and the caches must start on a 16-byte "
                          "boundary")
-    out = torch.empty_like(q)
-    if not out.numel():
-        return out
-    s0, nvis = visible_range(s, pos, int(window))
+    return quant
+
+
+def _launch(q, k_cache, v_cache, k_scale, v_scale, quant: bool, s0: int,
+            nvis: int, scale: float, out, out_f32=None, lse=None) -> None:
+    """One launch over the visible run (s0, nvis) of the caches: the
+    normalised output into ``out`` (q's dtype), or with ``lse`` into
+    ``out_f32`` with the log-sum-exp beside it (the partials mode)."""
+    b, hk, g, d = q.shape
+    s = k_cache.shape[1]
     n_sm = runtime.sm_count(q.device)
     heads = (1 if q.dtype != torch.bfloat16
              else heads_per_block(b, hk, d, k_cache.dtype, nvis, n_sm))
@@ -177,14 +200,77 @@ def decode_attention_fused(q: torch.Tensor, k_cache: torch.Tensor,
         ws = torch.empty(b * ng * hk * n_split * gl * (d + 2),
                          dtype=torch.float32, device=q.device)
         cnt = _ticket_counters(q.device, b * ng * hk // heads)
+
+    def ptr(t):
+        return null if t is None else runtime.ptr(t)
+
     rc = _lib().decode_attention_fwd(
         runtime.ptr(q), runtime.ptr(k_cache), runtime.ptr(v_cache),
-        runtime.ptr(k_scale) if quant else null,
-        runtime.ptr(v_scale) if quant else null, runtime.ptr(out),
-        null if ws is None else runtime.ptr(ws),
-        null if cnt is None else runtime.ptr(cnt),
+        ptr(k_scale if quant else None), ptr(v_scale if quant else None),
+        ptr(out), ptr(out_f32), ptr(lse), ptr(ws), ptr(cnt),
         b, s, hk, gl, ng, d, _Q_DTYPES[q.dtype], int(quant), heads, s0,
         nvis, n_split, chunk, float(scale), runtime.stream_handle(q.device))
     runtime.raise_on_error("decode_attention", rc)
+
+
+def decode_attention_fused(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, cache_pos: int,
+                           scale: float,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None,
+                           window: int = 0) -> torch.Tensor:
+    """q (B, Hk, G, D); caches (B, S, Hk, D) in q's dtype, or int8 with f32
+    scales (B, S, Hk, 1).  Returns (B, Hk, G, D) in q's dtype."""
+    quant = _check(q, k_cache, v_cache, k_scale, v_scale,
+                   "decode_attention_fused")
+    pos = int(cache_pos)
+    if q.device.type == "cpu":
+        return ref.decode_attention_ref(q, k_cache, v_cache, pos, scale,
+                                        k_scale, v_scale, window)
+    if pos < 0:
+        raise ValueError(f"decode_attention_fused: cache_pos={pos} < 0")
+    out = torch.empty_like(q)
+    if not out.numel():
+        return out
+    s0, nvis = visible_range(k_cache.shape[1], pos, int(window))
+    _launch(q, k_cache, v_cache, k_scale, v_scale, quant, s0, nvis, scale,
+            out)
     launches["decode_attention"] += 1
     return out
+
+
+def decode_attention_partials(q: torch.Tensor, k_cache: torch.Tensor,
+                              v_cache: torch.Tensor, cache_pos: int,
+                              scale: float,
+                              k_scale: Optional[torch.Tensor] = None,
+                              v_scale: Optional[torch.Tensor] = None,
+                              window: int = 0, *, block: Tuple[int, int]
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The partials mode: the caches (B, S_loc, Hk, D) [+ scales] are the
+    ring positions [lo, lo + S_loc) of a ring of ``s_total`` (``block`` =
+    (lo, s_total)), and q (B, Hk, G, D) attends to the visible keys among
+    them (:func:`block_visible_range`).  Returns (out (B, Hk, G, D) f32
+    normalised over those keys, lse (B, Hk, G) f32 their log-sum-exp); a
+    block with no visible key gives zeros and -inf, with no launch."""
+    quant = _check(q, k_cache, v_cache, k_scale, v_scale,
+                   "decode_attention_partials")
+    lo, s_total = (int(v) for v in block)
+    n = k_cache.shape[1]
+    if not (0 <= lo and lo + n <= s_total) or int(cache_pos) < 0:
+        raise ValueError(f"decode_attention_partials: block [{lo}, "
+                         f"{lo + n}) of a ring of {s_total}, cache_pos "
+                         f"{cache_pos}")
+    s0, nvis = block_visible_range(s_total, int(cache_pos), int(window),
+                                   lo, n)
+    if q.device.type == "cpu":
+        return ref.decode_attention_partials_ref(q, k_cache, v_cache, s0,
+                                                 nvis, scale, k_scale,
+                                                 v_scale)
+    out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.full(q.shape[:3], float("-inf"), device=q.device)
+    if nvis == 0 or not out.numel():
+        return out, lse
+    _launch(q, k_cache, v_cache, k_scale, v_scale, quant, s0, nvis, scale,
+            None, out, lse)
+    launches["decode_attention_partials"] += 1
+    return out, lse

@@ -32,3 +32,34 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     logits = torch.where(valid, logits, torch.tensor(NEG_INF, device=q.device))
     p = torch.softmax(logits, dim=-1)
     return torch.einsum("bhgs,bshd->bhgd", p, vf).to(q.dtype)
+
+
+def decode_attention_partials_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                                  v_cache: torch.Tensor, s0: int, nvis: int,
+                                  scale: float,
+                                  k_scale: Optional[torch.Tensor] = None,
+                                  v_scale: Optional[torch.Tensor] = None):
+    """The partials of one block of a ring split over the sequence (the
+    flash-decoding split): q (B, Hk, G, D) against the keys (s0 + j) mod S
+    of this block's caches (B, S, Hk, D) [+ scales], j < nvis.  Returns
+    (out (B, Hk, G, D) f32 normalised over those keys, lse (B, Hk, G) f32
+    the log-sum-exp of their logits); with no key, zeros and -inf."""
+    b, s, hk, d = k_cache.shape
+    g = q.shape[2]
+    if nvis <= 0:
+        return (torch.zeros(q.shape, dtype=torch.float32, device=q.device),
+                torch.full((b, hk, g), float("-inf"), device=q.device))
+
+    def run(t):
+        if s0 + nvis <= s:
+            return t[:, s0:s0 + nvis]
+        return torch.cat([t[:, s0:], t[:, :s0 + nvis - s]], dim=1)
+
+    kf, vf = run(k_cache).float(), run(v_cache).float()
+    if k_scale is not None:
+        kf = kf * run(k_scale)
+        vf = vf * run(v_scale)
+    logits = torch.einsum("bhgd,bshd->bhgs", q.float(), kf) * scale
+    lse = torch.logsumexp(logits, dim=-1)
+    p = torch.exp(logits - lse[..., None])
+    return torch.einsum("bhgs,bshd->bhgd", p, vf), lse

@@ -22,6 +22,16 @@ Byte model (HBM traffic of a well-fused program), as the reference's:
     reference's factors; all assumed fused (no bytes);
   * the arguments of ``fn`` are charged once (the jaxpr's invars).
 
+A loop whose trips are the same program on same-shaped operands
+(``models.layers.scan_trips``: the MoE's routing chunks, the last one
+zero-padded to the shape of the others) is counted as the reference
+counts a ``lax.scan``: its body once, times its trips (:func:`loop_trips`,
+which the mode puts in the loop's place while it is entered).  Forward,
+the recompute and the backward of the one traced trip are scaled, and so
+is the sum of its weights' gradients over the trips; the loop itself,
+run under the mode trip by trip, counts the same, exactly.  Outside the
+mode the loop runs every trip.
+
 Data-dependent host reads (``aten._local_scalar_dense``: ``bool()``,
 ``float()``, ``int()``, ``.item()`` of a tensor) have no answer on a fake
 tensor.  The mode answers them itself: a boolean read (a loop's
@@ -38,8 +48,8 @@ by the device count, the reference's per-device figure; so are the
 regions on local shards (``layers.Region``: head-parallel attention,
 the vocab-parallel embedding and cross-entropy, the expert-parallel
 MoE), whose collectives are the c10d ones they issue; what runs whole on
-each rank's rows (``layers.run_on_rows``: decode attention, heads the
-'model' ranks do not divide, an unsplit vocabulary) counts whole.  The
+each rank's rows (``layers.run_on_rows``: heads the 'model' ranks do
+not divide, an unsplit vocabulary) counts whole.  The
 shape computations DTensor runs on global fake tensors to plan a
 sharding are not the rank's work and are left out.
 """
@@ -51,11 +61,11 @@ import functools
 import math
 import sys
 import traceback
-from typing import Dict, List
+from typing import Any, Dict, List
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten, tree_map
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 aten = torch.ops.aten
 
@@ -215,6 +225,7 @@ class CostMode(TorchDispatchMode):
         super().__init__()
         from torch.utils.weak import WeakIdKeyDictionary
         self.while_trips = float(while_trips)
+        self.scale = 1                          # each op counts this often
         self.cost = Cost()
         self.collective_bytes: Dict[str, float] = {}
         self.collective_counts: Dict[str, int] = {}
@@ -222,6 +233,26 @@ class CostMode(TorchDispatchMode):
         self._producer = WeakIdKeyDictionary()  # view/convert -> input
         self._reads: Dict[str, int] = {}        # call site -> run of Trues
         self._sites = set()
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self._scan = layers.scan_override(functools.partial(loop_trips, self))
+        self._scan.__enter__()
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        self._scan.__exit__(*exc)
+        return super().__exit__(*exc)
+
+    @contextlib.contextmanager
+    def scaled(self, n: int):
+        """Inside, every op counts ``n`` times (nested scales multiply)."""
+        before = self.scale
+        self.scale = before * int(n)
+        try:
+            yield
+        finally:
+            self.scale = before
 
     # ---------------------------------------------------------- helpers
     def _source_bytes(self, t: torch.Tensor) -> float:
@@ -257,6 +288,21 @@ class CostMode(TorchDispatchMode):
         return 1.0 if t.dtype.is_floating_point else 1
 
     def _count(self, name: str, args, kwargs, out) -> None:
+        if self.scale == 1:
+            return self._count_once(name, args, kwargs, out)
+        before = (self.cost.flops, self.cost.bytes, self.matmul_flops,
+                  dict(self.collective_bytes), dict(self.collective_counts))
+        self._count_once(name, args, kwargs, out)
+        k = self.scale - 1
+        self.cost.flops += k * (self.cost.flops - before[0])
+        self.cost.bytes += k * (self.cost.bytes - before[1])
+        self.matmul_flops += k * (self.matmul_flops - before[2])
+        for now, then in ((self.collective_bytes, before[3]),
+                          (self.collective_counts, before[4])):
+            for key in now:
+                now[key] += k * (now[key] - then.get(key, 0))
+
+    def _count_once(self, name: str, args, kwargs, out) -> None:
         c = self.cost
         ins = _tensors((args, kwargs))
         outs = _tensors(out)
@@ -318,6 +364,80 @@ class CostMode(TorchDispatchMode):
                 and src.numel() == out.numel()):
             self._producer[out] = src
         return out
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """The identity on a counted trip's operands (``at_outputs`` False) or
+    results (True), whose backward scales the meter: at the results by
+    the trip's count ``k`` (its backward runs next), at the operands back
+    again, after counting the sum of the weights' gradients over the ``k``
+    trips (``k - 1`` adds; ``ts[0]`` is the trip's input).  The autograd
+    engine runs the trip's backward between the two: its nodes are the
+    ones made between the markers, and it takes the latest made first."""
+
+    @staticmethod
+    def forward(ctx, meter, k, at_outputs, *ts):
+        ctx.meter, ctx.k, ctx.at_outputs = meter, k, at_outputs
+        ctx.set_materialize_grads(False)    # an unused weight gets none
+        return tuple(t.view_as(t) for t in ts)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        if ctx.at_outputs:
+            ctx.meter.scale *= ctx.k
+        else:
+            ctx.meter.scale //= ctx.k
+            with ctx.meter.scaled(ctx.k - 1):
+                [g + g for g in gs[1:] if g is not None]
+        return (None, None, None, *gs)
+
+
+class _Repeat(torch.autograd.Function):
+    """One output of the loop stacked over its ``k + 1`` trips: trip 0's
+    ``a`` for the first ``k`` and the last trip's ``b``; in backward the
+    gradient of one trip of each."""
+
+    @staticmethod
+    def forward(ctx, k, a, b):
+        ctx.set_materialize_grads(False)
+        return torch.stack([a] * k + [b])
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, None, None) if g is None else (None, g[0], g[-1])
+
+
+def loop_trips(meter, body, w: Dict[str, Any], xs: torch.Tensor):
+    """``models.layers.scan_trips(body, w, xs)`` counted by ``meter`` as a
+    scan: every trip is the same program on operands of the same shapes,
+    so the loop runs as two trips, trip 0 counted for the first
+    ``len(xs) - 1`` (forward, and under autograd its checkpoint's
+    recompute and backward, and the sum of the weights' gradients) and
+    the last one once.  Two trips keep the loop's own structure where a
+    checkpoint around it stops its recompute early (before the last
+    trip, when nothing after the loop saves a tensor).  The values of
+    the first trips are trip 0's: the meter runs on fake tensors, which
+    hold none.  One trip runs as the loop."""
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.models import layers
+    n = xs.shape[0]
+    if n == 1:
+        with layers.scan_override(None):
+            return layers.scan_trips(body, w, xs)
+    remat = torch.is_grad_enabled()
+    wl, tree = tree_flatten(w)
+
+    def trip(x, wl):
+        wt = tree_unflatten(wl, tree)
+        return (checkpoint(body, wt, x, use_reentrant=False) if remat
+                else body(wt, x))
+
+    first, last = xs.unbind(0)[::n - 1]
+    with meter.scaled(n - 1):
+        x0, *w0 = _ScaleGrad.apply(meter, n - 1, False, first, *wl)
+        head = _ScaleGrad.apply(meter, n - 1, True, *trip(x0, w0))
+    tail = trip(last, wl)
+    return tuple(_Repeat.apply(n - 1, a, b) for a, b in zip(head, tail))
 
 
 def argument_bytes(*args) -> float:

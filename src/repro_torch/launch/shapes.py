@@ -155,8 +155,12 @@ def prefill_structs(cfg: ModelConfig, shape: ShapeSpec, mesh) -> Struct:
 
 
 def cache_structs(cfg: ModelConfig, shape: ShapeSpec, mesh):
-    """Decode cache structs: kv leaves split over the batch and the
-    sequence (flash-decoding), recurrent states over the batch."""
+    """Decode cache structs: kv leaves, and an int8 cache's scales with
+    them, split over the batch and the sequence (flash-decoding: each
+    rank holds its block of the ring with the scales of its keys);
+    recurrent states over the batch.  (The reference's test of the head
+    dim leaves its (B, S, Hk, 1) scales to the recurrent states' rule,
+    replicated over the sequence.)"""
     b, s = shape.global_batch, shape.seq_len
     tree = model_mod.cache_struct(cfg, b, s)
     bspec = cfg.batch_axes or None
@@ -165,7 +169,7 @@ def cache_structs(cfg: ModelConfig, shape: ShapeSpec, mesh):
     def one(sd: model_mod.TensorSpec) -> Struct:
         nd = len(sd.shape)
         # kv caches: (..., B, S, Hk, D)
-        if nd >= 4 and sd.shape[-1] == cfg.head_dim \
+        if nd >= 4 and sd.shape[-1] in (cfg.head_dim, 1) \
                 and sd.shape[-2] == cfg.n_kv_heads and sd.shape[-3] == s:
             lead = (None,) * (nd - 4)
             return _struct(sd.shape, sd.dtype, mesh,

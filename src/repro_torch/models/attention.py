@@ -24,6 +24,14 @@ position (:func:`ring_write`; a cache split over the sequence on the
 rank that holds the slot), and the returned cache is the same dict.  The
 JAX package returns a new cache; in place saves a copy of every layer's
 cache per decoded token.
+
+Under a mesh the layer is one region on local shards (:func:`attention_layer`):
+prefill, encode and training run head-parallel; decode over a cache
+split over the sequence runs flash-decoding (:func:`_decode_split`): each
+rank runs B10's partials mode on its own block of the ring for its rows
+and every head, and one merge over the sequence's ranks (an all-reduce
+max of the log-sum-exp, one all-reduce sum of the rescaled outputs and
+weights packed together) gives the whole; no cache leaf is gathered.
 """
 from __future__ import annotations
 
@@ -192,15 +200,10 @@ def attention_block(
     at ``cache_pos mod S`` (in place) and attention runs over the full
     cache.  Prefill: cache is None and the returned {"k", "v"} (the
     rotated keys and the values) become the cache (None in training,
-    ``impl == "train"``, where nothing keeps it).  Sharded, prefill and
-    training run head-parallel over 'model' where the heads allow it
-    (:func:`head_parallel`), else on each rank's rows with every head.
+    ``impl == "train"``, where nothing keeps it).  Under a mesh the layer
+    runs as :func:`attention_layer`, which calls this block only on local
+    tensors.
     """
-    kw = dict(n_heads=n_heads, n_kv=n_kv, head_dim=head_dim,
-              mask_kind=mask_kind, window=window, rope_theta=rope_theta,
-              rotary_frac=rotary_frac, dtype=dtype, impl=impl, chunk=chunk)
-    if cache is None and head_parallel(x, p, n_heads, n_kv, head_dim):
-        return _attention_heads(p, x, positions, **kw)
     q = _split_heads(layers.linear(x, p["wq"], dtype), n_heads, head_dim)
     k = _split_heads(layers.linear(x, p["wk"], dtype), n_kv, head_dim)
     v = _split_heads(layers.linear(x, p["wv"], dtype), n_kv, head_dim)
@@ -214,17 +217,7 @@ def attention_block(
     scale = float(head_dim ** -0.5)
 
     if cache is None:
-        if is_dtensor(q):
-            # on each rank's own rows, every head whole: a sharded einsum
-            # that flattens the batch and head dims cannot be planned
-            # without a redistribution
-            out = layers.run_on_rows(
-                lambda q_, k_, v_: run_attention(q_, k_, v_, mask_kind,
-                                                 window, scale, impl, chunk),
-                (q, k, v), name="attention")
-        else:
-            out = run_attention(q, k, v, mask_kind, window, scale, impl,
-                                chunk)
+        out = run_attention(q, k, v, mask_kind, window, scale, impl, chunk)
         new_cache = {"k": k, "v": v}
     else:
         s = cache["k"].shape[1]
@@ -238,30 +231,17 @@ def attention_block(
                 ring_write(cache[name + "_scale"], sc, pos)
             else:
                 ring_write(cache[name], new.to(cache[name].dtype), pos)
-        names = ("k", "v") + (("k_scale", "v_scale") if quantized else ())
-
-        def attend(q_, *leaves):
-            c = dict(zip(names, leaves))
-            dec_window = window if mask_kind == "window" else 0
-            if impl != "ref":
-                return fused_decode(q_, c, scale, window=dec_window,
-                                    cache_pos=int(cache_pos))
-            k_eff, v_eff = c["k"], c["v"]
-            if quantized:
-                k_eff = k_eff.float() * c["k_scale"]
-                v_eff = v_eff.float() * c["v_scale"]
-            return decode_attention(q_, k_eff, v_eff, scale,
-                                    window=dec_window,
-                                    cache_pos=int(cache_pos))
-
-        leaves = tuple(cache[n] for n in names)
-        if is_dtensor(q):
-            # each rank's rows against their whole cache: the sequence
-            # split over seq_axes is gathered first
-            out = layers.run_on_rows(attend, (q,) + leaves,
-                                     name="decode_attention")
+        dec_window = window if mask_kind == "window" else 0
+        if impl != "ref":
+            out = fused_decode(q, cache, scale, window=dec_window,
+                               cache_pos=int(cache_pos))
         else:
-            out = attend(q, *leaves)
+            k_eff, v_eff = cache["k"], cache["v"]
+            if quantized:
+                k_eff = k_eff.float() * cache["k_scale"]
+                v_eff = v_eff.float() * cache["v_scale"]
+            out = decode_attention(q, k_eff, v_eff, scale, window=dec_window,
+                                   cache_pos=int(cache_pos))
 
     out = out.reshape(b, t, n_heads * head_dim)
     return layers.linear(out, p["wo"], dtype), new_cache
@@ -285,20 +265,175 @@ def head_parallel(x, p: Dict[str, Tensor], n_heads: int, n_kv: int,
             and (n_kv * head_dim) % m == 0)
 
 
+def attention_layer(p: Dict[str, Tensor], h, positions: Tensor,
+                    norm: Tuple[str, Dict[str, Tensor]], *,
+                    cache: Optional[Dict[str, Tensor]] = None,
+                    cache_pos: Optional[int] = None, **kw):
+    """The sharded layer h + attention(norm(h)) -> (h, cache): head-parallel
+    on local shards where the heads split over 'model'
+    (:func:`head_parallel`); decode over a cache split over the sequence
+    by flash-decoding (:func:`decode_split`); otherwise on each rank's rows
+    with every head whole (``layers.rows_layer``).  A decode whose cache is
+    not laid out for flash-decoding (``launch.shapes.cache_structs`` lays
+    out every sharded cache so) raises."""
+    n_heads, n_kv, d = kw["n_heads"], kw["n_kv"], kw["head_dim"]
+    if cache is None:
+        if head_parallel(h, p, n_heads, n_kv, d):
+            return _attention_heads(p, h, positions, norm=norm, **kw)
+
+        def fn(xn, q, pos):
+            out, c = attention_block(q, xn, pos, **kw)
+            return out if kw["impl"] == "train" else (out, c["k"], c["v"])
+        if kw["impl"] == "train":
+            return layers.rows_layer(fn, h, p, norm, name="attention",
+                                     rows=(positions,)), None
+        out, k, v = layers.rows_layer(fn, h, p, norm, name="attention",
+                                      rows=(positions,), extra=2)
+        return out, {"k": k, "v": v}
+    if not decode_split(h, p, cache):
+        raise ValueError(
+            "a sharded decode needs its cache laid out for flash-decoding "
+            "(launch.shapes.cache_structs): rows split as h's, the sequence "
+            "split or whole, heads whole; and wq/wk/wv and wo split evenly "
+            "over the mesh's 'model' dim")
+    return _decode_split(p, h, positions, norm, cache, int(cache_pos), **kw)
+
+
+def decode_split(h, p: Dict[str, Tensor], cache: Dict[str, Tensor]) -> bool:
+    """Whether a sharded decode runs flash-decoding on local shards: the
+    cache's leaves DTensors with their rows split as h's are, the sequence
+    split over any other mesh dims (or whole), heads and head dim whole;
+    wq / wk / wv on equal 'model' column blocks and wo on equal row
+    blocks."""
+    from torch.distributed.tensor import Replicate, Shard
+    k = cache["k"]
+    if not (is_dtensor(h) and is_dtensor(k)) or layers.model_split(h, 0):
+        return False
+    reg = layers.Region(h)
+    if k.device_mesh != reg.mesh:
+        return False
+    for i, pl in enumerate(k.placements):
+        if pl not in ((Shard(0),) if i in reg.batch
+                      else (Shard(1), Replicate())):
+            return False
+    if any(not is_dtensor(c) or c.placements != k.placements
+           for c in cache.values()):
+        return False
+    return reg.model is None or (all(reg.even(p[n], 1)
+                                     for n in ("wq", "wk", "wv"))
+                                 and reg.even(p["wo"], 0))
+
+
+def _decode_split(p: Dict[str, Tensor], h, positions: Tensor,
+                  norm: Tuple[str, Dict[str, Tensor]],
+                  cache: Dict[str, Tensor], cache_pos: int, *, n_heads: int,
+                  n_kv: int, head_dim: int, mask_kind: str, window: int,
+                  rope_theta: float, rotary_frac: float, dtype: torch.dtype,
+                  impl: str, chunk: int):
+    """Flash-decoding on local shards (a :class:`layers.Region`): h's rows
+    normed whole; q, k, v of every head (each rank's 'model' column blocks
+    gathered: a token's worth); the new k / v written into the block of
+    the ring that holds their slot; B10's partials mode on this rank's
+    block (``decode_attention_partials``: the visible keys of the ring
+    that lie in the block, one run); the merge over the ranks that split
+    the sequence (:func:`merge_partials`); then each rank's heads times
+    wo's row block, summed over 'model', and the residual."""
+    from torch.distributed.tensor import Shard
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+    reg = layers.Region(h)
+    xn = reg.act(h, norm)                                   # (B_loc, 1, d)
+    b = xn.shape[0]
+
+    def whole(w, n):          # (B_loc, 1, n, D) of every head
+        y = layers.linear(xn, reg.weight(w), dtype)
+        if reg.model is not None:
+            y = layers.all_gather(y, y.ndim - 1, reg.model_group)
+        return y.reshape(b, 1, n, head_dim)
+
+    q, k, v = whole(p["wq"], n_heads), whole(p["wk"], n_kv), whole(p["wv"],
+                                                                  n_kv)
+    if "q_norm" in p:
+        q = _qk_norm(q, reg.weight(p["q_norm"]))
+        k = _qk_norm(k, reg.weight(p["k_norm"]))
+    pos = reg.rows(positions)
+    q = layers.apply_rope(q, pos, rope_theta, rotary_frac)
+    k = layers.apply_rope(k, pos, rope_theta, rotary_frac)
+
+    ck = cache["k"]
+    s_total = ck.shape[1]
+    lo = layers.local_offset(ck)[1]
+    local = {n: c.to_local() for n, c in cache.items()}
+    n_loc = local["k"].shape[1]
+    slot = cache_pos % s_total
+    if lo <= slot < lo + n_loc:            # this rank holds the new slot
+        for name, new in (("k", k), ("v", v)):
+            if "k_scale" in local:
+                q8, sc = quantize_kv(new)
+                local[name][:, slot - lo] = q8[:, 0]
+                local[name + "_scale"][:, slot - lo] = sc[:, 0]
+            else:
+                local[name][:, slot - lo] = new[:, 0].to(local[name].dtype)
+
+    qh = q.reshape(b, n_kv, n_heads // n_kv, head_dim)
+    scale = float(head_dim ** -0.5)
+    win = window if mask_kind == "window" else 0
+    ops = (local["k"], local["v"])
+    scales = (local.get("k_scale"), local.get("v_scale"))
+    if impl == "ref":
+        s0, nvis = dec_ops.block_visible_range(s_total, cache_pos, win, lo,
+                                               n_loc)
+        o, lse = dec_ref.decode_attention_partials_ref(qh, *ops, s0, nvis,
+                                                       scale, *scales)
+    else:
+        o, lse = dec_ops.decode_attention_partials(
+            qh, *ops, cache_pos, scale, *scales, window=win,
+            block=(lo, s_total))
+    o = merge_partials(o, lse, [reg.group(i) for i, pl in
+                                enumerate(ck.placements) if pl == Shard(1)])
+    out = o.to(q.dtype).reshape(b, 1, n_heads * head_dim)
+    wo = reg.weight(p["wo"])
+    if reg.model is not None:              # this rank's heads' rows of wo
+        r0 = layers.local_offset(p["wo"])[0]
+        out = out[..., r0:r0 + wo.shape[0]]
+    layers.trace_region("decode_attention", heads=n_heads, seq_block=n_loc)
+    return reg.out(layers.linear(out, wo, dtype), residual=True), cache
+
+
+def merge_partials(o: Tensor, lse: Tensor, groups) -> Tensor:
+    """The flash-decoding merge of per-rank partials: o (..., D) f32
+    normalised over a rank's keys, lse (...) their log-sum-exp (-inf with
+    none).  With M the max of lse over the ranks (an all-reduce max over
+    each group in turn), each rank weighs its o by exp(lse - M) (0 with
+    no key, never a NaN) and one all-reduce sum over each group of the
+    weighted outputs and weights packed together gives sum(w o) / sum(w)."""
+    m = lse
+    for g in groups:
+        m = layers.all_reduce_max(m, g)
+    w = torch.exp(lse - m)[..., None]
+    packed = torch.cat([o * w, w], dim=-1)
+    for g in groups:
+        packed = layers.all_reduce(packed, g)
+    return packed[..., :-1] / torch.clamp(packed[..., -1:], min=1e-30)
+
+
 def _attention_heads(p: Dict[str, Tensor], x, positions: Tensor, *,
                      n_heads: int, n_kv: int, head_dim: int, mask_kind: str,
                      window: int, rope_theta: float, rotary_frac: float,
-                     dtype: torch.dtype, impl: str, chunk: int):
+                     dtype: torch.dtype, impl: str, chunk: int,
+                     norm: Optional[Tuple[str, Dict[str, Tensor]]] = None):
     """Head-parallel attention on local shards (a :class:`layers.Region`):
     x's rows with d whole, each rank's n_heads / model query heads (wq's
     column block) and the kv heads they read: wk's and wv's column blocks
     where the kv heads divide over 'model', else the one kv head the
     rank's group of model / n_kv neighbours shares, its columns gathered
     within that group only.  The output times wo's row block is a sum over
-    'model', reduce-scattered onto d (or all-reduced) into x's layout."""
+    'model', reduce-scattered onto d (or all-reduced) into x's layout.
+    With ``norm`` the region is the whole layer: x normed on whole rows,
+    and x + attention(norm(x)) returned, the residual on the local block."""
     reg = layers.Region(x)
     m = reg.model_size
-    xl = reg.act(x)                                     # (B_loc, T, d)
+    xl = reg.act(x, norm)                               # (B_loc, T, d)
     b, t = xl.shape[:2]
     hl = n_heads // m
     wk, wv = reg.weight(p["wk"]), reg.weight(p["wv"])
@@ -321,8 +456,8 @@ def _attention_heads(p: Dict[str, Tensor], x, positions: Tensor, *,
     layers.trace_region("attention", heads=hl, kv_heads=hkl)
     y = layers.linear(out.reshape(b, t, hl * head_dim),
                       reg.weight(p["wo"]), dtype)
-    return reg.out(y), (None if impl == "train"
-                        else _heads_cache(reg, k, v, n_kv))
+    return reg.out(y, residual=norm is not None), (
+        None if impl == "train" else _heads_cache(reg, k, v, n_kv))
 
 
 def _heads_cache(reg, k: Tensor, v: Tensor, n_kv: int) -> Dict[str, Tensor]:

@@ -34,6 +34,7 @@ from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.launch.mesh import is_dtensor
 
@@ -204,15 +205,15 @@ def run_on_rows(fn: Callable[..., Any], rows: Tuple[Any, ...],
     the ``rows`` operands (dim 0 the batch; ``None`` passes through) take
     the first one's batch split, every other mesh dim replicated, and the
     ``whole`` operands are gathered whole; ``fn`` then computes each row as
-    one device would.  The result (a tensor) is split like the rows; with
-    ``sums``, ``fn`` returns per-rank sums over its rows (a tuple) and each
-    becomes their total over the ranks.  Differentiable (``to_local`` /
+    one device would.  The result (a tensor, or a tuple of them) is split
+    like the rows; with ``sums``, ``fn`` returns per-rank sums over its
+    rows (a tuple) and each becomes their total over the ranks.  Differentiable (``to_local`` /
     ``from_local``).  It carries what has no split to use (a
-    :class:`Region` takes the rest): decode attention (each rank's rows
-    against their whole cache), attention whose heads the 'model' ranks
-    do not divide, and the embedding and cross-entropy of a vocabulary
+    :class:`Region` takes the rest): attention whose heads the 'model'
+    ranks do not divide, and the embedding and cross-entropy of a vocabulary
     that is not split over 'model'.  ``name`` names the region in
-    ``REGION_TRACE``."""
+    ``REGION_TRACE``.  A layer run this way takes its norm and residual
+    inside ``fn`` (:func:`rows_layer`)."""
     trace_region("run_on_rows", region=name)
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     lead = next(t for t in rows + whole if is_dtensor(t))
@@ -241,11 +242,52 @@ def run_on_rows(fn: Callable[..., Any], rows: Tuple[Any, ...],
     out = fn(*(local(t, pl) for t in rows),
              *(local(t, rep, part) for t in whole))
     if not sums:
+        if isinstance(out, tuple):
+            return tuple(DTensor.from_local(o, mesh, pl, run_check=False)
+                         for o in out)
         return DTensor.from_local(out, mesh, pl, run_check=False)
     # each rank's sum enters the total once; in backward the total's
     # (replicated) gradient comes back to every rank whole
     return tuple(DTensor.from_local(o, mesh, part, run_check=False)
                  for o in out)
+
+
+# --------------------------------------------------------------------------
+# a loop of same-shaped trips (jax.lax.scan with no carry)
+# --------------------------------------------------------------------------
+
+# replacements of scan_trips while one is entered, innermost last: the
+# dry run's cost meter counts the loop as a scan (launch.op_cost); None
+# runs the loop itself
+SCAN_OVERRIDES: list = []
+
+
+@contextlib.contextmanager
+def scan_override(fn: Optional[Callable[..., Any]]):
+    """Inside, :func:`scan_trips` calls ``fn(body, w, xs)`` in its place
+    (``None``: the loop itself)."""
+    SCAN_OVERRIDES.append(fn)
+    try:
+        yield
+    finally:
+        SCAN_OVERRIDES.pop()
+
+
+def scan_trips(body: Callable[..., Tuple[Tensor, ...]],
+               w: Dict[str, Tensor], xs: Tensor) -> Tuple[Tensor, ...]:
+    """``body(w, x)`` (a tuple of tensors) for each x of ``xs`` along its
+    leading dim, each output stacked over the trips.  Under autograd with
+    more than one trip each trip is checkpointed: recomputed in backward.
+    Every trip is the same program on operands of the same shapes, so a
+    cost meter may count one trip times their number
+    (:func:`scan_override`)."""
+    if SCAN_OVERRIDES and SCAN_OVERRIDES[-1] is not None:
+        return SCAN_OVERRIDES[-1](body, w, xs)
+    trips = xs.unbind(0)
+    remat = len(trips) > 1 and torch.is_grad_enabled()
+    outs = [checkpoint(body, w, x, use_reentrant=False) if remat
+            else body(w, x) for x in trips]
+    return tuple(torch.stack(o) for o in zip(*outs))
 
 
 # --------------------------------------------------------------------------
@@ -260,6 +302,25 @@ REGION_TRACE: Optional[list] = None
 def trace_region(name: str, **info) -> None:
     if REGION_TRACE is not None:
         REGION_TRACE.append((name, info))
+
+
+@contextlib.contextmanager
+def dtensor_ops(ops: list):
+    """Inside, each aten op with a DTensor operand (an op DTensor's
+    sharding rules would plan) is noted in ``ops`` by name and handed on to
+    DTensor: the check that a region runs on local shards only."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Noted(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                ops.append(str(func))
+                return NotImplemented
+            return func(*args, **(kwargs or {}))
+
+    with Noted():
+        yield ops
 
 
 def _gather_dim(x: Tensor, dim: int, group) -> Tensor:
@@ -363,6 +424,13 @@ def all_reduce(x: Tensor, group) -> Tensor:
     return _AllReduce.apply(x, group)
 
 
+def all_reduce_sum_grad(x: Tensor, group) -> Tensor:
+    """Sum over the group where each rank then uses the sum its own way
+    (a contraction over a split dim feeding the rank's channels): backward
+    the sum of the ranks' gradients too."""
+    return _SumGrad.apply(_AllReduce.apply(x, group), group)
+
+
 def all_reduce_max(x: Tensor, group) -> Tensor:
     """The elementwise max over the group (no gradient)."""
     import torch.distributed as dist
@@ -405,7 +473,13 @@ class Region:
     (``Partial``) and over 'model' where the weight is replicated there
     (each rank's heads, vocabulary block or experts give their part); an
     explicit gather's backward is the reduce-scatter over the same group
-    (its own block where every rank computed the same)."""
+    (its own block where every rank computed the same).
+
+    A layer is one region from its input to its output: :meth:`act` gathers
+    d once and runs the pre-norm on whole rows (its sum over d in the
+    unsharded order), the block runs on its local weights, and :meth:`out`
+    sums the partial result over 'model' into the activations' layout and
+    adds the residual there, on local shards."""
 
     def __init__(self, like, mesh=None):
         from torch.distributed.tensor import Shard
@@ -417,6 +491,7 @@ class Region:
             if p == Shard(0) and i != self.model) if is_dtensor(like) else ()
         self.like = like if is_dtensor(like) else None
         self.d_split = False
+        self.resid: Optional[Tensor] = None     # act's input, local block
 
     # ------------------------------------------------------------ groups
     def group(self, dim: int):
@@ -481,12 +556,15 @@ class Region:
             self.like.shape, self.mesh, self.layout())
         return off[0], shape[0]
 
-    def act(self, x) -> Tensor:
+    def act(self, x, norm: Optional[Tuple[str, Dict[str, Any]]] = None
+            ) -> Tensor:
         """This rank's rows of the activation ``x`` (B, ..., d) with d
         whole: d gathered over 'model' where it is split there (backward:
         the reduce-scatter), else as it is (backward: the sum of the ranks'
-        partial gradients).  :meth:`out` returns the region's result in
-        the same layout."""
+        partial gradients).  With ``norm`` = (kind, params) the rows come
+        back normed (:func:`apply_norm` on whole rows, its weights local).
+        :meth:`out` returns the region's result in the same layout, and
+        adds x there as the residual."""
         from torch.distributed.tensor import Shard
         last = Shard(x.ndim - 1)
         split = (self.model is not None
@@ -496,20 +574,29 @@ class Region:
         if list(x.placements) != pl:
             x = x.redistribute(self.mesh, pl)
         self.d_split = split
-        xl = x.to_local()
-        if self.model is None:
-            return xl
-        if split:
-            return all_gather(xl, xl.ndim - 1, self.model_group)
-        return _SumGrad.apply(xl, self.model_group)
+        xl = self.resid = x.to_local()
+        if self.model is not None:
+            xl = (all_gather(xl, xl.ndim - 1, self.model_group) if split
+                  else _SumGrad.apply(xl, self.model_group))
+        if norm is not None:
+            kind, p = norm
+            xl = apply_norm(kind, xl, self.weights(p))
+        return xl
 
-    def weight(self, w) -> Tensor:
+    def weights(self, tree: Dict[str, Any]) -> Dict[str, Any]:
+        """:meth:`weight` of every leaf of a parameter tree."""
+        return tree_map(self.weight, tree)
+
+    def weight(self, w, model_part: bool = True) -> Tensor:
         """The local block of the weight ``w``: its 'model' split kept,
-        every other split gathered on that dim's group (FSDP)."""
+        every other split gathered on that dim's group (FSDP).  Its
+        gradient is a sum over the batch ranks, and over the 'model' ranks
+        unless every one of them computed all of it (``model_part``
+        False)."""
         from torch.distributed.tensor import Partial, Replicate
         grad = [p if p.is_shard() else Partial()
-                if i == self.model or i in self.batch else Replicate()
-                for i, p in enumerate(w.placements)]
+                if (i == self.model and model_part) or i in self.batch
+                else Replicate() for i, p in enumerate(w.placements)]
         wl = w.to_local(grad_placements=grad)
         for i in reversed(range(self.mesh.ndim)):
             p = w.placements[i]
@@ -526,11 +613,14 @@ class Region:
         return x
 
     # ----------------------------------------------------------- results
-    def out(self, y: Tensor):
+    def out(self, y: Tensor, residual: bool = False,
+            dtype: Optional[torch.dtype] = None):
         """The region's local result ``y`` (B_loc, ..., d), a partial sum
         over 'model', summed there and returned as a DTensor in the
         activations' layout: reduce-scattered onto d where :meth:`act` found
-        d split (or ``d_split`` was set), else all-reduced."""
+        d split (or ``d_split`` was set), else all-reduced; then cast to
+        ``dtype`` and, with ``residual``, added to :meth:`act`'s input on
+        the local block (h + mixed, the unsharded order)."""
         from torch.distributed.tensor import DTensor, Shard
         if self.model is None:
             pl = self.layout()
@@ -540,6 +630,10 @@ class Region:
         else:
             y = all_reduce(y, self.model_group)
             pl = self.layout()
+        if dtype is not None:
+            y = y.to(dtype)
+        if residual:
+            y = self.resid + y
         shape = list(y.shape)
         if self.like is not None:
             shape[0] = self.like.shape[0]
@@ -548,6 +642,30 @@ class Region:
         return DTensor.from_local(y, self.mesh, pl, run_check=False,
                                   shape=torch.Size(shape),
                                   stride=_contiguous_stride(shape))
+
+    def put(self, t: Tensor, model_dim: Optional[int] = None):
+        """A local block ``t`` (this rank's rows) as a DTensor: its rows
+        split like the batch, its dim ``model_dim`` split over 'model' (a
+        rank's heads or channels), else replicated there."""
+        from torch.distributed.tensor import DTensor, Shard
+        shape = list(t.shape)
+        if self.like is not None:
+            shape[0] = self.like.shape[0]
+        model = None
+        if model_dim is not None and self.model is not None:
+            model = Shard(model_dim)
+            shape[model_dim] *= self.model_size
+        t = t.contiguous()
+        return DTensor.from_local(t, self.mesh, self.layout(model),
+                                  run_check=False, shape=torch.Size(shape),
+                                  stride=_contiguous_stride(shape))
+
+    def even(self, w, dim: int) -> bool:
+        """Whether the weight ``w`` is split over 'model' on ``dim`` in
+        equal blocks (or not split there at all, with no 'model' dim)."""
+        if self.model is None:
+            return True
+        return model_split(w, dim) and w.shape[dim] % self.model_size == 0
 
     def sums(self, *vals: Tensor, over_model: bool = False):
         """Per-rank sums as DTensors whose value is their total over the
@@ -606,6 +724,32 @@ def apply_norm(kind: str, x: Tensor, p: Dict[str, Tensor]) -> Tensor:
     if kind == "rmsnorm":
         return rms_norm(x, p["w"])
     return layer_norm(x, p["w"], p.get("b"))
+
+
+def norm_region(kind: str, h, p: Dict[str, Tensor]):
+    """apply_norm on local shards (a :class:`Region`) for a norm with no
+    block behind it (the final norm): d gathered once over 'model' where h
+    is split there, the norm on whole rows, and this rank's block of d
+    kept, in h's layout; with d whole, the norm on the local rows as they
+    are (every 'model' rank computes all of it)."""
+    from torch.distributed.tensor import Shard
+    reg = Region(h)
+    split = (reg.model is not None
+             and h.placements[reg.model] == Shard(h.ndim - 1)
+             and h.shape[-1] % reg.model_size == 0)
+    pl = reg.layout(Shard(h.ndim - 1) if split else None)
+    if list(h.placements) != pl:
+        h = h.redistribute(reg.mesh, pl)
+    xl = h.to_local()
+    if split:
+        xl = all_gather(xl, xl.ndim - 1, reg.model_group)
+    out = apply_norm(kind, xl, tree_map(
+        lambda w: reg.weight(w, model_part=split), p))
+    if split:
+        n = out.shape[-1] // reg.model_size
+        out = out[..., reg.model_rank * n:(reg.model_rank + 1) * n]
+    trace_region("norm")
+    return reg.put(out, out.ndim - 1 if split else None)
 
 
 def norm_template(kind: str, d: int, bias: bool = False) -> Template:
@@ -690,6 +834,60 @@ def glu_mlp(p: Dict[str, Tensor], x: Tensor, act: str,
             dtype: torch.dtype) -> Tensor:
     h = act_fn(act, linear(x, p["wg"], dtype)) * linear(x, p["wi"], dtype)
     return linear(h, p["wo"], dtype)
+
+
+def glu_split(reg: "Region", p: Dict[str, Tensor]) -> bool:
+    """Whether a GLU's weights run on their 'model' blocks: wi / wg on
+    their ff columns and wo on its rows, in equal blocks."""
+    return (reg.even(p["wi"], 1) and reg.even(p["wg"], 1)
+            and reg.even(p["wo"], 0))
+
+
+def glu_mlp_region(p: Dict[str, Tensor], h, norm: Tuple[str, Dict[str, Any]],
+                   act: str, dtype: torch.dtype):
+    """h + glu_mlp(norm(h)) on local shards (a :class:`Region`, the
+    reference's layout): h's rows with d gathered once and normed whole,
+    wi / wg on their ff column block and wo on its row block, the partial
+    sum reduce-scattered onto d (or all-reduced) and the residual added on
+    the local block.  Weights that do not split so run whole on each
+    rank's rows (:func:`rows_layer`)."""
+    reg = Region(h)
+    if not glu_split(reg, p):
+        return rows_layer(lambda x, q: glu_mlp(q, x, act, dtype), h, p,
+                          norm, name="dense")
+    xl = reg.act(h, norm)
+    w = reg.weights(p)
+    trace_region("dense", ff=w["wi"].shape[1])
+    return reg.out(glu_mlp(w, xl, act, dtype), residual=True)
+
+
+def rows_layer(fn: Callable[..., Any], h, p: Dict[str, Any],
+               norm: Tuple[str, Dict[str, Any]], *, name: str,
+               rows: Tuple[Any, ...] = (), extra: int = 0):
+    """h + fn(norm(h), params, *rows) on each rank's rows with every
+    weight whole (:func:`run_on_rows`): a block with no split to use.
+    ``fn`` may return more than the block's output (its first result):
+    ``extra`` more tensors (a prefill cache), split like the rows.  The
+    new h takes h's layout."""
+    kind, np_ = norm
+    paths = [k for k, _ in tree_items(p)] + [("__norm",) + k
+                                             for k, _ in tree_items(np_)]
+    leaves = [v for _, v in tree_items(p)] + [v for _, v in tree_items(np_)]
+
+    def body(hl, *args):
+        rl, wl = args[:len(rows)], args[len(rows):]
+        tree = tree_from_items(zip(paths, wl))
+        nt = tree.pop("__norm")
+        res = fn(apply_norm(kind, hl, nt), tree, *rl)
+        out = res[0] if extra else res
+        out = hl + out
+        return (out,) + tuple(res[1:]) if extra else out
+
+    res = run_on_rows(body, (h,) + tuple(rows), tuple(leaves), name=name)
+    out = res[0] if extra else res
+    if list(out.placements) != list(h.placements):
+        out = out.redistribute(h.device_mesh, h.placements)
+    return (out,) + tuple(res[1:]) if extra else out
 
 
 # --------------------------------------------------------------------------

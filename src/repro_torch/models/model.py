@@ -36,14 +36,19 @@ Entry points:
 
 Every entry point runs under a mesh too: with DTensor inputs and
 parameters, the plain tensors it builds (positions, masks) count as
-replicated (``layers.mesh_context``).  Four regions run on local shards
-with explicit collectives over 'model' (``layers.Region``): attention
-head-parallel in prefill, encode and training, the embedding and the
-cross-entropy vocab-parallel, the MoE expert-parallel; what has no split
-to use runs on each rank's rows (``layers.run_on_rows``).  ``decode_step``
-takes a cache whose kv leaves are split over ``batch_axes`` and
-``seq_axes`` (the reference's ``cache_pspec``): the new token's k/v are
-written on the rank that holds its ring slot.
+replicated (``layers.mesh_context``).  Each block of a layer is one
+region on local shards from its input to its output, with explicit
+collectives over 'model' (``layers.Region``, :func:`_sharded_layer`): the
+pre-norm on whole rows, then attention head-parallel (decode:
+flash-decoding over the sequence's split), the dense MLP on its ff
+blocks, the MoE expert-parallel, rwkv6 by head and mamba by channel, and
+the residual add on the local block; the embedding and the
+cross-entropy run vocab-parallel and the final norm on whole rows.  What
+has no split to use runs on each rank's rows (``layers.run_on_rows``).
+No op of a layer of the train step, prefill or encode is planned by
+DTensor.  ``decode_step`` takes a cache whose kv leaves are split over
+``batch_axes`` and ``seq_axes`` (the reference's ``cache_pspec``): the
+new token's k/v are written on the rank that holds its ring slot.
 """
 from __future__ import annotations
 
@@ -163,14 +168,19 @@ class ModelConfig:
 
 def _constrain(cfg: ModelConfig, x: Tensor) -> Tensor:
     """The reference's layer-boundary sharding constraint: a DTensor
-    activation is redistributed to the batch split over ``batch_axes``
-    (and, with ``shard_activations``, d_model over 'model'); a plain
-    tensor is returned as it is, so one device runs unchanged."""
-    if not cfg.batch_axes:
+    activation lies with the batch split over ``batch_axes`` (and, with
+    ``shard_activations``, d_model over 'model').  The regions return
+    their result in that layout, so between layers this only checks it;
+    an input that lies otherwise (an embedding run on each rank's rows) is
+    redistributed once.  A plain tensor is returned as it is, so one
+    device runs unchanged."""
+    if not cfg.batch_axes or not is_dtensor(x):
         return x
-    if cfg.shard_activations and x.ndim == 3:
-        return layers.redistribute(x, (cfg.batch_axes, None, "model"))
-    return layers.redistribute(x, (cfg.batch_axes,))
+    spec = ((cfg.batch_axes, None, "model")
+            if cfg.shard_activations and x.ndim == 3 else (cfg.batch_axes,))
+    if tuple(x.placements) == layers.placements(spec, x.device_mesh):
+        return x
+    return layers.redistribute(x, spec)
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -383,24 +393,79 @@ def _layer(cfg: ModelConfig, mixer: str, mlp: str, p, h: Tensor,
     layer cache).  With a cache (decode) the attention k/v are written in
     place by the block; the rwkv and mamba state leaves are copied into
     the cache here, so the caller's stacked cache holds the new state
-    too."""
+    too.  Sharded, each block runs as a region (:func:`_sharded_layer`)."""
+    if is_dtensor(h):
+        return _sharded_layer(cfg, mixer, mlp, p, h, positions, cache, pos,
+                              impl)
     mixed, new_cache = _apply_mixer(
         cfg, mixer, p["mixer"], layers.apply_norm(cfg.norm, h, p["norm1"]),
         positions, cache, pos, impl)
-    h = _constrain(cfg, h + mixed)
+    h = h + mixed
     out, aux, cm_carry = _apply_mlp(
         cfg, mlp, p["mlp"], layers.apply_norm(cfg.norm, h, p["norm2"]),
         cache)
     if cm_carry is not None:
         new_cache["shift_ffn"] = cm_carry
-    if cache is not None and mixer in _STATEFUL:
-        for name, leaf in new_cache.items():
-            dst = cache[name]
-            if is_dtensor(dst):   # the new state in the cache's layout
-                leaf = leaf.redistribute(dst.device_mesh, dst.placements)
-            dst.copy_(leaf)
-        new_cache = cache
-    return _constrain(cfg, h + out), aux, new_cache
+    return h + out, aux, _keep_state(mixer, cache, new_cache)
+
+
+def _keep_state(mixer: str, cache, new_cache):
+    """A recurrent mixer's new state copied into its decode cache."""
+    if cache is None or mixer not in _STATEFUL:
+        return new_cache
+    for name, leaf in new_cache.items():
+        dst = cache[name]
+        if is_dtensor(dst):   # the new state in the cache's layout
+            leaf = leaf.redistribute(dst.device_mesh, dst.placements)
+        dst.copy_(leaf)
+    return cache
+
+
+def _sharded_layer(cfg: ModelConfig, mixer: str, mlp: str, p, h,
+                   positions: Tensor, cache, pos, impl: str):
+    """The layer under a mesh: each block one region from h to h + block
+    (norm(h)), norm, block and residual on local shards
+    (``layers.Region``); what it returns lies in h's layout, which
+    :func:`_constrain` then only checks.  A recurrent mixer's decode step
+    (one token against its O(1) state) runs on DTensor's own ops."""
+    n1, n2 = (cfg.norm, p["norm1"]), (cfg.norm, p["norm2"])
+    if mixer in _STATEFUL and cache is not None:
+        mixed, new_cache = _apply_mixer(
+            cfg, mixer, p["mixer"], layers.apply_norm(cfg.norm, h,
+                                                      p["norm1"]),
+            positions, cache, pos, impl)
+        h = h + mixed
+    elif mixer == "rwkv":
+        h, new_cache = rwkv6.rwkv6_layer(
+            p["mixer"], h, n1, n_heads=cfg.rwkv_heads,
+            head_dim=cfg.rwkv_head_dim, dtype=cfg.dtype, chunk=cfg.rwkv_chunk)
+    elif mixer == "mamba":
+        h, new_cache = ssm.mamba_layer(
+            p["mixer"], h, n1, d_inner=cfg.d_inner, d_state=cfg.ssm_d_state,
+            d_conv=cfg.ssm_d_conv, dt_rank=cfg.dt_rank, dtype=cfg.dtype,
+            chunk=cfg.ssm_chunk)
+    else:
+        h, new_cache = attention.attention_layer(
+            p["mixer"], h, positions, n1, cache=cache, cache_pos=pos,
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
+            mask_kind=_MASK[mixer], window=cfg.window,
+            rope_theta=cfg.rope_theta, rotary_frac=cfg.rotary_frac,
+            dtype=cfg.dtype, impl=impl, chunk=cfg.attn_chunk)
+    h = _constrain(cfg, h)
+    aux = None
+    if mlp == "moe":
+        h, aux = moe_mod.moe_mlp(
+            p["mlp"], h, top_k=cfg.top_k, n_experts=cfg.n_experts,
+            act=cfg.act, dtype=cfg.dtype,
+            capacity_factor=cfg.moe_capacity_factor, chunk=cfg.moe_chunk,
+            impl=cfg.moe_impl, norm=n2)
+    elif mlp == "rwkv_cm":
+        h, new_cache["shift_ffn"] = rwkv6.channel_mix_layer(
+            p["mlp"], h, n2, None if cache is None else cache["shift_ffn"],
+            cfg.dtype)
+    else:
+        h = layers.glu_mlp_region(p["mlp"], h, n2, cfg.act, cfg.dtype)
+    return _constrain(cfg, h), aux, _keep_state(mixer, cache, new_cache)
 
 
 def _embed_in(cfg: ModelConfig, params, x: Tensor) -> Tensor:
@@ -500,7 +565,9 @@ def backbone(cfg: ModelConfig, params, x: Tensor, positions: Tensor,
         if collect:
             new_cache[f"tail{j}"] = nc
 
-    h = layers.apply_norm(cfg.norm, h, params["final_norm"])
+    h = (layers.norm_region(cfg.norm, h, params["final_norm"])
+         if is_dtensor(h) else
+         layers.apply_norm(cfg.norm, h, params["final_norm"]))
     return h, aux, new_cache
 
 

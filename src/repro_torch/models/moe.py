@@ -32,11 +32,10 @@ parts of the output.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.launch.mesh import is_dtensor
 from repro_torch.models import layers
@@ -180,7 +179,9 @@ def capacity_for(chunk: int, top_k: int, n_experts: int,
 
 def moe_mlp(p: Dict[str, Tensor], x: Tensor, *, top_k: int, n_experts: int,
             act: str, dtype: torch.dtype, capacity_factor: float = 2.0,
-            chunk: int = 4096, impl: str = "einsum") -> Tuple[Tensor, Tensor]:
+            chunk: int = 4096, impl: str = "einsum",
+            norm: Optional[Tuple[str, Dict[str, Tensor]]] = None
+            ) -> Tuple[Tensor, Tensor]:
     """x (B, T, d) -> (out (B, T, d), aux loss).  The B*T tokens run in
     chunks of min(chunk, B*T), the last one zero-padded; the aux loss is
     the mean over chunks.  Under autograd each chunk is recomputed in
@@ -192,8 +193,11 @@ def moe_mlp(p: Dict[str, Tensor], x: Tensor, *, top_k: int, n_experts: int,
     once a layer, outside the chunk loop), routes every chunk as one
     device does, builds and runs only its experts' slots and combines
     their part of each token's output in f32; one all-reduce (or
-    reduce-scatter onto d) over 'model' sums the parts, rounded to the
-    dtype once.  The chunks are the unsharded run's: a rank whose rows
+    reduce-scatter onto d) over 'model' sums the parts (with a shared
+    expert's, run on its ff column block), rounded to the dtype once.
+    With ``norm`` = (kind, params) the region is the whole layer: x is
+    normed on whole rows inside it and the result is x + moe(norm(x)),
+    the residual added on the local block.  The chunks are the unsharded run's: a rank whose rows
     are whole chunks routes them alone, else every rank routes the whole
     batch (gathered) and keeps its rows.  The aux loss is each rank's
     share of the mean over the chunks."""
@@ -207,7 +211,8 @@ def moe_mlp(p: Dict[str, Tensor], x: Tensor, *, top_k: int, n_experts: int,
         experts = (reg.model_rank * ne, ne)
         w = {name: reg.weight(p[name])
              for name in ("router", "wi", "wg", "wo")}
-        xl = reg.act(x)                                 # (B_loc, T, d)
+        xl = reg.act(x, norm)                           # (B_loc, T, d)
+        xn = xl
         n_loc = xl.shape[0] * t
         n_rows = 1
         for i in reg.batch:
@@ -228,26 +233,26 @@ def moe_mlp(p: Dict[str, Tensor], x: Tensor, *, top_k: int, n_experts: int,
             chunk, top_k, n_experts, capacity_factor),
         n_experts=n_experts, act=act, dtype=dtype, impl=impl,
         experts=experts)
-    remat = xt.shape[0] > chunk and torch.is_grad_enabled()
-    ys, auxs = [], []
-    for lo in range(0, xt.shape[0], chunk):
-        xc = xt[lo:lo + chunk]
-        y, aux = (checkpoint(body, w, xc, use_reentrant=False) if remat
-                  else body(w, xc))
-        ys.append(y)
-        auxs.append(aux)
-    y = torch.cat(ys)
-    aux = torch.mean(torch.stack(auxs)) * (len(auxs) / (n_chunks * share))
+    trips = xt.shape[0] // chunk
+    y, auxs = layers.scan_trips(body, w, xt.reshape(trips, chunk, d))
+    y = y.reshape(trips * chunk, d)
+    aux = torch.mean(auxs) * (trips / (n_chunks * share))
     if reg is None:
         out = y[:b * t].reshape(b, t, d)
-    else:
-        r0 = reg.row_block()[0] if not alone else 0
-        y = y[r0 * t:r0 * t + n_loc]
-        layers.trace_region("moe", experts=ne)
-        out = reg.out(y.reshape(-1, t, d)).to(dtype)
-        (aux,) = reg.sums(aux, over_model=True)
+        if "shared" in p:
+            out = out + layers.glu_mlp(p["shared"], x, act, dtype)
+        return out, aux
+    r0 = reg.row_block()[0] if not alone else 0
+    y = y[r0 * t:r0 * t + n_loc].reshape(-1, t, d)
     if "shared" in p:
-        out = out + layers.glu_mlp(p["shared"], x, act, dtype)
+        if not layers.glu_split(reg, p["shared"]):
+            raise ValueError("a sharded MoE layer's shared expert needs its "
+                             "ff split evenly over the mesh's 'model' dim")
+        y = y + layers.glu_mlp(reg.weights(p["shared"]), xn, act,
+                               dtype).float()
+    layers.trace_region("moe", experts=ne)
+    out = reg.out(y, residual=norm is not None, dtype=dtype)
+    (aux,) = reg.sums(aux, over_model=True)
     return out, aux
 
 

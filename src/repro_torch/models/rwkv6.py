@@ -197,3 +197,56 @@ def channel_mix(p: Dict[str, Tensor], x: Tensor, carry: Tensor,
                            layers.linear(_lerp(x, prev, p["mix_k"]), p["wk"],
                                          dtype))
     return layers.linear(hidden, p["wv"], dtype), new_carry
+
+
+def rwkv6_layer(p: Dict[str, Tensor], h, norm, *, n_heads: int,
+                head_dim: int, dtype: torch.dtype, chunk: int):
+    """The sharded layer h + rwkv6(norm(h)) -> (h, {"wkv", "shift"}) on
+    local shards (a ``layers.Region``): h's rows normed whole (the token
+    shift reads whole rows), each rank's n_heads / model heads (wr / wk /
+    wv / wg / w_lora_b column blocks, ww, u_bonus and ln_x_w blocks; the
+    mixes and w_lora_a whole), wo's row block, the partial sum reduced
+    over 'model' and the residual added there.  The end state is split
+    over 'model' by head, the shift carry whole.  Heads that do not split
+    run whole on each rank's rows (``layers.rows_layer``)."""
+    reg = layers.Region(h)
+    split = n_heads % reg.model_size == 0 and all(
+        reg.even(p[n], dim) for n, dim in (
+            ("wr", 1), ("wk", 1), ("wv", 1), ("wg", 1), ("wo", 0),
+            ("ww", 0), ("w_lora_b", 1), ("u_bonus", 0), ("ln_x_w", 0)))
+    kw = dict(head_dim=head_dim, dtype=dtype, chunk=chunk)
+    if not split:
+        out, s_end, carry = layers.rows_layer(
+            lambda xn, q: rwkv6_mixer(q, xn, n_heads=n_heads, **kw), h, p,
+            norm, name="rwkv", extra=2)
+        return out, {"wkv": s_end, "shift": carry}
+    xn = reg.act(h, norm)
+    hl = n_heads // reg.model_size
+    out, s_end, carry = rwkv6_mixer(reg.weights(p), xn, n_heads=hl, **kw)
+    layers.trace_region("rwkv", heads=hl)
+    return (reg.out(out, residual=True),
+            {"wkv": reg.put(s_end, 1), "shift": reg.put(carry)})
+
+
+def channel_mix_layer(p: Dict[str, Tensor], h, norm, carry,
+                      dtype: torch.dtype):
+    """The sharded layer h + channel_mix(norm(h)) -> (h, new carry) on
+    local shards: wk's ff column block and wv's row block, the partial sum
+    reduced over 'model' and the residual added there; ``carry`` (a
+    DTensor, or None: zeros) and the new carry whole on each rank's
+    rows."""
+    reg = layers.Region(h)
+    if not (reg.even(p["wk"], 1) and reg.even(p["wv"], 0)):
+        c = carry if carry is not None else torch.zeros(
+            (h.shape[0], 1, h.shape[-1]), dtype=torch.float32,
+            device=h.device)
+        return layers.rows_layer(
+            lambda xn, q, c_: channel_mix(q, xn, c_, dtype), h, p, norm,
+            name="channel_mix", rows=(c,), extra=1)
+    xn = reg.act(h, norm)
+    c = (torch.zeros((xn.shape[0], 1, xn.shape[-1]), dtype=torch.float32,
+                     device=xn.device) if carry is None else reg.rows(carry))
+    w = reg.weights(p)
+    out, new = channel_mix(w, xn, c, dtype)
+    layers.trace_region("channel_mix", ff=w["wk"].shape[1])
+    return reg.out(out, residual=True), reg.put(new)

@@ -107,13 +107,21 @@ def _ssm_chunk(xq: Tensor, dt: Tensor, b_t: Tensor, c_t: Tensor, a: Tensor,
 def mamba_mixer(p: Dict[str, Tensor], x: Tensor, *, d_inner: int,
                 d_state: int, d_conv: int, dt_rank: int,
                 dtype: torch.dtype = torch.bfloat16, chunk: int = 256,
-                state: Optional[SSMState] = None
+                state: Optional[SSMState] = None,
+                xz: Optional[Tuple[Tensor, Tensor]] = None,
+                proj_sum=layers.sum_partial
                 ) -> Tuple[Tensor, SSMState]:
     """x (B, T, d).  Returns (out (B, T, d), end state).  Pass ``state`` to
-    continue from it (decode: T == 1)."""
+    continue from it (decode: T == 1).  On local shards (:func:`mamba_layer`)
+    ``xz`` gives the input projection's two halves of this rank's
+    d_inner channels and ``proj_sum`` sums x_proj's product (a contraction
+    over the split channels) over the ranks."""
     b, t, _ = x.shape
-    xz = layers.linear(x, p["in_proj"], dtype)              # (B, T, 2 D)
-    xs, z = torch.split(xz, d_inner, dim=-1)
+    if xz is None:
+        xs, z = torch.split(layers.linear(x, p["in_proj"], dtype), d_inner,
+                            dim=-1)                         # (B, T, D) each
+    else:
+        xs, z = xz
     if state is None:
         conv_carry = torch.zeros((b, d_conv - 1, d_inner),
                                  dtype=torch.float32, device=x.device)
@@ -126,7 +134,7 @@ def mamba_mixer(p: Dict[str, Tensor], x: Tensor, *, d_inner: int,
     xs = F.silu(xs.float()).to(dtype)
 
     # sharded, x_proj contracts over the split d_inner: its sum first
-    proj = layers.sum_partial(layers.linear(xs, p["x_proj"], dtype)).float()
+    proj = proj_sum(layers.linear(xs, p["x_proj"], dtype)).float()
     dt_in, b_t, c_t = torch.split(proj, [dt_rank, d_state, d_state], dim=-1)
     dt = F.softplus(dt_in @ p["dt_proj_w"] + p["dt_proj_b"])   # (B, T, D)
     a = -torch.exp(p["a_log"])                                 # (D, N)
@@ -164,3 +172,49 @@ def mamba_mixer(p: Dict[str, Tensor], x: Tensor, *, d_inner: int,
     y = y * F.silu(z.float())
     out = layers.linear(y.to(dtype), p["out_proj"], dtype)
     return out, SSMState(conv=conv_carry, ssm=h_end)
+
+
+def mamba_layer(p: Dict[str, Tensor], h, norm, *, d_inner: int,
+                d_state: int, d_conv: int, dt_rank: int, dtype: torch.dtype,
+                chunk: int):
+    """The sharded layer h + mamba(norm(h)) -> (h, {"conv", "ssm"}) on local
+    shards (a ``layers.Region``, the reference's split of the d_inner
+    channels over 'model'): h's rows normed whole; in_proj gathered over
+    'model' (its column blocks do not follow the channels: it holds both
+    halves) and only this rank's channels of each half computed; the
+    conv, dt, A, D and the scan on the rank's channels; x_proj's product
+    summed over 'model'; out_proj's row block, the partial sum reduced
+    there and the residual added.  The end state is split over 'model' by
+    channel.  Channels that do not split run whole on each rank's rows
+    (``layers.rows_layer``)."""
+    reg = layers.Region(h)
+    m = reg.model_size
+    kw = dict(d_state=d_state, d_conv=d_conv, dt_rank=dt_rank, dtype=dtype,
+              chunk=chunk)
+    split = d_inner % m == 0 and all(reg.even(p[n], dim) for n, dim in (
+        ("in_proj", 1), ("conv_w", 1), ("conv_b", 0), ("x_proj", 0),
+        ("dt_proj_w", 1), ("dt_proj_b", 0), ("a_log", 0), ("d_skip", 0),
+        ("out_proj", 0)))
+    if not split:
+        def fn(xn, q):
+            out, st = mamba_mixer(q, xn, d_inner=d_inner, **kw)
+            return out, st.conv, st.ssm
+        out, conv, ssm = layers.rows_layer(fn, h, p, norm, name="mamba",
+                                           extra=2)
+        return out, {"conv": conv, "ssm": ssm}
+    xn = reg.act(h, norm)
+    w_in = reg.weight(p["in_proj"])
+    proj_sum = (lambda t: t) if reg.model is None else functools.partial(
+        layers.all_reduce_sum_grad, group=reg.model_group)
+    if reg.model is not None:
+        w_in = layers.all_gather(w_in, 1, reg.model_group)
+    dl, r = d_inner // m, reg.model_rank
+    xs = layers.linear(xn, w_in[:, r * dl:(r + 1) * dl], dtype)
+    z = layers.linear(xn, w_in[:, d_inner + r * dl:d_inner + (r + 1) * dl],
+                      dtype)
+    local = reg.weights({k: v for k, v in p.items() if k != "in_proj"})
+    out, st = mamba_mixer(local, xn, d_inner=dl, xz=(xs, z),
+                          proj_sum=proj_sum, **kw)
+    layers.trace_region("mamba", channels=dl)
+    return (reg.out(out, residual=True),
+            {"conv": reg.put(st.conv, 2), "ssm": reg.put(st.ssm, 1)})

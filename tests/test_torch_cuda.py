@@ -568,6 +568,74 @@ def test_decode_attention_kernel_at_the_moe_groups(cuda, b, hk, s, pos,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,hk,g,d,ring,pos,window,lo,n", [
+    (4, 16, 1, 64, 1024, 1023, 0, 512, 512),    # stablelm's half of a ring
+    (2, 8, 4, 128, 4096, 4095, 0, 0, 2048),     # splits over the keys
+    (2, 4, 16, 128, 2064, 2047, 0, 1032, 1032),  # qwen3: 2 slices of 8
+    (3, 2, 1, 64, 12, 12, 8, 0, 6),             # window: both block ends
+    (3, 2, 4, 128, 16, 3, 0, 8, 8),             # no visible key: no launch
+])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_decode_attention_partials_match_plain(cuda, b, hk, g, d, ring, pos,
+                                               window, lo, n, quant):
+    """B10's partials mode on one block [lo, lo + n) of a ring (the
+    flash-decoding split) against the plain partials on the same block:
+    the f32 output within ``_attn_tol`` of the plain one (f32 sums in
+    another order), the log-sum-exp within 1e-5 of its magnitude; a block
+    with no visible key gives zeros and -inf without a launch.  Merged
+    with the ring's other blocks (``attention.merge_partials`` over no
+    group: one block's weight), the whole ring's plain output."""
+    gen = torch.Generator().manual_seed(ring + lo + g + d)
+    q = _rand(gen, b, hk, g, d).to(cuda, torch.bfloat16)
+    k = _rand(gen, b, ring, hk, d)
+    v = _rand(gen, b, ring, hk, d)
+    ks = vs = None
+    if quant:
+        ks = k.abs().amax(-1, keepdim=True).div(127.0).clamp(min=1e-10)
+        vs = v.abs().amax(-1, keepdim=True).div(127.0).clamp(min=1e-10)
+        k = torch.round(k / ks).clamp(-127, 127).to(torch.int8)
+        v = torch.round(v / vs).clamp(-127, 127).to(torch.int8)
+        ks, vs = ks.to(cuda), vs.to(cuda)
+    else:
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    k, v = k.to(cuda), v.to(cuda)
+    scale = d ** -0.5
+    parts = []
+    for l0 in range(0, ring, n):              # every block of the ring
+        blk = [t[:, l0:l0 + n].contiguous() if t is not None else None
+               for t in (k, v, ks, vs)]
+        before = dec_ops.launches["decode_attention_partials"]
+        o, lse = dec_ops.decode_attention_partials(
+            q, blk[0], blk[1], pos, scale, blk[2], blk[3], window=window,
+            block=(l0, ring))
+        s0, nvis = dec_ops.block_visible_range(ring, pos, window, l0, n)
+        wo, wl = dec_ref.decode_attention_partials_ref(
+            q, blk[0], blk[1], s0, nvis, scale, blk[2], blk[3])
+        torch.cuda.synchronize()
+        assert dec_ops.launches["decode_attention_partials"] == (
+            before + (1 if nvis else 0))
+        assert o.dtype == torch.float32 and o.shape == q.shape
+        if nvis == 0:
+            assert torch.equal(o, torch.zeros_like(o))
+            assert bool(torch.isneginf(lse).all())
+        else:
+            assert float((o - wo).abs().max()) <= _attn_tol(wo)
+            assert float((lse - wl).abs().max()) <= 1e-5 * max(
+                1.0, float(wl.abs().max()))
+        if l0 == lo:
+            mine = (o, lse)
+        parts.append((o, lse))
+    assert mine[0].shape == q.shape
+    m = torch.stack([p[1] for p in parts]).amax(0)
+    w = [torch.exp(p[1] - m)[..., None] for p in parts]
+    got = sum(p[0] * wi for p, wi in zip(parts, w)) / sum(w)
+    want = dec_ref.decode_attention_ref(q.float(), k.float() * (
+        ks if quant else 1), v.float() * (vs if quant else 1), pos, scale,
+        window=window)
+    assert float((got - want).abs().max()) <= _attn_tol(want)
+
+
+@pytest.mark.gpu
 def test_attention_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = torch.ones(1, 4, 2, 12, device=cuda)
     with pytest.raises(ValueError):                   # head_dim 12: no instance

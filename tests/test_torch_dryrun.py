@@ -7,7 +7,9 @@ single-pod (16, 16) mesh), which must not meet the test process's.
   reference's result keys less those without a counterpart (the XLA
   ``*_body_once`` counts, ``memory_analysis``'s temp and code bytes,
   ``lower_s``/``compile_s``: ``trace_s`` instead);
-* ``--variant kv8`` reads fewer bytes than the baseline on that cell;
+* ``--variant kv8`` reads fewer bytes than the baseline on that cell,
+  and neither gathers a cache leaf (flash-decoding: the same gathers for
+  both cache dtypes, fewer bytes than one layer's k cache gathered);
 * ``dryrun_svm`` at (16, 16), at a short solve: rank 0's FLOPs equal the
   one-device cost of its two slots, and its gathers move the wave's
   outputs (every rank's blocks, along 'model' and then 'data').
@@ -70,7 +72,8 @@ def test_full_config_cell(decode_cells):
     assert r["flops"] > 0
     assert set(r["collective_bytes"]) == set(r["collective_counts"])
     assert set(r["collective_bytes"]) <= COLLECTIVES
-    # the kv cache split over 'model' is gathered for each rank's rows
+    # the new token's q, k, v of every head gathered over 'model' (the
+    # cache split over the sequence stays where it is: flash-decoding)
     assert r["collective_bytes"]["all_gather_into_tensor"] > 0
 
 
@@ -79,10 +82,14 @@ def test_kv8_reads_fewer_bytes(decode_cells):
     base, kv8 = rows["baseline"], rows["kv8"]
     assert kv8["variant"] == "kv8"
     assert kv8["bytes_accessed"] < base["bytes_accessed"]
-    # the int8 codes are gathered in place of the bf16 keys and values
+    # no cache leaf is gathered, in either dtype: the gathers do not
+    # depend on the cache's, and move fewer bytes than one layer's k
+    # cache of a rank's 8 rows gathered over the sequence (32768 x 32
+    # heads x 64, bf16)
     gathered = "all_gather_into_tensor"
     assert (kv8["collective_bytes"][gathered]
-            < base["collective_bytes"][gathered])
+            == base["collective_bytes"][gathered])
+    assert base["collective_bytes"][gathered] < 8 * 32768 * 32 * 64 * 2
 
 
 SVM_SCRIPT = r"""

@@ -5,12 +5,19 @@ and activations sharded, on (4, 2) and on (2, 4) where two ranks share a
 kv head; stablelm-1.6b with FSDP and recomputed periods, its vocabulary
 of 503 unsplit and of 512 split over 'model'; gemma3-4b's tied
 embeddings with a vocabulary of 1024 split, and its 4 heads over 8 ranks,
-which do not divide), and the elastic re-shard of a checkpoint from a
-(4, 2) mesh to a (2, 4) one.  The twins of ``test_distributed_lm.py``
-and ``test_elastic.py``.  Each step records the regions it ran
-(``layers.REGION_TRACE``): head-parallel attention, vocab-parallel
-embedding and cross-entropy and the expert-parallel MoE on local shards,
-or ``run_on_rows`` where there is no split to use.
+which do not divide; jamba's mamba, attention, dense and MoE layers, the
+mamba mixer by channel with x_proj's product summed over 'model'; rwkv6
+by head, with its channel mix), and the elastic re-shard of a checkpoint
+from a (4, 2) mesh to a (2, 4) one.  The twins of
+``test_distributed_lm.py`` and ``test_elastic.py``.  Each step records
+the regions it ran (``layers.REGION_TRACE``): every block of a layer as
+one region from its input to its output (the norm on whole rows inside
+it, head-parallel attention, the dense MLP on its ff block, the
+expert-parallel MoE, mamba by channel, rwkv6 by head, the residual on
+the local block), the final norm, and the vocab-parallel embedding and
+cross-entropy, all on local shards; or ``run_on_rows`` where there is no
+split to use.  It also records every op of a layer's forward that has a
+DTensor operand (an op DTensor would plan): there is none.
 
 The JAX package's sharded step cannot run on this box (ROADMAP C3: jax
 0.9.0 refuses the embedding gather of a table sharded on d over 'model'
@@ -65,6 +72,9 @@ STEPS = {
     # 4 heads over 8 'model' ranks (gemma3-4b's 8 over 16): every head on
     # each rank's rows
     "gemma3-4b-uneven-heads": ("gemma3-4b", dict(), (1, 8)),
+    # mamba by channel (x_proj summed over 'model'), attention, dense, MoE
+    "jamba-v0.1-52b": ("jamba-v0.1-52b", dict(), (4, 2)),
+    "rwkv6-1.6b": ("rwkv6-1.6b", dict(), (4, 2)),
 }
 SHARD = dict(batch_axes=("data",), shard_activations=True)
 
@@ -115,19 +125,28 @@ def _step_on_mesh(cfg, params_np, batch_np, shape=(4, 2)):
              for k, v in batch_np.items()}
     ocfg = OptConfig(**LR)
     step = make_train_step(cfg, ocfg)
+    planned, inner = [], t_model._layer
+
+    def layer(*args, **kw):            # the layer's forward, its ops seen
+        with t_layers.dtensor_ops(planned):
+            return inner(*args, **kw)
+
     t_layers.REGION_TRACE = []
+    t_model._layer = layer
     try:
         p, o, m = step(params, init_opt_state(params, ocfg), batch)
         regions = {(name, tuple(sorted(info.items())))
                    for name, info in t_layers.REGION_TRACE}
     finally:
         t_layers.REGION_TRACE = None
+        t_model._layer = inner
     placed = all(leaf.placements == want for (_, leaf), (_, want) in zip(
         tree_items(p), tree_items(sharding_tree(
             t_model.build_template(cfg), mesh))))
     return (float(m["loss"].full_tensor()), float(m["grad_norm"].full_tensor()),
             {"/".join(k): v.full_tensor().numpy() for k, v in tree_items(p)},
-            placed, regions)
+            placed, regions, sorted(set(planned)))
+
 
 
 def _elastic(cfg, root):
@@ -243,7 +262,7 @@ def test_sharded_step_matches_reference_unsharded(lm, arch):
     """``test_distributed_lm.py``'s bounds against the JAX package's
     unsharded step: loss within 2e-4, every parameter within 5e-3."""
     ref, _, outs, _ = lm
-    loss, gnorm, params, _, _ = outs[0][arch]
+    loss, gnorm, params, _, _, _ = outs[0][arch]
     d_loss = abs(loss - ref[arch][0])
     worst = _worst(params, ref[arch][2])
     print(f"{arch} on {STEPS[arch][2]} vs the reference's unsharded step: loss "
@@ -262,7 +281,7 @@ def test_sharded_step_matches_port_unsharded(lm, arch):
     rank holding the same values, and every new parameter on its
     template's placements."""
     _, local, outs, _ = lm
-    loss, gnorm, params, placed, _ = outs[0][arch]
+    loss, gnorm, params, placed, _, _ = outs[0][arch]
     d_loss = abs(loss - local[arch][0])
     worst = _worst(params, local[arch][2])
     print(f"{arch} on {STEPS[arch][2]} vs the port's unsharded step: loss diff "
@@ -277,27 +296,37 @@ def test_sharded_step_matches_port_unsharded(lm, arch):
 
 def expected_regions(label: str) -> set:
     """The regions the step of ``label`` must run, with the local sizes
-    each sees: H / model query heads (and the kv heads they read), V /
-    model vocabulary rows and logit columns, E / model experts; the rows
-    path (``run_on_rows``, by region) where the heads or the vocabulary do
-    not split over 'model'."""
+    each sees: H / model query heads (and the kv heads they read), ff /
+    model MLP columns, E / model experts, d_inner / model mamba channels,
+    rwkv6's heads / model, V / model vocabulary rows and logit columns,
+    the final norm; the rows path (``run_on_rows``, by region) where the
+    heads or the vocabulary do not split over 'model'."""
     arch, kw, (_, m) = STEPS[label]
     cfg = _cfg(arch, **kw)
-    out = set()
-    if cfg.n_heads % m == 0:
-        kv = cfg.n_kv_heads // m if cfg.n_kv_heads % m == 0 else 1
-        out.add(("attention", (("heads", cfg.n_heads // m),
-                               ("kv_heads", kv))))
-    else:
-        out.add(("run_on_rows", (("region", "attention"),)))
+    out = {("norm", ())}
+    for mixer, mlp in cfg.period_pattern:
+        if mixer == "mamba":
+            out.add(("mamba", (("channels", cfg.d_inner // m),)))
+        elif mixer == "rwkv":
+            out.add(("rwkv", (("heads", cfg.rwkv_heads // m),)))
+        elif cfg.n_heads % m == 0:
+            kv = cfg.n_kv_heads // m if cfg.n_kv_heads % m == 0 else 1
+            out.add(("attention", (("heads", cfg.n_heads // m),
+                                   ("kv_heads", kv))))
+        else:
+            out.add(("run_on_rows", (("region", "attention"),)))
+        if mlp == "moe":
+            out.add(("moe", (("experts", cfg.n_experts // m),)))
+        elif mlp == "rwkv_cm":
+            out.add(("channel_mix", (("ff", cfg.d_ff // m),)))
+        else:
+            out.add(("dense", (("ff", cfg.d_ff // m),)))
     if cfg.vocab % 64 == 0:
         out |= {("embed", (("vocab_rows", cfg.vocab // m),)),
                 ("ce", (("vocab_cols", cfg.vocab // m),))}
     else:
         out |= {("run_on_rows", (("region", "embed"),)),
                 ("run_on_rows", (("region", "ce"),))}
-    if cfg.n_experts:
-        out.add(("moe", (("experts", cfg.n_experts // m),)))
     return out
 
 
@@ -305,15 +334,35 @@ def expected_regions(label: str) -> set:
 @pytest.mark.parametrize("label", sorted(STEPS))
 def test_regions_run_on_local_shards(lm, label):
     """Every rank ran exactly the regions ``expected_regions`` names:
-    attention on its H / model heads, the embedding and the cross-entropy
-    on its V / model block, the MoE on its E / model experts, each on
-    local shards (no ``run_on_rows`` for them); the rows path only where
-    the heads (gemma3-4b's uneven 4 over 8) or the vocabulary (503, 1031)
-    do not split."""
+    attention on its H / model heads, the dense MLP on its ff / model
+    columns, the MoE on its E / model experts, mamba on its channels,
+    rwkv6 on its heads, the embedding and the cross-entropy on its V /
+    model block, each on local shards (no ``run_on_rows`` for them); the
+    rows path only where the heads (gemma3-4b's uneven 4 over 8) or the
+    vocabulary (503, 1031) do not split."""
     _, _, outs, _ = lm
     want = expected_regions(label)
     for o in outs:
         assert o[label][4] == want, (label, o[label][4], want)
+
+
+@pytest.mark.timeout(900)
+@pytest.mark.parametrize("label", sorted(STEPS))
+def test_layers_take_no_dtensor_plan(lm, label):
+    """A sharded layer's norms and MLP run inside regions on local shards
+    (the dense MLP, the MoE or the channel mix in ``REGION_TRACE``, the
+    norms inside them and the mixers' regions), and no op of any layer's
+    forward, recomputed periods included, has a DTensor operand: DTensor's
+    sharding rules plan nothing of a layer, so the step is the same
+    program on every torch version."""
+    _, _, outs, _ = lm
+    arch, kw, _ = STEPS[label]
+    cfg = _cfg(arch, **kw)
+    mlps = {"dense": "dense", "moe": "moe", "rwkv_cm": "channel_mix"}
+    for o in outs:
+        names = {name for name, _ in o[label][4]}
+        assert {mlps[f] for _, f in cfg.period_pattern} <= names
+        assert o[label][5] == [], (label, o[label][5])
 
 
 @pytest.mark.timeout(900)

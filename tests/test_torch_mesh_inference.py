@@ -6,8 +6,16 @@ parameters split by their templates' placements, the batch over 'data'
 and the decode cache placed as the dry run places it
 (``launch.shapes.cache_structs``: kv leaves over the batch and the
 sequence, ``seq_axes`` 'model', recurrent states over the batch).
-Prefill and encode run attention head-parallel over 'model' (each rank's
-H / model heads on local shards), decode on each rank's rows.
+Prefill and encode run every block of a layer as a region on local
+shards (attention on each rank's H / model heads, the dense MLP on its ff
+block, the MoE on its experts, mamba on its channels, the norms on whole
+rows); decode runs flash-decoding: each rank attends to its own block of
+the ring with B10's partials and one merge over the sequence's ranks
+combines them, with no cache leaf gathered.  Three more decodes hold the
+split's edges: a short prompt in a long ring (a rank whose block holds no
+visible key) with a bf16 and an int8 cache, and gemma3-4b's window of 8
+over a ring of 12 decoded past its end (the visible run wraps the ring,
+and meets one block at both its ends).
 
 Each run is held against the port's unsharded run on the same weights and
 tokens, and its prefill against the JAX package's unsharded ``prefill``.
@@ -42,6 +50,9 @@ RUNS = (("stablelm-1.6b", "bf16"), ("stablelm-1.6b", "int8"),
         ("gemma3-4b", "bf16"), ("jamba-v0.1-52b", "bf16"),
         ("hubert-xlarge", "bf16"), ("qwen3-moe-235b-a22b", "bf16", (1, 4)))
 B, T, NEW = 4, 8, 3
+# (arch, kv cache dtype, prompt, ring, new tokens): the split's edges
+EDGES = (("stablelm-1.6b", "bf16", 3, 16, 3), ("stablelm-1.6b", "int8", 3, 16, 3),
+         ("gemma3-4b", "bf16", 8, 12, 6))
 TOL = 1e-5
 PREFILL_TOL = 1.1e-6     # relative: the head-parallel prefill (PERF.md)
 
@@ -59,11 +70,11 @@ def _cfg(arch: str, kv: str):
                                kv_cache_dtype=kv)
 
 
-def _inputs(cfg, seed: int = 1) -> np.ndarray:
+def _inputs(cfg, seed: int = 1, t: int = T) -> np.ndarray:
     rng = np.random.default_rng(seed)
     if cfg.input_kind == "embed":
-        return rng.standard_normal((B, T, cfg.d_frontend)).astype(np.float32)
-    return rng.integers(0, cfg.vocab, (B, T), dtype=np.int32)
+        return rng.standard_normal((B, t, cfg.d_frontend)).astype(np.float32)
+    return rng.integers(0, cfg.vocab, (B, t), dtype=np.int32)
 
 
 def _params(cfg):
@@ -76,16 +87,24 @@ def _flat(tree) -> dict:
             for k, v in t_layers.tree_items(tree)}
 
 
-def _serve(cfg, params, x, place=None):
-    """prefill (or encode) and NEW greedy decode steps -> (prefill logits,
-    prefill cache, decode logits, tokens, the regions prefill ran).
-    ``place(name, tensor)`` puts a tensor on the mesh (None: one
-    device)."""
+def _serve(cfg, params, x, place=None, ring=None, new=NEW):
+    """prefill (or encode) and ``new`` greedy decode steps over a ring of
+    ``ring`` (the prompt and the new tokens by default) -> (prefill
+    logits, prefill cache, decode logits, tokens, the regions prefill ran,
+    the regions decode ran).  ``place(name, tensor)`` puts a tensor on the
+    mesh (None: one device)."""
     from repro_torch.serve.kv_cache import pad_cache
     put = place or (lambda name, t: t)
     full = (lambda t: t.full_tensor()) if place else (lambda t: t)
     xs = put("batch", torch.from_numpy(x))
+    planned, inner = [], t_model._layer
+
+    def layer(*args, **kw):          # a layer's ops, DTensor's plans noted
+        with t_layers.dtensor_ops(planned):
+            return inner(*args, **kw)
+
     t_layers.REGION_TRACE = []
+    t_model._layer = layer
     try:
         if not cfg.is_decoder:
             lg = full(t_model.encode(cfg, params, xs)).numpy()
@@ -95,27 +114,37 @@ def _serve(cfg, params, x, place=None):
                    for n, i in t_layers.REGION_TRACE}
     finally:
         t_layers.REGION_TRACE = None
+        t_model._layer = inner
+    regions.add(("dtensor_planned", tuple(sorted(set(planned)))))
     if not cfg.is_decoder:
-        return lg, {}, [], [], regions
+        return lg, {}, [], [], regions, set()
+    t = x.shape[1]
     lg = full(lg)
     cache = t_layers.tree_map(full, cache)
     pre_cache = _flat(cache)
-    # the decode cache: the prompt's cache padded to the budget, placed
-    cache = put("cache", pad_cache(cfg, cache, T + NEW))
+    # the decode cache: the prompt's cache padded to the ring, placed
+    cache = put("cache", pad_cache(cfg, cache, ring or t + new))
     logits, toks = [], []
     tok = torch.argmax(lg, -1).to(torch.int32)[:, None]
-    for i in range(NEW):
-        toks.append(tok.numpy())
-        out, cache = t_model.decode_step(cfg, params, put("batch", tok),
-                                         cache, T + i)
-        out = full(out)
-        logits.append(out.numpy())
-        tok = torch.argmax(out, -1).to(torch.int32)[:, None]
-    return lg.numpy(), pre_cache, logits, toks, regions
+    t_layers.REGION_TRACE = []
+    try:
+        for i in range(new):
+            toks.append(tok.numpy())
+            out, cache = t_model.decode_step(cfg, params, put("batch", tok),
+                                             cache, t + i)
+            out = full(out)
+            logits.append(out.numpy())
+            tok = torch.argmax(out, -1).to(torch.int32)[:, None]
+        dec_regions = {(n, tuple(sorted(i.items())))
+                       for n, i in t_layers.REGION_TRACE}
+    finally:
+        t_layers.REGION_TRACE = None
+    return lg.numpy(), pre_cache, logits, toks, regions, dec_regions
 
 
-def _on_mesh(runs, params_np, xs):
-    """On each rank: every run of ``runs`` on its mesh."""
+def _on_mesh(runs, params_np, xs, edges=(), edge_params=(), edge_xs=()):
+    """On each rank: every run of ``runs`` on its mesh, then each of
+    ``edges`` on the (2, 2) mesh."""
     from torch.distributed.tensor import distribute_tensor
     from repro_torch.configs.common import ShapeSpec
     from repro_torch.launch import mesh as mesh_mod
@@ -123,17 +152,22 @@ def _on_mesh(runs, params_np, xs):
     meshes = {shape: mesh_mod.make_mesh(shape, ("data", "model"), "cpu")
               for shape in sorted({_mesh_shape(r) for r in runs})}
     out = []
-    for run, p_np, x in zip(runs, params_np, xs):
-        arch, kv = run[:2]
-        mesh = meshes[_mesh_shape(run)]
+    meshes.setdefault((2, 2), mesh_mod.make_mesh((2, 2), ("data", "model"),
+                                                 "cpu"))
+    jobs = [(run[:2], _mesh_shape(run), T + NEW, NEW) for run in runs] + [
+        (e[:2], (2, 2), e[3], e[4]) for e in edges]
+    for (arch, kv), shape, ring, new, p_np, x in zip(
+            *zip(*jobs), list(params_np) + list(edge_params),
+            list(xs) + list(edge_xs)):
+        mesh = meshes[shape]
         cfg = dataclasses.replace(_cfg(arch, kv), batch_axes=("data",),
                                   seq_axes=("model",))
         params = t_layers.tree_map(
             lambda a, pl: distribute_tensor(torch.from_numpy(a), mesh, pl,
                                             src_data_rank=None), p_np,
             t_layers.sharding_tree(t_model.build_template(cfg), mesh))
-        structs = cache_structs(cfg, ShapeSpec("decode", "decode", T + NEW,
-                                               B), mesh)
+        structs = cache_structs(cfg, ShapeSpec("decode", "decode", ring, B),
+                                mesh)
 
         def place(name, t, cfg=cfg, structs=structs, mesh=mesh):
             if name == "batch":
@@ -145,9 +179,10 @@ def _on_mesh(runs, params_np, xs):
                                                 src_data_rank=None),
                 t, structs)
 
-        out.append(_serve(cfg, params, x, place))
+        out.append(_serve(cfg, params, x, place, ring, new))
     out.append(_embed_uneven(meshes[(2, 2)]))
     out.append(_moe_uneven(meshes[(2, 2)]))
+    out.append(_decode_whole_rows(meshes[(2, 2)]))
     return out
 
 
@@ -207,18 +242,62 @@ def _moe_uneven(mesh) -> str:
     return ""
 
 
+def _decode_whole_rows(mesh) -> str:
+    """A sharded decode step of one attention layer whose cache holds
+    every row on every rank (not split as the rows of h are): the error
+    it raises (a sharded decode runs by flash-decoding only)."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.models import attention as t_attn
+    gen = torch.Generator().manual_seed(5)
+    d, nh, hd, s = 16, 2, 8, 6
+    p = {n: distribute_tensor(torch.randn(*sh, generator=gen), mesh,
+                              t_layers.placements(pl, mesh),
+                              src_data_rank=None)
+         for n, sh, pl in (("wq", (d, nh * hd), (None, "model")),
+                           ("wk", (d, nh * hd), (None, "model")),
+                           ("wv", (d, nh * hd), (None, "model")),
+                           ("wo", (nh * hd, d), ("model",)))}
+    h = distribute_tensor(torch.randn(B, 1, d, generator=gen), mesh,
+                          t_layers.placements(("data",), mesh),
+                          src_data_rank=None)
+    cache = {n: distribute_tensor(torch.randn(B, s, nh, hd, generator=gen),
+                                  mesh, t_layers.placements((), mesh),
+                                  src_data_rank=None) for n in ("k", "v")}
+    norm = ("rmsnorm", {"w": distribute_tensor(
+        torch.ones(d), mesh, t_layers.placements((), mesh),
+        src_data_rank=None)})
+    try:
+        t_attn.attention_layer(
+            p, h, torch.full((B, 1), s - 1), norm, cache=cache,
+            cache_pos=s - 1, n_heads=nh, n_kv=nh, head_dim=hd,
+            mask_kind="causal", window=0, rope_theta=1e4, rotary_frac=1.0,
+            dtype=torch.float32, impl="ref", chunk=16)
+    except ValueError as exc:
+        return str(exc)
+    return "ran"
+
+
 @pytest.fixture(scope="module")
 def runs():
     cfgs = [_cfg(*r[:2]) for r in RUNS]
     params = [_params(c) for c in cfgs]
     xs = [_inputs(c) for c in cfgs]
     params_np = [t_layers.tree_map(lambda v: v.numpy(), p) for p in params]
-    sharded = run_local(_on_mesh, 4, RUNS, params_np, xs)
+    e_cfgs = [_cfg(*e[:2]) for e in EDGES]
+    e_params = [_params(c) for c in e_cfgs]
+    e_xs = [_inputs(c, t=e[2]) for c, e in zip(e_cfgs, EDGES)]
+    sharded = run_local(_on_mesh, 4, RUNS, params_np, xs, EDGES,
+                        [t_layers.tree_map(lambda v: v.numpy(), p)
+                         for p in e_params], e_xs)
     plain = [_serve(c, p, x) for c, p, x in zip(cfgs, params, xs)]
     out = {r: (plain[i], [s[i] for s in sharded], params_np[i], xs[i])
            for i, r in enumerate(RUNS)}
-    out["embed_uneven"] = [s[-2] for s in sharded]
-    out["moe_uneven"] = [s[-1] for s in sharded]
+    for j, e in enumerate(EDGES):
+        out[e] = (_serve(e_cfgs[j], e_params[j], e_xs[j], None, e[3], e[4]),
+                  [s[len(RUNS) + j] for s in sharded], None, e_xs[j])
+    out["embed_uneven"] = [s[-3] for s in sharded]
+    out["moe_uneven"] = [s[-2] for s in sharded]
+    out["decode_whole_rows"] = [s[-1] for s in sharded]
     return out
 
 
@@ -230,7 +309,7 @@ def _close(got, want, tol=TOL):
 @pytest.mark.parametrize("run", RUNS, ids=[_id(r) for r in RUNS])
 def test_sharded_equals_unsharded(runs, run):
     plain, ranks, _, _ = runs[run]
-    lg, cache, dec, toks, _ = plain
+    lg, cache, dec, toks, _, _ = plain
     for rank in ranks:                       # every rank holds the result
         _close(rank[0], lg)
         _close(rank[0], lg, PREFILL_TOL)
@@ -242,25 +321,121 @@ def test_sharded_equals_unsharded(runs, run):
             assert np.array_equal(got, want)
 
 
+def layer_regions(cfg, m: int) -> set:
+    """The regions each block of ``cfg``'s layers runs as on local shards
+    at ``m`` 'model' ranks, with the local sizes each sees, and the final
+    norm's."""
+    out = {("norm", ())}
+    for mixer, mlp in cfg.period_pattern:
+        if mixer.startswith("attn"):
+            out.add(("attention", (("heads", cfg.n_heads // m), (
+                "kv_heads", max(cfg.n_kv_heads // m, 1)))))
+        elif mixer == "mamba":
+            out.add(("mamba", (("channels", cfg.d_inner // m),)))
+        else:
+            out.add(("rwkv", (("heads", cfg.rwkv_heads // m),)))
+        if mlp == "moe":
+            out.add(("moe", (("experts", cfg.n_experts // m),)))
+        elif mlp == "rwkv_cm":
+            out.add(("channel_mix", (("ff", cfg.d_ff // m),)))
+        else:
+            out.add(("dense", (("ff", cfg.d_ff // m),)))
+    return out
+
+
 @pytest.mark.parametrize("run", RUNS, ids=[_id(r) for r in RUNS])
 def test_prefill_runs_head_parallel(runs, run):
-    """The sharded prefill (encode) ran attention on each rank's H / model
-    query heads (and the kv heads they read: one shared where the kv
-    heads are fewer than the 'model' ranks), the MoE on its E / model
-    experts, and entered ``run_on_rows`` only for the embedding (the smoke
-    vocabularies do not split over 'model')."""
+    """The sharded prefill (encode) ran every block as a region on local
+    shards (``layer_regions``): attention on each rank's H / model query
+    heads (and the kv heads they read: one shared where the kv heads are
+    fewer than the 'model' ranks), the dense MLP on its ff / model block,
+    the MoE on its E / model experts, mamba on its channels, the norms
+    inside them on whole rows and the final norm as its own; it entered
+    ``run_on_rows`` only for the embedding (the smoke vocabularies do not
+    split over 'model')."""
     _, ranks, _, _ = runs[run]
     cfg = _cfg(*run[:2])
-    m = _mesh_shape(run)[1]
-    attn = any(k.startswith("attn") for k, _ in cfg.period_pattern)
-    want = {("attention", (("heads", cfg.n_heads // m), (
-        "kv_heads", max(cfg.n_kv_heads // m, 1))))} if attn else set()
-    if cfg.n_experts:
-        want.add(("moe", (("experts", cfg.n_experts // m),)))
+    want = layer_regions(cfg, _mesh_shape(run)[1])
     if cfg.input_kind == "tokens":
         want.add(("run_on_rows", (("region", "embed"),)))
     for rank in ranks:
-        assert rank[4] == want, (rank[4], want)
+        got = {r for r in rank[4] if r[0] != "dtensor_planned"}
+        assert got == want, (got, want)
+
+
+@pytest.mark.parametrize("run", RUNS, ids=[_id(r) for r in RUNS])
+def test_prefill_layers_take_no_dtensor_plan(runs, run):
+    """No op of a layer of the sharded prefill (encode) has a DTensor
+    operand: the norms, the blocks and the residual adds all run on local
+    shards, so DTensor's sharding rules plan nothing of a layer (the same
+    program on every torch version)."""
+    _, ranks, _, _ = runs[run]
+    for rank in ranks:
+        assert ("dtensor_planned", ()) in rank[4], rank[4]
+
+
+def _decode_regions(cfg, m: int, ring: int, rank: int) -> set:
+    """What a decode step on the (2, 2) mesh runs on 'model' rank
+    ``rank``: flash-decoding on its block of the ring (every head, the
+    sequence split over the m 'model' ranks), the dense MLP and MoE as
+    in prefill, a recurrent mixer on DTensor's own ops, the final norm,
+    and the embedding on each rank's rows; no ``run_on_rows`` for
+    attention."""
+    out = {r for r in layer_regions(cfg, m)
+           if r[0] not in ("attention", "mamba", "rwkv")}
+    lo = -(-ring // m)
+    if any(k.startswith("attn") for k, _ in cfg.period_pattern):
+        out.add(("decode_attention", (("heads", cfg.n_heads), (
+            "seq_block", lo if rank < m - 1 else ring - lo * (m - 1)))))
+    out.add(("run_on_rows", (("region", "embed"),)))
+    return out
+
+
+@pytest.mark.parametrize("run", [r for r in RUNS if _cfg(*r[:2]).is_decoder],
+                         ids=[_id(r) for r in RUNS
+                              if _cfg(*r[:2]).is_decoder])
+def test_decode_runs_flash_decoding(runs, run):
+    """Decode with the cache split over the sequence ran attention as
+    flash-decoding on each rank's block of the ring (``decode_attention``,
+    every head) and never through ``run_on_rows``: no rank gathers a
+    cache leaf."""
+    _, ranks, _, _ = runs[run]
+    cfg = _cfg(*run[:2])
+    m = _mesh_shape(run)[1]
+    for i, rank in enumerate(ranks):       # rank = data * m + model
+        want = _decode_regions(cfg, m, T + NEW, i % m)
+        assert rank[5] == want, (rank[5], want)
+        assert ("run_on_rows", (("region", "decode_attention"),)) not in \
+            rank[5]
+
+
+@pytest.mark.parametrize("edge", EDGES, ids=[_id(e) for e in EDGES])
+def test_split_decode_edges(runs, edge):
+    """The split's edges on the (2, 2) mesh (``EDGES``): decode logits
+    within ``TOL`` of the largest of the unsharded decode's and the greedy
+    tokens equal, each rank's decode through flash-decoding only.  With a
+    prompt of 3 in a ring of 16 the second 'model' rank's block [8, 16)
+    holds no visible key at the first steps (a log-sum-exp of -inf, a
+    weight of 0); gemma3-4b's window of 8 in a ring of 12 decoded to
+    position 13 wraps the ring (position 12 meets block [0, 6) at both
+    its ends: keys 5 and 0)."""
+    from repro_torch.kernels.decode_attention.ops import block_visible_range
+    arch, kv, t, ring, new = edge
+    cfg = _cfg(arch, kv)
+    plain, ranks, _, _ = runs[edge]
+    if arch == "gemma3-4b":
+        assert block_visible_range(ring, 12, cfg.window, 0, ring // 2) == \
+            (5, 2)
+    else:
+        assert block_visible_range(ring, t, 0, ring // 2, ring // 2)[1] == 0
+    for i, rank in enumerate(ranks):
+        assert len(rank[2]) == new
+        for got, want in zip(rank[2], plain[2]):
+            assert np.isfinite(got).all()
+            _close(got, want)
+        for got, want in zip(rank[3], plain[3]):
+            assert np.array_equal(got, want)
+        assert rank[5] == _decode_regions(cfg, 2, ring, i % 2), rank[5]
 
 
 @pytest.mark.parametrize("run", RUNS, ids=[_id(r) for r in RUNS])
@@ -288,6 +463,14 @@ def test_moe_experts_must_divide_model(runs):
     way."""
     for msg in runs["moe_uneven"]:
         assert "3 experts split evenly over the mesh's 'model' dim" in msg
+
+
+def test_decode_cache_must_be_split_for_flash_decoding(runs):
+    """A sharded decode whose cache is not laid out for flash-decoding
+    (here every row whole on every rank) raises on every rank; it is
+    never run by gathering the cache."""
+    for msg in runs["decode_whole_rows"]:
+        assert "laid out for flash-decoding" in msg, msg
 
 
 def test_embed_vocab_parallel_uneven_split(runs):

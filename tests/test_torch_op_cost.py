@@ -7,6 +7,10 @@ same config, and the per-device figure of a split matmul on two ranks.
 The byte model is the reference's, so the plain matmul and the loops
 agree exactly.  Loops are Python loops in the port: their trip counts
 are exact, where the reference multiplies scan bodies by their length.
+The MoE's chunk loop is counted as the reference counts its scan (one
+trip traced, times the trips): on smoke qwen3-moe with 5 and 4 chunks,
+unsharded and on a (2, 2) mesh of a fake process group, that count
+equals the trip-by-trip trace exactly.
 """
 from __future__ import annotations
 
@@ -236,3 +240,100 @@ def test_split_matmul_counts_per_device():
     for flops, nbytes in got:
         assert flops == glob.flops / 2 == 2 * (m // 2) * k * n
         assert nbytes == local_bytes
+
+
+MOE_SCAN = r"""
+import dataclasses, json, sys
+import torch
+from repro_torch.configs import get_arch
+from repro_torch.configs.common import ShapeSpec
+from repro_torch.launch import dryrun, shapes
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.train.lm_trainer import make_train_step
+from repro_torch.train.optimizer import OptConfig
+from repro_torch.models import layers
+from repro_torch.models.layers import shape_tree, tree_from_items, tree_items
+from repro_torch.models import model as M
+
+def terms(cm):
+    return {"flops": cm.cost.flops, "bytes": cm.cost.bytes,
+            "matmul_flops": cm.matmul_flops,
+            "collective_bytes": cm.collective_bytes,
+            "collective_counts": cm.collective_counts}
+
+smoke = get_arch(sys.argv[1]).smoke
+out = {}
+# unsharded: the loss and its gradients over 2 x 160 tokens, 5 chunks of 64
+cfg = dataclasses.replace(smoke, dtype=torch.float32)
+params = shape_tree(M.build_template(cfg))
+batch = {"inputs": torch.empty((2, 160), dtype=torch.int32, device="meta"),
+         "labels": torch.empty((2, 160), dtype=torch.int32, device="meta")}
+
+def grads(params, batch):
+    paths = [p for p, _ in tree_items(params)]
+    leaves = [l.detach().requires_grad_(True) for _, l in tree_items(params)]
+    with torch.enable_grad():
+        loss = M.loss_fn(cfg, tree_from_items(zip(paths, leaves)), batch)
+        return torch.autograd.grad(loss, leaves)
+
+def the_loop(fn):
+    # fn with the chunk loop run trip by trip under the meter, as the
+    # model runs it (checkpointed trips), in place of the meter's scan
+    def run(*a):
+        with layers.scan_override(None):
+            return fn(*a)
+    return run
+
+from repro_torch.launch.op_cost import run_counted
+out["unsharded"] = {"scan": terms(run_counted(grads, params, batch)[1]),
+                    "loop": terms(run_counted(the_loop(grads), params,
+                                              batch)[1])}
+# sharded: a train step on a (2, 2) mesh of a fake group, 8 x 64 tokens,
+# each 'data' rank's 256 tokens 4 chunks of 64 (experts over 'model')
+dryrun.join_fake_group(4)
+mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+cfg = dataclasses.replace(smoke, batch_axes=("data",),
+                          shard_activations=True, remat=True)
+ocfg = OptConfig()
+spec = ShapeSpec("train_tiny", "train", 64, 8)
+args = (shapes.param_structs(cfg, mesh), shapes.opt_structs(cfg, ocfg, mesh),
+        shapes.batch_structs(cfg, spec, mesh))
+step = make_train_step(cfg, ocfg)
+out["sharded"] = {"scan": terms(dryrun._run(step, args, mesh)[2]),
+                  "loop": terms(dryrun._run(the_loop(step), args, mesh)[2])}
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b",
+                                  "llama4-maverick-400b-a17b"])
+def test_moe_chunk_loop_counted_as_a_scan(arch):
+    """The MoE's chunk loop under the meter (``op_cost.loop_trips``):
+    trip 0 traced and counted for every chunk, forward, recompute and
+    backward, and the weights' gradients summed over the chunks, equals
+    the loop the model runs (``layers.scan_trips``: checkpointed trips),
+    traced trip by trip under the same meter, in FLOPs, bytes, matmul
+    FLOPs and collective bytes and counts, exactly: unsharded (5 chunks)
+    and as the sharded train step on a fake (2, 2) mesh (4 chunks a
+    rank) under a layer checkpoint: qwen3-moe's stops its recompute
+    before the loop's last trip; llama4-maverick has a shared expert
+    after the loop.  In a subprocess: the fake process group must not
+    meet the test process's."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    res = subprocess.run([sys.executable, "-c", MOE_SCAN, arch], env=env,
+                         cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-4000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    for case in ("unsharded", "sharded"):
+        scaled, full = out[case]["scan"], out[case]["loop"]
+        print(case, scaled)
+        assert scaled == full, (case, scaled, full)
+        assert scaled["flops"] > 0
+    assert out["sharded"]["scan"]["collective_bytes"]
