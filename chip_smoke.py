@@ -121,7 +121,16 @@ kernels from ``src/repro_torch/csrc/`` into ``build/kernels/`` and then:
      once a layer a step on each rank's half of the ring, its first
      launch replayed against the plain partials, the logits against the
      unsharded decode), and B9 at every config's local heads at the
-     production mesh's 16 'model' ranks; then the launch tooling
+     production mesh's 16 'model' ranks; then attention by head group
+     (``mesh_uneven``): gemma3-4b at its published widths, depth cut to
+     one period (5 sliding-window layers and 1 global), over a (1, 16)
+     mesh of 16 ranks on the one card, whose 16 'model' ranks do not
+     divide its 8 heads (8 groups of 2 ranks, a head and one of its
+     group's 2 rows each), a prefill of 2 x 2048 tokens and 4 decode
+     steps on the cache it lays out, split over the sequence, in f32 and
+     bf16, against rank 0's unsharded prefill and decode, each rank's
+     first B9 and B10-partials launch replayed against its plain
+     version; then the launch tooling
      (``launch``): ``python -m repro_torch.launch.serve`` for
      stablelm-1.6b and gemma3-4b (window attention) in processes of
      their own, each launching B9 once an attention layer and B10 once a
@@ -404,6 +413,20 @@ MESH_DECODE_NEW = 4
 # regions
 MESH_PREFILL_BEFORE_S = 25.1
 MESH_STEP_BEFORE_S = {"mesh": 5.62, "unsharded": 1.84}
+# attention by head group (A4): gemma3-4b at its published widths, depth
+# cut to one period (UNEVEN_LAYERS: 5 sliding-window layers and 1 global),
+# over a (1, 16) ("data", "model") mesh of 16 ranks on the one card
+# (MESH_TWO_BACKEND): 16 is the least 'model' size that leaves its 8 heads
+# uneven (8 groups of 2 ranks, a head each, each rank one of its group's
+# UNEVEN_B rows); a prefill of UNEVEN_B x UNEVEN_T tokens, longer than
+# the 1024 window, then MESH_DECODE_NEW decode steps on its cache split
+# over the sequence (a ring of UNEVEN_T + MESH_DECODE_NEW, 129 a rank);
+# the weights drawn on the card in row chunks of UNEVEN_CHUNK, each chunk
+# from its own seed, so that a rank keeps its block and never holds the
+# whole model (rank 0 alone runs the unsharded model)
+UNEVEN_ARCH, UNEVEN_LAYERS, UNEVEN_MESH = "gemma3-4b", 6, (1, 16)
+UNEVEN_B, UNEVEN_T = 2, 2048
+UNEVEN_CHUNK = 16384
 # the examples run on the card at their defaults (examples/<name>.py)
 EXAMPLES = ("torch_quickstart", "torch_serve_svm")
 
@@ -3582,9 +3605,14 @@ def mesh_prefill_ranks(seed: int):
         dcalls, dec_got = [], []
         zero_counts(tables)
         layers.REGION_TRACE = []
+
+        def launched(a, kw):     # a block with a visible key launches
+            return dec_ops.block_visible_range(
+                kw["block"][1], a[3], kw.get("window", 0), kw["block"][0],
+                a[1].shape[1])[1] > 0
         try:
             with recorded(dec_ops, "decode_attention_partials", dcalls,
-                          keep=1):
+                          keep=1, key=launched):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 for i, nxt in enumerate(feed):
@@ -3613,20 +3641,20 @@ def mesh_prefill_ranks(seed: int):
 
 
 def local_head_shapes(model: int = 16):
-    """(arch, heads, kv heads, head dim) a rank runs B9 at when each
-    attention config's prefill is head-parallel over ``model`` 'model'
-    ranks (the production mesh's 16); configs whose heads the ranks do
-    not divide run every head on each rank's rows and are left out."""
+    """(arch, heads, kv heads, head dim, mask kind) a rank runs B9 at when
+    each attention config's prefill is head-parallel over ``model``
+    'model' ranks (the production mesh's 16): its query heads and the kv
+    heads they read, by head group where the ranks do not divide the
+    heads (``models.attention.head_groups``: gemma3-4b 1 head, llama4 5)."""
     from repro_torch.configs import ARCH_IDS, get_arch
+    from repro_torch.models.attention import head_groups
     out = []
     for arch in ARCH_IDS:
         c = get_arch(arch).config
-        if (not any(m.startswith("attn") for m, _ in c.period_pattern)
-                or c.n_heads % model
-                or (c.n_kv_heads % model and model % c.n_kv_heads)):
+        if not any(m.startswith("attn") for m, _ in c.period_pattern):
             continue
-        out.append((arch, c.n_heads // model,
-                    max(c.n_kv_heads // model, 1), c.head_dim,
+        grp = head_groups(c.n_heads, c.n_kv_heads, c.head_dim, model)
+        out.append((arch, grp.heads, grp.kv, c.head_dim,
                     "bidir" if not c.is_decoder else "causal"))
     return out
 
@@ -3776,6 +3804,381 @@ def mesh_prefill(torch, dev, tables):
           "local_head_shapes": local_head_shapes(),
           "seconds": time.perf_counter() - t0,
           "earlier_seconds": MESH_PREFILL_BEFORE_S})
+    return paths, errs, cases
+
+
+def seeded_params(torch, cfg, seed: int, dev, mesh=None):
+    """``cfg``'s parameters drawn on the card leaf by leaf (the template's
+    init recipes, as ``models.layers.init_params``), each leaf in chunks
+    of UNEVEN_CHUNK leading rows, each chunk from a generator of its own
+    seed: the same values whoever draws them, and a rank draws only the
+    chunks its block meets.  With ``mesh`` each leaf is this rank's block
+    as a DTensor on the template's placements; the whole model never lies
+    on a rank.  Without, the whole leaves."""
+    import math
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    from repro_torch.models import layers, model as model_mod
+    tmpl = model_mod.build_template(cfg)
+    pls = dict(layers.tree_items(layers.sharding_tree(tmpl, mesh))
+               ) if mesh is not None else {}
+    items = []
+    for li, (path, ps) in enumerate(layers.tree_items(tmpl)):
+        shape = tuple(ps.shape)
+        if mesh is None:
+            lshape, off = shape, (0,) * len(shape)
+        else:
+            lshape, off = compute_local_shape_and_global_offset(
+                shape, mesh, pls[path])
+        if ps.init in ("zeros", "ones"):
+            local = torch.full(tuple(lshape), float(ps.init == "ones"),
+                               dtype=ps.dtype, device=dev)
+        else:
+            fan = ps.fan if ps.fan is not None else (
+                shape[0] if len(shape) <= 2 else math.prod(shape[:-1]))
+            std = ps.scale if ps.init == "normal" else ps.scale / math.sqrt(
+                max(fan, 1))
+            cols = tuple(slice(o, o + n) for o, n in zip(off[1:],
+                                                          lshape[1:]))
+            parts = []
+            for c, lo in enumerate(range(0, shape[0], UNEVEN_CHUNK)):
+                hi = min(lo + UNEVEN_CHUNK, shape[0])
+                a, b = max(lo, off[0]), min(hi, off[0] + lshape[0])
+                if a >= b:
+                    continue
+                gen = torch.Generator(device=dev).manual_seed(
+                    seed * 1_000_003 + li * 1009 + c)
+                v = torch.randn((hi - lo,) + shape[1:], generator=gen,
+                                dtype=torch.float32, device=dev)
+                parts.append((v[(slice(a - lo, b - lo),) + cols] * std)
+                             .to(ps.dtype))
+                del v
+            local = (torch.cat(parts) if parts else torch.empty(
+                tuple(lshape), dtype=ps.dtype, device=dev))
+        if mesh is not None:
+            local = DTensor.from_local(
+                local.contiguous(), mesh, pls[path], run_check=False,
+                shape=torch.Size(shape),
+                stride=layers._contiguous_stride(shape))
+        items.append((path, local))
+    return layers.tree_from_items(items)
+
+
+def mesh_uneven_ranks(seed: int):
+    """One rank of attention by head group on one card (``run_local`` over
+    MESH_TWO_BACKEND), in f32 and in bf16: gemma3-4b at its published
+    widths and UNEVEN_LAYERS layers, its parameters drawn from ``seed``
+    (``seeded_params``: this rank's blocks on their templates' placements
+    over a (1, 16) ("data", "model") mesh), a prefill of UNEVEN_B x
+    UNEVEN_T seeded tokens (B9 counted, its first launch replayed here
+    against the plain version, the regions that ran), then
+    MESH_DECODE_NEW decode steps on the prefill's own cache padded to the
+    ring and split over the sequence as ``launch.shapes.cache_structs``
+    places it (no communication: the prefill lays out every row with the
+    heads whole on each rank), B10's partials mode counted and its first
+    launch replayed; each step fed rank 0's unsharded greedy token.  Rank
+    0 first runs the unsharded prefill and decode (the logits to hold
+    the ranks against, the tokens to feed) and returns its first launches
+    for timing.  The vocab-split logits are gathered by c10d."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.common import ShapeSpec
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.shapes import cache_structs
+    from repro_torch.models import layers, model as model_mod
+    from repro_torch.serve.kv_cache import pad_cache
+    dev = runtime.resolve_device(None)
+    rank = dist.get_rank()
+    mesh = mesh_mod.make_mesh(UNEVEN_MESH, ("data", "model"))
+    group = mesh.get_group("model")
+    tables = (fa_ops.launches, dec_ops.launches)
+    ring = UNEVEN_T + MESH_DECODE_NEW
+    rep = [Replicate(), Replicate()]
+    out = {"rank": rank, "device": str(dev)}
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(get_arch(UNEVEN_ARCH).config,
+                                  n_layers=UNEVEN_LAYERS, dtype=dtype)
+        tok = torch.randint(0, cfg.vocab, (UNEVEN_B, UNEVEN_T),
+                            generator=torch.Generator(device=dev).manual_seed(
+                                seed + 1), device=dev, dtype=torch.int32)
+        res = {}
+        feed = None
+        if rank == 0:            # the unsharded prefill and decode
+            params = seeded_params(torch, cfg, seed, dev)
+            t0 = time.perf_counter()
+            want, cache0 = model_mod.prefill(cfg, params, tok)
+            torch.cuda.synchronize()
+            res["unsharded_prefill_s"] = time.perf_counter() - t0
+            cache0 = pad_cache(cfg, cache0, ring)
+            feed, want_dec = [], []
+            nxt = torch.argmax(want, -1).to(torch.int32)[:, None]
+            for i in range(MESH_DECODE_NEW):
+                feed.append(nxt.cpu())
+                lg, cache0 = model_mod.decode_step(cfg, params, nxt, cache0,
+                                                   UNEVEN_T + i)
+                want_dec.append(lg.cpu())
+                nxt = torch.argmax(lg, -1).to(torch.int32)[:, None]
+            res["want"], res["want_dec"] = want.cpu(), want_dec
+            del params, cache0, want
+            torch.cuda.empty_cache()
+        box = [feed]
+        dist.broadcast_object_list(box, src=0)
+        feed = box[0]
+        sharded = seeded_params(torch, cfg, seed, dev, mesh)
+        tok_d = distribute_tensor(tok, mesh, rep, src_data_rank=None)
+        calls = []
+        zero_counts(tables)
+        layers.REGION_TRACE = []
+        try:
+            with recorded(fa_ops, "flash_attention", calls, keep=1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = model_mod.prefill(cfg, sharded, tok_d)
+                torch.cuda.synchronize()
+                res["seconds"] = time.perf_counter() - t0
+            res["regions"] = sorted({(n, tuple(sorted(i.items())))
+                                     for n, i in layers.REGION_TRACE})
+        finally:
+            layers.REGION_TRACE = None
+        res["launches"] = read_counts(tables)
+        res["logits"] = layers.all_gather(logits.to_local(), 1, group).cpu()
+        del logits
+        # the first B9 launch against the plain version, here
+        (q, k, v), kw, o = calls[0]
+        kind, win = kw.get("mask_kind", "causal"), kw.get("window", 0)
+        want = fa_ref.flash_attention_ref(q, k, v, kind, win)
+        diff = (o.float() - want.float()).abs()
+        res["b9_replay"] = {
+            "shape": [*q.shape, k.shape[2]], "kind": kind, "window": win,
+            "err": float(diff.max()), "tol": attn_tol(want),
+            "over_bound": float((diff / attn_err_bound(
+                fa_ref, q, k, v, kind, win, want)).max())
+            if q.dtype == torch.bfloat16 else None}
+        if rank == 0:
+            res["b9_call"] = ((q.cpu(), k.cpu(), v.cpu()), kw, o.cpu())
+        del calls, q, k, v, o, want, diff
+        # decode on the prefill's own cache: every row, the heads whole
+        local = layers.tree_map(lambda t: t.to_local(), cache)
+        if any(a.shape != t.shape for a, t in zip(
+                (a for _, a in layers.tree_items(local)),
+                (t for _, t in layers.tree_items(cache)))):
+            raise Mismatch(f"mesh uneven rank {rank}: the prefill's cache "
+                           f"is not whole on the rank")
+        del cache
+        structs = cache_structs(dataclasses.replace(cfg, seq_axes=("model",)),
+                                ShapeSpec("decode", "decode", ring, UNEVEN_B),
+                                mesh)
+        cache_d = layers.tree_map(lambda a, st: distribute_tensor(
+            a, mesh, st.placements, src_data_rank=None),
+            pad_cache(cfg, local, ring), structs)
+        del local
+        ck = next(t for _, t in layers.tree_items(cache_d) if t.ndim >= 4)
+        lo, n_loc = layers.local_offset(ck)[-3], ck.to_local().shape[-3]
+        wins = [cfg.window if m == "attn_local" else 0
+                for m, _ in cfg.period_pattern]
+        res["expect_partials"] = sum(
+            dec_ops.block_visible_range(ring, UNEVEN_T + i, w, lo, n_loc)[1] > 0
+            for i in range(MESH_DECODE_NEW)
+            for w in (wins * cfg.n_layers)[:cfg.n_layers])
+        dcalls, dec_got = [], []
+        zero_counts(tables)
+        layers.REGION_TRACE = []
+
+        def launched(a, kw):     # a block with a visible key launches
+            return dec_ops.block_visible_range(
+                kw["block"][1], a[3], kw.get("window", 0), kw["block"][0],
+                a[1].shape[1])[1] > 0
+        try:
+            with recorded(dec_ops, "decode_attention_partials", dcalls,
+                          keep=1, key=launched):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i, nxt in enumerate(feed):
+                    lg, cache_d = model_mod.decode_step(
+                        cfg, sharded, distribute_tensor(
+                            nxt.to(dev), mesh, rep, src_data_rank=None),
+                        cache_d, UNEVEN_T + i)
+                    dec_got.append(layers.all_gather(lg.to_local(), 1,
+                                                     group).cpu())
+                torch.cuda.synchronize()
+                res["decode_seconds"] = time.perf_counter() - t0
+            res["decode_regions"] = sorted({(n, tuple(sorted(i.items())))
+                                            for n, i in layers.REGION_TRACE})
+        finally:
+            layers.REGION_TRACE = None
+        res["decode_launches"] = read_counts(tables)
+        res["decode_logits"] = dec_got
+        args, kw, (o, lse) = next(c for c in dcalls if launched(*c[:2]))
+        q, k, v, pos, scale = args[:5]
+        blo, bring = kw["block"]
+        s0, nvis = dec_ops.block_visible_range(bring, pos,
+                                               kw.get("window", 0), blo,
+                                               k.shape[1])
+        want_o, want_lse = dec_ref.decode_attention_partials_ref(
+            q, k, v, s0, nvis, scale)
+        res["b10_replay"] = {
+            "block": [blo, k.shape[1], bring], "pos": pos, "visible": nvis,
+            "err": float((o - want_o).abs().max()), "tol": attn_tol(want_o),
+            "lse_err": float((lse - want_lse).abs().max()),
+            "lse_tol": 1e-5 * max(1.0, float(want_lse.abs().max()))}
+        if rank == 0:
+            res["b10_call"] = (tuple(a.cpu() if hasattr(a, "cpu") else a
+                                     for a in args), kw,
+                               (o.cpu(), lse.cpu()))
+        del sharded, cache_d, dcalls
+        torch.cuda.empty_cache()
+        out[str(dtype)[6:]] = res
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+def mesh_uneven(torch, dev, tables):
+    """Attention by head group (A4) on the one card: 16 ranks
+    (``mesh_uneven_ranks``) of gemma3-4b over a (1, 16) mesh, in f32 and
+    bf16.  Each rank's prefill launches B9 once a layer at its group's one
+    head on its one row (``attention`` heads 1, kv heads 1, rows 1; no
+    ``run_on_rows``), the embedding vocab-parallel; the gathered logits
+    equal on every rank and held against rank 0's unsharded prefill: in
+    f32 within ``attn_tol``, in bf16 within LM_LOGIT_TOL of the largest
+    logit; the greedy tokens compared.  The decode on the prefill's cache
+    split over the sequence launches B10's partials once a layer a step
+    where the rank's block of the ring holds a visible key (the 1024
+    window leaves the early blocks none in the local layers), through the
+    ``decode_attention`` region only; its logits held against the
+    unsharded decode within the prefill's bounds.  Each rank's first B9
+    and partials launch is held against its plain version (in the rank:
+    ``attn_tol``, a bf16 B9 also value by value); rank 0's are replayed
+    here again for the kernel table.  Returns (the ranks' launch counts,
+    the replays' errors, their timing cases)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.local import run_local
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(UNEVEN_ARCH).config,
+                              n_layers=UNEVEN_LAYERS)
+    m = UNEVEN_MESH[1]
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    ranks = run_local(mesh_uneven_ranks, m, SEED, backend=MESH_TWO_BACKEND,
+                      threads=1, timeout=900, work_dir=str(MESH_DIR))
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    paths, errs, cases, report = {}, {}, [], {}
+    ring = UNEVEN_T + MESH_DECODE_NEW
+    blk = -(-ring // m)
+    regions = [("attention", (("heads", 1), ("kv_heads", 1),
+                              ("rows", UNEVEN_B // 2))),
+               ("dense", (("ff", cfg.d_ff // m),)),
+               ("embed", (("vocab_rows", cfg.vocab // m),)), ("norm", ())]
+    for dt in ("float32", "bfloat16"):
+        want = ranks[0][dt]["want"]
+        for r in ranks:
+            got, i = r[dt], r["rank"]
+            label = f"mesh uneven {UNEVEN_MESH} {dt} rank {i}"
+            require_launches(label, got["launches"],
+                             {"flash_attention": cfg.n_layers})
+            paths[f"uneven_prefill[{dt} rank {i}]"] = got["launches"]
+            if got["regions"] != regions:
+                raise Mismatch(f"{label}: regions {got['regions']}, "
+                               f"expected {regions}")
+            name = f"{label}: logits vs the unsharded prefill"
+            if dt == "float32":
+                check(name, float((got["logits"] - want).abs().max()),
+                      attn_tol(want))
+            else:
+                _tol_share(name, got["logits"].float(), want.float(),
+                           LM_LOGIT_TOL)
+            rep = got["b9_replay"]
+            check(f"flash_attention[{label} first launch: {rep['shape']} "
+                  f"{rep['kind']}]", rep["err"], rep["tol"])
+            if rep["over_bound"] is not None and not rep["over_bound"] <= 1:
+                raise Mismatch(f"{label}: B9's first launch "
+                               f"{rep['over_bound']} times its bound")
+            path = f"uneven_decode[{dt} rank {i}]"
+            if got["expect_partials"] < 1:
+                raise Mismatch(f"{label}: no visible key in the rank's block")
+            require_launches(f"{label} decode", got["decode_launches"],
+                             {"decode_attention_partials":
+                              got["expect_partials"]})
+            paths[path] = got["decode_launches"]
+            seq = blk if i < m - 1 else ring - blk * (m - 1)
+            want_dec = sorted([("decode_attention", (
+                ("heads", cfg.n_heads), ("seq_block", seq)))] + regions[1:])
+            if got["decode_regions"] != want_dec:
+                raise Mismatch(f"{label} decode: regions "
+                               f"{got['decode_regions']}, expected {want_dec}")
+            for j, (lg, w) in enumerate(zip(got["decode_logits"],
+                                            ranks[0][dt]["want_dec"])):
+                name = f"{label} decode step {j}: logits vs the unsharded"
+                if dt == "float32":
+                    check(name, float((lg - w).abs().max()), attn_tol(w))
+                else:
+                    _tol_share(name, lg.float(), w.float(), LM_LOGIT_TOL)
+            rep = got["b10_replay"]
+            name = (f"decode_attention_partials[{label} first launch: "
+                    f"block {rep['block']}, pos {rep['pos']}, visible "
+                    f"{rep['visible']}]")
+            check(name, rep["err"], rep["tol"])
+            check(name + "[lse]", rep["lse_err"], rep["lse_tol"])
+            if not torch.equal(got["logits"], ranks[0][dt]["logits"]):
+                raise Mismatch(f"{label}: logits differ from rank 0's")
+        r0 = ranks[0][dt]
+        args, kw, o = r0["b9_call"]
+        err, case = attn_replay(torch, f"mesh uneven {UNEVEN_MESH} rank 0",
+                                "first launch", "flash_attention",
+                                (tuple(a.to(dev) for a in args), kw,
+                                 o.to(dev)))
+        errs[case[0]] = err
+        cases.append(case + (f"uneven_prefill[{dt} rank 0]",))
+        args, kw, out = r0["b10_call"]
+        err, case = attn_replay(
+            torch, f"mesh uneven {UNEVEN_MESH} rank 0", "first launch",
+            "decode_attention_partials",
+            (tuple(a.to(dev) if hasattr(a, "to") else a for a in args), kw,
+             tuple(x.to(dev) for x in out)))
+        errs[case[0]] = err
+        cases.append(case + (f"uneven_decode[{dt} rank 0]",))
+        report[dt] = {
+            "prefill_s": [r[dt]["seconds"] for r in ranks],
+            "unsharded_prefill_s": r0["unsharded_prefill_s"],
+            "logits_max_abs_diff": max(float((r[dt]["logits"].float()
+                                              - want.float()).abs().max())
+                                       for r in ranks),
+            "max_abs_logit": float(want.float().abs().max()),
+            "greedy_equal": int((r0["logits"].argmax(-1)
+                                 == want.argmax(-1)).sum()),
+            "greedy_of": UNEVEN_B,
+            "b9_replay_max_err": max(r[dt]["b9_replay"]["err"]
+                                     for r in ranks),
+            "decode": {
+                "steps": MESH_DECODE_NEW, "ring": ring,
+                "seconds": [r[dt]["decode_seconds"] for r in ranks],
+                "partials_launches": [r[dt]["expect_partials"]
+                                      for r in ranks],
+                "logits_max_abs_diff": max(
+                    float((g.float() - w.float()).abs().max())
+                    for r in ranks for g, w in zip(
+                        r[dt]["decode_logits"], r0["want_dec"])),
+                "greedy_equal": sum(int((g.argmax(-1) == w.argmax(-1)).sum())
+                                    for g, w in zip(r0["decode_logits"],
+                                                    r0["want_dec"])),
+                "greedy_of": MESH_DECODE_NEW * UNEVEN_B,
+                "b10_replay_max_err": max(r[dt]["b10_replay"]["err"]
+                                          for r in ranks)}}
+    emit({"phase": "mesh_uneven", "arch": cfg.name,
+          "layers": UNEVEN_LAYERS, "mesh": list(UNEVEN_MESH),
+          "backend": MESH_TWO_BACKEND, "tokens": [UNEVEN_B, UNEVEN_T],
+          "devices": sorted({r["device"] for r in ranks}),
+          "regions": [n for n, _ in regions], **report,
+          "peak_gb": [r["peak_gb"] for r in ranks],
+          "seconds": time.perf_counter() - t0})
     return paths, errs, cases
 
 
@@ -5389,6 +5792,13 @@ def main() -> int:
     emit({"phase": "mesh_prefill_launches", "per_path": prefill_paths})
     launches = {name: n + sum(c.get(name, 0) for c in prefill_paths.values())
                 for name, n in launches.items()}
+    uneven_paths, uneven_errs, uneven_cases = mesh_uneven(torch, dev, tables)
+    emit({"phase": "mesh_uneven_launches", "per_path": uneven_paths})
+    launches = {name: n + sum(c.get(name, 0) for c in uneven_paths.values())
+                for name, n in launches.items()}
+    prefill_paths.update(uneven_paths)
+    prefill_errs.update(uneven_errs)
+    prefill_cases += uneven_cases
 
     # ------------------------------------------ 6c. the launch tooling (A5)
     launch_paths, launch_errs, launch_cases = launch_phase(torch, dev, dry)

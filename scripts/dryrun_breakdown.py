@@ -28,8 +28,10 @@ counts should be equal.
 
 Prints one JSON line: the cell's totals, the seconds the step took to
 trace (``trace_s``, this counting included), the ``--top`` call sites by
-FLOPs, and the collective bytes and counts by (issuer, collective).  Run
-it as its own process (the fake group must not meet a real one).
+FLOPs, the collective bytes and counts by (issuer, collective), and the
+regions rank 0 ran with their local sizes (``models.layers.REGION_TRACE``:
+e.g. attention's heads, kv heads and, by head group, rows).  Run it as
+its own process (the fake group must not meet a real one).
 """
 from __future__ import annotations
 
@@ -45,13 +47,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 
 from repro_torch.launch import dryrun, op_cost  # noqa: E402
 from repro_torch.launch import shapes as shapes_mod  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
 
 _REGION = {"_gather_dim", "_scatter_dim", "_reduce"}
 # layers.py's collective plumbing, skipped when naming a region's issuer
 _PLUMBING = _REGION | {"forward", "backward", "apply", "all_gather",
                        "all_reduce", "all_reduce_max", "all_reduce_sum_grad",
                        "act", "out", "weight", "weights", "gather_rows",
-                       "<lambda>", "<listcomp>", "<dictcomp>", "tree_map"}
+                       "model_blocks",
+                       "<lambda>", "<listcomp>", "<dictcomp>", "<genexpr>",
+                       "tree_map"}
 _REDISTRIBUTE = {"redistribute_local_tensor", "redistribute"}
 
 
@@ -122,15 +127,18 @@ def main() -> int:
                                   overrides=overrides)
     step = dryrun.build_step_fn(spec)
     if args.plain_loop:
-        from repro_torch.models import layers
         scan_step = step
 
         def step(*a):
             with layers.scan_override(None):
                 return scan_step(*a)
+    layers.REGION_TRACE = []
     t0 = time.time()
     _, _, cm = dryrun._run(step, spec["args"], mesh)
     trace_s = time.time() - t0
+    regions = sorted({(name, tuple(sorted(info.items())))
+                      for name, info in layers.REGION_TRACE})
+    layers.REGION_TRACE = None
     print(json.dumps({
         "arch": args.arch, "shape": args.shape, "mesh": mesh_name,
         "n_layers": spec["cfg"].n_layers, "plain_loop": args.plain_loop,
@@ -139,7 +147,8 @@ def main() -> int:
         "collective_bytes": dict(cm.collective_bytes),
         "flops_by_site": dict(flops.most_common(args.top)),
         "collective_bytes_by_issuer": dict(coll.most_common()),
-        "collective_counts_by_issuer": dict(calls.most_common())}))
+        "collective_counts_by_issuer": dict(calls.most_common()),
+        "regions": [[name, dict(info)] for name, info in regions]}))
     return 0
 
 

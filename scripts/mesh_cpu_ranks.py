@@ -8,8 +8,10 @@ Runs the rank job of ``tests/test_torch_lm_mesh.py`` (``_lm_job``: 8 gloo
 ranks on one host; one train step of each case of its ``STEPS`` in f32 on
 a ``("data", "model")`` mesh, activations sharded: qwen3-moe on (4, 2)
 and (2, 4), stablelm-1.6b with FSDP specs and recomputed periods at
-vocabularies 503 and 512, gemma3-4b at vocabulary 1024 and with its heads
-over 8 ranks, jamba and rwkv6 on (4, 2); then ``Trainer(mesh=...)`` 3 steps on (4, 2) with a
+vocabularies 503 and 512, gemma3-4b at vocabulary 1024 and with its 4
+heads over 8 ranks (head groups of 2 ranks), llama4-maverick with 6 heads
+over 4 ranks on (2, 4), jamba and rwkv6 on (4, 2); then
+``Trainer(mesh=...)`` 3 steps on (4, 2) with a
 checkpoint, restored and run 2 more steps on (2, 4) and on (4, 2)), and
 holds it to the test's bounds against the port's own unsharded runs on
 the same weights and batches: loss within 2e-4 and parameters within 5e-3
@@ -62,7 +64,7 @@ def unsharded(ocfg):
         params = model_mod.init_params(cfg, torch.Generator().manual_seed(0))
         params_np = layers.tree_map(lambda t: t.numpy().copy(), params)
         batch = {k: v.numpy() for k, v in TokenPipeline(TokenPipelineConfig(
-            vocab=cfg.vocab, seq_len=32, global_batch=8, seed=0)).batch(0)
+            vocab=cfg.vocab, seq_len=32, global_batch=lm_mesh.BATCH, seed=0)).batch(0)
             .items()}
         p, _, m = make_train_step(cfg, ocfg)(
             params, init_opt_state(params, ocfg),

@@ -6,18 +6,19 @@ LM step, per model config.
 
 The sharded step runs four regions on local shards with explicit
 collectives (``models.layers.Region``): attention head-parallel over
-'model', the embedding and the cross-entropy vocab-parallel, the MoE
-expert-parallel; what has no split to use runs on each rank's rows
-(``layers.run_on_rows``: heads the 'model' ranks do not divide, a
-vocabulary that is not split).  Prints one JSON line a config: each
-region's path and local sizes, and for one rank, computed from the
-templates (no run):
+'model' (by head group where 'model' does not divide the heads:
+``models.attention.head_groups``), the embedding and the cross-entropy
+vocab-parallel, the MoE expert-parallel; what has no split to use runs on
+each rank's rows (``layers.run_on_rows``: a vocabulary that is not split).
+Prints one JSON line a config: each region's path and local sizes, and
+for one rank, computed from the templates (no run):
 
   * ``weight_bytes_a_step``: the weights it holds for the region in a
     step: its 'model' blocks with the FSDP split over 'data' gathered
-    (``fsdp_params``), a kv head shared by neighbouring 'model' ranks
-    whole; on the rows path the whole matrices (their gradients are
-    reduced as sums of the same size);
+    (``fsdp_params``), a head group's wq / wo blocks and the wk / wv
+    blocks of the neighbours that hold its kv heads gathered; on the rows
+    path the whole matrices (their gradients are reduced as sums of the
+    same size);
   * ``shard_bytes_a_step``: the shard of those weights the specs give it;
   * ``activation_bytes_a_token_layer``: the activations it holds whole
     for the region, per token and layer: the row with d whole (a
@@ -36,6 +37,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 
 from repro_torch.configs import ARCH_IDS, get_arch  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
+from repro_torch.models.attention import head_groups  # noqa: E402
 
 
 def shard_factor(spec, sizes: dict) -> int:
@@ -46,20 +48,14 @@ def shard_factor(spec, sizes: dict) -> int:
     return n
 
 
-def head_parallel(cfg, m: int) -> bool:
-    """``models.attention.head_parallel``'s rule on the template."""
-    return (cfg.n_heads % m == 0
-            and (cfg.n_kv_heads % m == 0 or m % cfg.n_kv_heads == 0)
-            and (cfg.n_kv_heads * cfg.head_dim) % m == 0)
-
-
 def regions(cfg, sizes: dict) -> dict:
     """Each region's path and, for one rank: the weight bytes it holds
     for the region in a step (``weight_bytes_a_step``: its 'model' blocks
     with the FSDP split gathered, a shared kv head whole; the whole
     matrices on the rows path), the shard the specs give it
     (``shard_bytes_a_step``) and the activation bytes it gathers per token
-    and layer."""
+    and layer (a head group's rank computes on 1 / ``ranks_a_group`` of
+    the rows it gathers)."""
     m = sizes["model"]
     esize = cfg.dtype.itemsize
     d, hd = cfg.d_model, cfg.head_dim
@@ -74,12 +70,14 @@ def regions(cfg, sizes: dict) -> dict:
     n_attn = sum(k.startswith("attn") for k, _ in layer_of)
     if n_attn:
         per_layer = esize * d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
-        if head_parallel(cfg, m):
-            kv = (cfg.n_kv_heads // m if cfg.n_kv_heads % m == 0 else 1)
-            held = esize * d * hd * (2 * cfg.n_heads // m + 2 * kv)
+        grp = head_groups(cfg.n_heads, cfg.n_kv_heads, hd, m)
+        if grp is not None:
+            kv_cols = grp.kv_ranks * cfg.n_kv_heads * hd // m
+            held = esize * d * (2 * grp.heads * hd + 2 * kv_cols)
             out["attention"] = {
-                "path": "head-parallel", "heads_a_rank": cfg.n_heads // m,
-                "kv_heads_a_rank": kv,
+                "path": "head-parallel" if grp.ranks == 1 else "head groups",
+                "heads_a_rank": grp.heads, "kv_heads_a_rank": grp.kv,
+                "ranks_a_group": grp.ranks,
                 "weight_bytes_a_step": held * n_attn,
                 "activation_bytes_a_token_layer": esize * d}
         else:

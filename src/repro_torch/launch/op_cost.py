@@ -48,8 +48,8 @@ by the device count, the reference's per-device figure; so are the
 regions on local shards (``layers.Region``: head-parallel attention,
 the vocab-parallel embedding and cross-entropy, the expert-parallel
 MoE), whose collectives are the c10d ones they issue; what runs whole on
-each rank's rows (``layers.run_on_rows``: heads the 'model' ranks do
-not divide, an unsplit vocabulary) counts whole.  The
+each rank's rows (``layers.run_on_rows``: an unsplit vocabulary, a head
+group that cannot split its rows) counts whole.  The
 shape computations DTensor runs on global fake tensors to plan a
 sharding are not the rank's work and are left out.
 """

@@ -26,7 +26,9 @@ JAX package returns a new cache; in place saves a copy of every layer's
 cache per decoded token.
 
 Under a mesh the layer is one region on local shards (:func:`attention_layer`):
-prefill, encode and training run head-parallel; decode over a cache
+prefill, encode and training run head-parallel, by head group where the
+'model' ranks do not divide the heads (:func:`head_groups`: each group's
+ranks split its rows); decode over a cache
 split over the sequence runs flash-decoding (:func:`_decode_split`): each
 rank runs B10's partials mode on its own block of the ring for its rows
 and every head, and one merge over the sequence's ranks (an all-reduce
@@ -36,7 +38,8 @@ weights packed together) gives the whole; no cache leaf is gathered.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Tuple
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -160,22 +163,6 @@ def quantize_kv(x: Tensor) -> Tuple[Tensor, Tensor]:
     return q8, sc
 
 
-def _split_heads(x: Tensor, n: int, d: int) -> Tensor:
-    """(B, T, n d) -> (B, T, n, d).  A DTensor whose last dim is split
-    over a mesh dim that does not divide the n heads (gemma3-4b's 8 heads
-    over 16 ranks) has that dim gathered first: DTensor cannot unflatten
-    an uneven split."""
-    if is_dtensor(x):
-        from torch.distributed.tensor import Replicate, Shard
-        mesh = x.device_mesh
-        last = Shard(x.ndim - 1)
-        pl = [Replicate() if p == last and n % mesh.size(i) else p
-              for i, p in enumerate(x.placements)]
-        if pl != list(x.placements):
-            x = x.redistribute(mesh, pl)
-    return x.reshape(x.shape[0], x.shape[1], n, d)
-
-
 def attention_block(
     p: Dict[str, Tensor],
     x: Tensor,                     # (B, T, d)
@@ -204,10 +191,10 @@ def attention_block(
     runs as :func:`attention_layer`, which calls this block only on local
     tensors.
     """
-    q = _split_heads(layers.linear(x, p["wq"], dtype), n_heads, head_dim)
-    k = _split_heads(layers.linear(x, p["wk"], dtype), n_kv, head_dim)
-    v = _split_heads(layers.linear(x, p["wv"], dtype), n_kv, head_dim)
-    b, t = q.shape[:2]
+    b, t = x.shape[:2]
+    q = layers.linear(x, p["wq"], dtype).reshape(b, t, n_heads, head_dim)
+    k = layers.linear(x, p["wk"], dtype).reshape(b, t, n_kv, head_dim)
+    v = layers.linear(x, p["wv"], dtype).reshape(b, t, n_kv, head_dim)
     if "q_norm" in p:
         q = _qk_norm(q, p["q_norm"])
         k = _qk_norm(k, p["k_norm"])
@@ -247,22 +234,78 @@ def attention_block(
     return layers.linear(out, p["wo"], dtype), new_cache
 
 
+class HeadGroups(NamedTuple):
+    """How the query heads split over the m 'model' ranks: ``groups``
+    (g = gcd(H, m)) groups of ``ranks`` (r = m / g) consecutive ranks,
+    group j owning the ``heads`` query heads [j H / g, (j + 1) H / g)
+    (exactly the wq column blocks of its r ranks) and reading the ``kv``
+    kv heads from ``kv_first(j)`` on: whole kv heads of its own, or one
+    kv head shared by ``share`` groups.  ``kv_ranks`` is the least run of
+    consecutive ranks whose wk / wv column blocks hold every kv head the
+    group of each of them reads.  r is 1 where the ranks divide the
+    heads."""
+    groups: int
+    ranks: int
+    heads: int
+    kv: int
+    share: int
+    kv_ranks: int
+
+    def kv_first(self, group: int) -> int:
+        return group * self.kv // self.share
+
+
+def head_groups(n_heads: int, n_kv: int, head_dim: int, m: int
+                ) -> Optional[HeadGroups]:
+    """The head groups of ``n_heads`` query and ``n_kv`` kv heads over
+    ``m`` 'model' ranks (:class:`HeadGroups`), or None where the column
+    blocks are uneven (H D or Hk D not a multiple of m) or a group's
+    query heads would read part of one kv head and part of the next (no
+    config of the repo at a 'model' size that is a power of two)."""
+    if (n_heads * head_dim) % m or (n_kv * head_dim) % m:
+        return None
+    g = math.gcd(n_heads, m)
+    hg, per_kv = n_heads // g, n_heads // n_kv
+    if hg % per_kv == 0:
+        kv, share = hg // per_kv, 1
+    elif per_kv % hg == 0:
+        kv, share = 1, per_kv // hg
+    else:
+        return None
+    cb = n_kv * head_dim // m                  # wk's columns a rank
+    for s in (d for d in range(1, m + 1) if m % d == 0):
+        grp = HeadGroups(g, m // g, hg, kv, share, s)
+        spans = ((q, grp.kv_first(q // grp.ranks) * head_dim)
+                 for q in range(m))
+        if all(q // s * s * cb <= c0 and c0 + kv * head_dim
+               <= (q // s + 1) * s * cb for q, c0 in spans):
+            return grp
+    return None
+
+
 def head_parallel(x, p: Dict[str, Tensor], n_heads: int, n_kv: int,
                   head_dim: int) -> bool:
-    """Whether the block runs head-parallel over the mesh's 'model' dim:
-    x sharded, wq/wk/wv split there on their columns and wo on its rows,
-    the query heads divided evenly, and each rank's query heads reading
-    kv heads of its own (``n_kv`` a multiple of the 'model' ranks) or one
-    kv head shared with its neighbours (the ranks a multiple of
-    ``n_kv``).  Otherwise (gemma3-4b's 8 heads or llama4-maverick's 40
-    over 16 ranks) the block runs on each rank's rows with every head."""
+    """Whether the block runs head-parallel over the mesh's 'model' dim
+    (:func:`_attention_heads`): x sharded with its rows not split over
+    'model', wq/wk/wv split there on their columns and wo on its rows,
+    in equal blocks, and the heads in groups (:func:`head_groups`).  Where
+    the 'model' ranks divide the heads each rank is a group of its own;
+    elsewhere (gemma3-4b's 8 heads or llama4-maverick's 40 over 16 ranks:
+    8 groups of 2) each group's ranks must split the rows each of them
+    holds evenly among them.  Otherwise -- a batch of B rows over
+    'data' ranks with B / data not a multiple of the ranks of a group,
+    e.g. a batch-1 prefill on a (1, 16) mesh -- the block runs on each
+    rank's rows with every head (``layers.rows_layer``)."""
     if (not is_dtensor(x) or layers.model_split(x, 0)
             or not all(layers.model_split(p[n], 1) for n in ("wq", "wk", "wv"))
             or not layers.model_split(p["wo"], 0)):
         return False
-    m = x.device_mesh.size(x.device_mesh.mesh_dim_names.index("model"))
-    return (n_heads % m == 0 and (n_kv % m == 0 or m % n_kv == 0)
-            and (n_kv * head_dim) % m == 0)
+    reg = layers.Region(x)
+    grp = head_groups(n_heads, n_kv, head_dim, reg.model_size)
+    if grp is None:
+        return False
+    batch_ranks = math.prod(reg.mesh.size(i) for i in reg.batch)
+    return grp.ranks == 1 or x.shape[0] % (batch_ranks * grp.ranks) == 0
 
 
 def attention_layer(p: Dict[str, Tensor], h, positions: Tensor,
@@ -270,10 +313,11 @@ def attention_layer(p: Dict[str, Tensor], h, positions: Tensor,
                     cache: Optional[Dict[str, Tensor]] = None,
                     cache_pos: Optional[int] = None, **kw):
     """The sharded layer h + attention(norm(h)) -> (h, cache): head-parallel
-    on local shards where the heads split over 'model'
+    on local shards, by head group where 'model' does not divide the heads
     (:func:`head_parallel`); decode over a cache split over the sequence
-    by flash-decoding (:func:`decode_split`); otherwise on each rank's rows
-    with every head whole (``layers.rows_layer``).  A decode whose cache is
+    by flash-decoding (:func:`decode_split`); otherwise (a group that
+    cannot split its rows) on each rank's rows with every head whole
+    (``layers.rows_layer``).  A decode whose cache is
     not laid out for flash-decoding (``launch.shapes.cache_structs`` lays
     out every sharded cache so) raises."""
     n_heads, n_kv, d = kw["n_heads"], kw["n_kv"], kw["head_dim"]
@@ -422,29 +466,34 @@ def _attention_heads(p: Dict[str, Tensor], x, positions: Tensor, *,
                      window: int, rope_theta: float, rotary_frac: float,
                      dtype: torch.dtype, impl: str, chunk: int,
                      norm: Optional[Tuple[str, Dict[str, Tensor]]] = None):
-    """Head-parallel attention on local shards (a :class:`layers.Region`):
-    x's rows with d whole, each rank's n_heads / model query heads (wq's
-    column block) and the kv heads they read: wk's and wv's column blocks
-    where the kv heads divide over 'model', else the one kv head the
-    rank's group of model / n_kv neighbours shares, its columns gathered
-    within that group only.  The output times wo's row block is a sum over
-    'model', reduce-scattered onto d (or all-reduced) into x's layout.
-    With ``norm`` the region is the whole layer: x normed on whole rows,
-    and x + attention(norm(x)) returned, the residual on the local block."""
+    """Head-parallel attention on local shards (a :class:`layers.Region`)
+    by head group (:func:`head_groups`): x's rows with d whole, split
+    among the r ranks of this rank's group (its block of them); the
+    group's query heads (wq's column blocks and wo's row blocks gathered
+    within the group) and the kv heads they read (wk's and wv's column
+    blocks gathered over the ``kv_ranks`` neighbours that hold them, and
+    their columns kept); B9 once at (rows / r, T, H / g, D).  The output
+    times wo's rows is a partial sum over the groups, entered in this
+    rank's block of the rows and reduce-scattered onto d (or all-reduced)
+    over 'model' into x's layout.  Where the ranks divide the heads (r 1)
+    each rank runs its own heads on all its rows.  With ``norm`` the
+    region is the whole layer: x normed on whole rows, and x +
+    attention(norm(x)) returned, the residual on the local block."""
     reg = layers.Region(x)
-    m = reg.model_size
-    xl = reg.act(x, norm)                               # (B_loc, T, d)
+    grp = head_groups(n_heads, n_kv, head_dim, reg.model_size)
+    r = grp.ranks
+    xl = reg.act(x, norm, row_split=r)                  # (B_loc / r, T, d)
     b, t = xl.shape[:2]
-    hl = n_heads // m
-    wk, wv = reg.weight(p["wk"]), reg.weight(p["wv"])
-    if n_kv % m:                       # the group's kv head, whole
-        sub = reg.model_subgroup(m // n_kv)
-        wk, wv = (layers.all_gather(w, 1, sub) for w in (wk, wv))
-    hkl = wk.shape[1] // head_dim
-    q = layers.linear(xl, reg.weight(p["wq"]), dtype).reshape(b, t, hl,
-                                                              head_dim)
-    k = layers.linear(xl, wk, dtype).reshape(b, t, hkl, head_dim)
-    v = layers.linear(xl, wv, dtype).reshape(b, t, hkl, head_dim)
+
+    wq, wo = reg.model_blocks(p["wq"], 1, r), reg.model_blocks(p["wo"], 0, r)
+    wk, wv = (reg.model_blocks(p[n], 1, grp.kv_ranks) for n in ("wk", "wv"))
+    if wk.shape[1] != grp.kv * head_dim:     # the group's kv heads' columns
+        c0 = (grp.kv_first(reg.model_rank // r) * head_dim
+              - reg.model_rank // grp.kv_ranks * wk.shape[1])
+        wk, wv = (w[:, c0:c0 + grp.kv * head_dim] for w in (wk, wv))
+    q = layers.linear(xl, wq, dtype).reshape(b, t, grp.heads, head_dim)
+    k = layers.linear(xl, wk, dtype).reshape(b, t, grp.kv, head_dim)
+    v = layers.linear(xl, wv, dtype).reshape(b, t, grp.kv, head_dim)
     if "q_norm" in p:
         q = _qk_norm(q, reg.weight(p["q_norm"]))
         k = _qk_norm(k, reg.weight(p["k_norm"]))
@@ -453,26 +502,34 @@ def _attention_heads(p: Dict[str, Tensor], x, positions: Tensor, *,
     k = layers.apply_rope(k, pos, rope_theta, rotary_frac)
     out = run_attention(q, k, v, mask_kind, window, float(head_dim ** -0.5),
                         impl, chunk)
-    layers.trace_region("attention", heads=hl, kv_heads=hkl)
-    y = layers.linear(out.reshape(b, t, hl * head_dim),
-                      reg.weight(p["wo"]), dtype)
+    layers.trace_region("attention", heads=grp.heads, kv_heads=grp.kv,
+                        **({"rows": b} if r > 1 else {}))
+    y = layers.linear(out.reshape(b, t, grp.heads * head_dim), wo, dtype)
     return reg.out(y, residual=norm is not None), (
-        None if impl == "train" else _heads_cache(reg, k, v, n_kv))
+        None if impl == "train" else _heads_cache(reg, k, v, n_kv, grp))
 
 
-def _heads_cache(reg, k: Tensor, v: Tensor, n_kv: int) -> Dict[str, Tensor]:
+def _heads_cache(reg, k: Tensor, v: Tensor, n_kv: int,
+                 grp: HeadGroups) -> Dict[str, Tensor]:
     """The prefill cache of head-parallel attention as DTensors (B, T,
-    n_kv, D): the local kv heads split over 'model'; a kv head shared by
-    several ranks is gathered so that every rank holds them all (the
-    reference's cache keeps the heads whole)."""
+    n_kv, D) with their rows split as x's: where each rank holds kv heads
+    of its own for all its rows, those heads split over 'model' (no
+    communication); else every rank's block (its group's kv heads for its
+    block of the rows) gathered over 'model' and each kv head's row blocks
+    kept once, so that every rank holds all its rows with the heads whole
+    (the reference's cache keeps them whole; ``decode_split`` reads
+    this)."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
-    m = reg.model_size
     out = {}
     for name, t in (("k", k), ("v", v)):
-        if n_kv % m == 0:
+        if grp.ranks == 1 and grp.share == 1:
             pl = reg.layout(Shard(2))
         else:
-            t = layers.all_gather(t, 2, reg.model_group)[:, :, ::m // n_kv]
+            b, s, _, d = t.shape
+            t = layers.all_gather(t, 2, reg.model_group).reshape(
+                b, s, grp.groups, grp.ranks, grp.kv, d)[:, :, ::grp.share]
+            t = t.permute(3, 0, 1, 2, 4, 5).reshape(
+                grp.ranks * b, s, n_kv, d)
             pl = reg.layout(Replicate())
         shape = (reg.like.shape[0],) + tuple(t.shape[1:2]) + (
             n_kv, t.shape[3])

@@ -209,9 +209,11 @@ def run_on_rows(fn: Callable[..., Any], rows: Tuple[Any, ...],
     like the rows; with ``sums``, ``fn`` returns per-rank sums over its
     rows (a tuple) and each becomes their total over the ranks.  Differentiable (``to_local`` /
     ``from_local``).  It carries what has no split to use (a
-    :class:`Region` takes the rest): attention whose heads the 'model'
-    ranks do not divide, and the embedding and cross-entropy of a vocabulary
-    that is not split over 'model'.  ``name`` names the region in
+    :class:`Region` takes the rest): the embedding and cross-entropy of a
+    vocabulary that is not split over 'model', and attention whose head
+    groups cannot split a rank's rows among their ranks
+    (``models.attention.head_parallel``: a batch-1 prefill of heads the
+    'model' ranks do not divide).  ``name`` names the region in
     ``REGION_TRACE``.  A layer run this way takes its norm and residual
     inside ``fn`` (:func:`rows_layer`)."""
     trace_region("run_on_rows", region=name)
@@ -492,6 +494,7 @@ class Region:
         self.like = like if is_dtensor(like) else None
         self.d_split = False
         self.resid: Optional[Tensor] = None     # act's input, local block
+        self.row_split = 1                      # act's ``row_split``
 
     # ------------------------------------------------------------ groups
     def group(self, dim: int):
@@ -538,15 +541,25 @@ class Region:
 
     def rows(self, t) -> Optional[Tensor]:
         """This rank's rows of a batch operand (tokens, labels, a mask,
-        positions); a plain tensor counts as replicated."""
+        positions), its block of them after :meth:`act` with a
+        ``row_split``; a plain tensor counts as replicated."""
         if t is None:
             return None
         if is_dtensor(t):
-            return t.redistribute(self.mesh, self.layout()).to_local()
-        if self.like is None:
+            t = t.redistribute(self.mesh, self.layout()).to_local()
+        elif self.like is not None:
+            off, n = self.row_block()
+            t = t[off:off + n]
+        return self._row_part(t)
+
+    def _row_part(self, t: Tensor) -> Tensor:
+        """This rank's block of its rows ``t`` under ``row_split``."""
+        n = self.row_split
+        if n == 1:
             return t
-        off, n = self.row_block()
-        return t[off:off + n]
+        b = t.shape[0] // n
+        i = self.model_rank % n
+        return t[i * b:(i + 1) * b]
 
     def row_block(self) -> Tuple[int, int]:
         """(first row, row count) of this rank's rows of the batch."""
@@ -556,15 +569,19 @@ class Region:
             self.like.shape, self.mesh, self.layout())
         return off[0], shape[0]
 
-    def act(self, x, norm: Optional[Tuple[str, Dict[str, Any]]] = None
-            ) -> Tensor:
+    def act(self, x, norm: Optional[Tuple[str, Dict[str, Any]]] = None,
+            row_split: int = 1) -> Tensor:
         """This rank's rows of the activation ``x`` (B, ..., d) with d
         whole: d gathered over 'model' where it is split there (backward:
         the reduce-scatter), else as it is (backward: the sum of the ranks'
         partial gradients).  With ``norm`` = (kind, params) the rows come
         back normed (:func:`apply_norm` on whole rows, its weights local).
         :meth:`out` returns the region's result in the same layout, and
-        adds x there as the residual."""
+        adds x there as the residual.  With ``row_split`` n > 1 each run
+        of n consecutive 'model' ranks (a head group) splits those rows
+        among it: this rank keeps the (model rank mod n)-th of n equal
+        blocks, taken before the norm, :meth:`rows` gives its block of a
+        batch operand, and :meth:`out` takes a result of that block."""
         from torch.distributed.tensor import Shard
         last = Shard(x.ndim - 1)
         split = (self.model is not None
@@ -578,6 +595,8 @@ class Region:
         if self.model is not None:
             xl = (all_gather(xl, xl.ndim - 1, self.model_group) if split
                   else _SumGrad.apply(xl, self.model_group))
+        self.row_split = row_split
+        xl = self._row_part(xl)
         if norm is not None:
             kind, p = norm
             xl = apply_norm(kind, xl, self.weights(p))
@@ -604,6 +623,17 @@ class Region:
                 wl = all_gather(wl, p.dim, self.group(i), i in self.batch)
         return wl
 
+    def model_blocks(self, w, dim: int, size: int) -> Tensor:
+        """The 'model' blocks of the weight ``w`` (split there on ``dim``)
+        of the run of ``size`` consecutive 'model' ranks this rank is in,
+        concatenated (:meth:`weight`'s block where ``size`` is 1); backward
+        the reduce-scatter of the run's partial gradients."""
+        w = self.weight(w)
+        if size == 1:
+            return w
+        return all_gather(w, dim, self.model_group if size == self.model_size
+                          else self.model_subgroup(size))
+
     def gather_rows(self, x: Tensor) -> Tensor:
         """Every rank's rows of the local ``x`` (dim 0), over the batch
         dims; backward the reduce-scatter of the ranks' partial
@@ -620,8 +650,16 @@ class Region:
         activations' layout: reduce-scattered onto d where :meth:`act` found
         d split (or ``d_split`` was set), else all-reduced; then cast to
         ``dtype`` and, with ``residual``, added to :meth:`act`'s input on
-        the local block (h + mixed, the unsharded order)."""
+        the local block (h + mixed, the unsharded order).  After a
+        ``row_split`` y holds this rank's block of the rows only: it enters
+        the sum in that block, zeros in the others, so each (row block,
+        head group) term is summed once and the bytes moved are those of
+        the whole rows."""
         from torch.distributed.tensor import DTensor, Shard
+        if self.row_split > 1:
+            i = self.model_rank % self.row_split
+            y = torch.cat([y if j == i else torch.zeros_like(y)
+                           for j in range(self.row_split)], 0)
         if self.model is None:
             pl = self.layout()
         elif self.d_split:

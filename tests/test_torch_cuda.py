@@ -428,6 +428,11 @@ def _attn_bound(q, k, v, mask_kind, window, want):
     ("causal", 0, 1, 300, 300, 4, 1, 128),    # qwen3-moe, internvl2
     ("causal", 0, 1, 300, 300, 6, 1, 128),    # command-r-plus: G 6
     ("bidir", 0, 2, 130, 130, 1, 1, 80),      # hubert-xlarge
+    # a rank of a head group where 16 'model' ranks do not divide the
+    # heads: its group's query heads on its block of the rows
+    ("window", 100, 1, 300, 300, 1, 1, 256),  # gemma3-4b: 1 head, local
+    ("causal", 0, 1, 300, 300, 1, 1, 256),    # gemma3-4b: global layers
+    ("causal", 0, 1, 300, 300, 5, 1, 128),    # llama4-maverick: G 5
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, mask_kind, window, b, t,
@@ -574,6 +579,9 @@ def test_decode_attention_kernel_at_the_moe_groups(cuda, b, hk, s, pos,
     (2, 4, 16, 128, 2064, 2047, 0, 1032, 1032),  # qwen3: 2 slices of 8
     (3, 2, 1, 64, 12, 12, 8, 0, 6),             # window: both block ends
     (3, 2, 4, 128, 16, 3, 0, 8, 8),             # no visible key: no launch
+    # gemma3-4b's last block of a ring of 2052 over 16 'model' ranks, its
+    # window of 1024 (the decode after the prefill by head group)
+    (2, 4, 2, 256, 2052, 2048, 1024, 1935, 129),
 ])
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
 def test_decode_attention_partials_match_plain(cuda, b, hk, g, d, ring, pos,

@@ -12,7 +12,13 @@ single-pod (16, 16) mesh), which must not meet the test process's.
   both cache dtypes, fewer bytes than one layer's k cache gathered);
 * ``dryrun_svm`` at (16, 16), at a short solve: rank 0's FLOPs equal the
   one-device cost of its two slots, and its gathers move the wave's
-  outputs (every rank's blocks, along 'model' and then 'data').
+  outputs (every rank's blocks, along 'model' and then 'data');
+* gemma3-4b ``prefill_32k`` through ``scripts/dryrun_breakdown.py``
+  (~8 s of tracing): its 8 heads over the 16 'model' ranks run by head
+  group (8 groups of 2 ranks, each rank one head on one of its group's 2
+  rows), with no ``run_on_rows``, no collective of DTensor's
+  redistributions and under 1e14 FLOPs a device (6.9e14 when every rank
+  ran every head on its rows).
 """
 from __future__ import annotations
 
@@ -122,3 +128,15 @@ def test_dryrun_svm_rank0_is_its_slots():
     assert r["collective_bytes"] == {"all_gather_into_tensor": moved}
     assert r["collective_counts"] == {
         "all_gather_into_tensor": 2 * got["n_outputs"]}
+
+
+def test_uneven_heads_prefill_by_head_group():
+    out = _python(["scripts/dryrun_breakdown.py", "--arch", "gemma3-4b",
+                   "--shape", "prefill_32k"])
+    r = json.loads(out.strip().splitlines()[-1])
+    regions = {name: info for name, info in r["regions"]}
+    assert regions["attention"] == {"heads": 1, "kv_heads": 1, "rows": 1}
+    assert "run_on_rows" not in regions
+    assert not any(k.startswith("dtensor:redistribute")
+                   for k in r["collective_bytes_by_issuer"])
+    assert r["flops"] < 1.0e14

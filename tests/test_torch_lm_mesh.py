@@ -5,14 +5,19 @@ and activations sharded, on (4, 2) and on (2, 4) where two ranks share a
 kv head; stablelm-1.6b with FSDP and recomputed periods, its vocabulary
 of 503 unsplit and of 512 split over 'model'; gemma3-4b's tied
 embeddings with a vocabulary of 1024 split, and its 4 heads over 8 ranks,
-which do not divide; jamba's mamba, attention, dense and MoE layers, the
+which do not divide (4 head groups of 2 ranks, each rank half of its
+group's rows); llama4-maverick with 6 heads and 2 kv heads over 4 ranks
+(2 groups of 3 heads, each rank's wq block 1.5 heads, as llama4's 40
+heads give 2.5 a rank over 16); jamba's mamba, attention, dense and MoE
+layers, the
 mamba mixer by channel with x_proj's product summed over 'model'; rwkv6
 by head, with its channel mix), and the elastic re-shard of a checkpoint
 from a (4, 2) mesh to a (2, 4) one.  The twins of
 ``test_distributed_lm.py`` and ``test_elastic.py``.  Each step records
 the regions it ran (``layers.REGION_TRACE``): every block of a layer as
 one region from its input to its output (the norm on whole rows inside
-it, head-parallel attention, the dense MLP on its ff block, the
+it, head-parallel attention by head group, the dense MLP on its ff
+block, the
 expert-parallel MoE, mamba by channel, rwkv6 by head, the residual on
 the local block), the final norm, and the vocab-parallel embedding and
 cross-entropy, all on local shards; or ``run_on_rows`` where there is no
@@ -34,6 +39,7 @@ import this module and need torch alone.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import shutil
 
@@ -69,14 +75,20 @@ STEPS = {
     "stablelm-1.6b-vocab512": ("stablelm-1.6b", dict(
         fsdp_params=True, remat=True, vocab=512), (4, 2)),
     "gemma3-4b-vocab1024": ("gemma3-4b", dict(vocab=1024), (4, 2)),
-    # 4 heads over 8 'model' ranks (gemma3-4b's 8 over 16): every head on
-    # each rank's rows
+    # 4 heads over 8 'model' ranks (gemma3-4b's 8 over 16): 4 groups of 2
+    # ranks, a head each, each rank half of its 8 rows
     "gemma3-4b-uneven-heads": ("gemma3-4b", dict(), (1, 8)),
+    # 6 heads, 2 kv heads over 4 'model' ranks: 2 groups of 3 heads (each
+    # rank's wq block 1.5 heads, as llama4's 40 over 16 give 2.5), a kv
+    # head each, each rank half of its 4 rows
+    "llama4-straddle-heads": ("llama4-maverick-400b-a17b",
+                              dict(n_heads=6, n_kv_heads=2), (2, 4)),
     # mamba by channel (x_proj summed over 'model'), attention, dense, MoE
     "jamba-v0.1-52b": ("jamba-v0.1-52b", dict(), (4, 2)),
     "rwkv6-1.6b": ("rwkv6-1.6b", dict(), (4, 2)),
 }
 SHARD = dict(batch_axes=("data",), shard_activations=True)
+BATCH = 8            # the rows of each step's batch
 
 
 @pytest.mark.parametrize("fsdp", [False, True], ids=["tp", "fsdp"])
@@ -102,6 +114,39 @@ def test_spec_tree_matches_reference(arch, fsdp):
         got = dict(t_layers.tree_items(
             t_layers.spec_tree(t_model.build_template(tc))))
         assert got == want, (arch, which)
+
+
+@pytest.mark.parametrize("m", [2, 8, 16])
+@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if any(
+    k.startswith("attn") for k, _ in get_arch(a).config.period_pattern)])
+def test_head_groups_cover_every_head_once(arch, m):
+    """``attention.head_groups`` of each attention config's heads over m
+    'model' ranks, checked head by head: the groups' query heads cover
+    every head once, each group's the wq column blocks of its ranks
+    exactly; the kv heads a group reads (head h reads h // (H / Hk)) are
+    those it names; and each rank's run of ``kv_ranks`` neighbours holds
+    their wk columns.  Every config of the repo has head groups at these
+    sizes (none is left to the rows path by its heads)."""
+    from repro_torch.models.attention import head_groups
+    c = get_arch(arch).config
+    h, hk, d = c.n_heads, c.n_kv_heads, c.head_dim
+    grp = head_groups(h, hk, d, m)
+    assert grp is not None
+    assert grp.groups * grp.ranks == m and grp.groups * grp.heads == h
+    owned = []
+    for q in range(m):
+        j = q // grp.ranks
+        heads = range(j * grp.heads, (j + 1) * grp.heads)
+        owned.extend(heads if q % grp.ranks == 0 else ())
+        qcols = h * d // m
+        assert (j * grp.ranks * qcols, (j + 1) * grp.ranks * qcols) == (
+            heads[0] * d, (heads[-1] + 1) * d)
+        kv = sorted({x // (h // hk) for x in heads})
+        assert kv == list(range(grp.kv_first(j), grp.kv_first(j) + grp.kv))
+        kcols, s = hk * d // m, grp.kv_ranks
+        assert q // s * s * kcols <= kv[0] * d
+        assert (kv[-1] + 1) * d <= (q // s + 1) * s * kcols
+    assert sorted(owned) == list(range(h))
 
 
 # ------------------------------------------------------------ rank jobs
@@ -228,7 +273,7 @@ def lm(tmp_path_factory):
         jp = jax.device_get(j_layers.init_params(j_model.build_template(jc),
                                                  jax.random.PRNGKey(0)))
         batch = {k: v.numpy() for k, v in TokenPipeline(TokenPipelineConfig(
-            vocab=tc.vocab, seq_len=32, global_batch=8, seed=0)).batch(0)
+            vocab=tc.vocab, seq_len=32, global_batch=BATCH, seed=0)).batch(0)
             .items()}
         jocfg = j_opt.OptConfig(**LR)
         p1, _, m1 = jax.jit(j_trainer.make_train_step(jc, jocfg))(
@@ -296,12 +341,14 @@ def test_sharded_step_matches_port_unsharded(lm, arch):
 
 def expected_regions(label: str) -> set:
     """The regions the step of ``label`` must run, with the local sizes
-    each sees: H / model query heads (and the kv heads they read), ff /
-    model MLP columns, E / model experts, d_inner / model mamba channels,
-    rwkv6's heads / model, V / model vocabulary rows and logit columns,
-    the final norm; the rows path (``run_on_rows``, by region) where the
-    heads or the vocabulary do not split over 'model'."""
-    arch, kw, (_, m) = STEPS[label]
+    each sees: H / model query heads (and the kv heads they read), or
+    where 'model' does not divide the heads H / g heads of a group of
+    model / g ranks (g = gcd(H, model)) on 1 / (model / g) of the rank's
+    rows; ff / model MLP columns, E / model experts, d_inner / model
+    mamba channels, rwkv6's heads / model, V / model vocabulary rows and
+    logit columns, the final norm; the rows path (``run_on_rows``, by
+    region) where the vocabulary does not split over 'model'."""
+    arch, kw, (data, m) = STEPS[label]
     cfg = _cfg(arch, **kw)
     out = {("norm", ())}
     for mixer, mlp in cfg.period_pattern:
@@ -309,12 +356,13 @@ def expected_regions(label: str) -> set:
             out.add(("mamba", (("channels", cfg.d_inner // m),)))
         elif mixer == "rwkv":
             out.add(("rwkv", (("heads", cfg.rwkv_heads // m),)))
-        elif cfg.n_heads % m == 0:
-            kv = cfg.n_kv_heads // m if cfg.n_kv_heads % m == 0 else 1
-            out.add(("attention", (("heads", cfg.n_heads // m),
-                                   ("kv_heads", kv))))
         else:
-            out.add(("run_on_rows", (("region", "attention"),)))
+            g = math.gcd(cfg.n_heads, m)
+            heads = cfg.n_heads // g
+            kv = max(heads * cfg.n_kv_heads // cfg.n_heads, 1)
+            rows = (("rows", BATCH // data // (m // g)),) if g < m else ()
+            out.add(("attention", (("heads", heads), ("kv_heads", kv))
+                     + rows))
         if mlp == "moe":
             out.add(("moe", (("experts", cfg.n_experts // m),)))
         elif mlp == "rwkv_cm":
@@ -337,9 +385,10 @@ def test_regions_run_on_local_shards(lm, label):
     attention on its H / model heads, the dense MLP on its ff / model
     columns, the MoE on its E / model experts, mamba on its channels,
     rwkv6 on its heads, the embedding and the cross-entropy on its V /
-    model block, each on local shards (no ``run_on_rows`` for them); the
-    rows path only where the heads (gemma3-4b's uneven 4 over 8) or the
-    vocabulary (503, 1031) do not split."""
+    model block, each on local shards (no ``run_on_rows`` for them);
+    heads that 'model' does not divide (gemma3-4b's 4 over 8, 6 over 4)
+    by head group on a block of the rank's rows; the rows path only where
+    the vocabulary (503, 1031) does not split."""
     _, _, outs, _ = lm
     want = expected_regions(label)
     for o in outs:

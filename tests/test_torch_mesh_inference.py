@@ -17,6 +17,13 @@ visible key) with a bf16 and an int8 cache, and gemma3-4b's window of 8
 over a ring of 12 decoded past its end (the visible run wraps the ring,
 and meets one block at both its ends).
 
+gemma3-4b's 4 heads over the 8 'model' ranks of a (1, 8) mesh (its 8
+heads over 16: 4 head groups of 2 ranks, each rank a head and half of its
+rows) prefill head-parallel by head group, lay out the cache with the
+heads whole, and decode with it split over the sequence; a batch-1
+prefill there, whose one row a group cannot split, takes the rows path
+and says so.  These run in a spawn of 8 ranks of their own.
+
 Each run is held against the port's unsharded run on the same weights and
 tokens, and its prefill against the JAX package's unsharded ``prefill``.
 Tolerance: f32, a sharded matmul sums its contraction in another order,
@@ -55,6 +62,10 @@ EDGES = (("stablelm-1.6b", "bf16", 3, 16, 3), ("stablelm-1.6b", "int8", 3, 16, 3
          ("gemma3-4b", "bf16", 8, 12, 6))
 TOL = 1e-5
 PREFILL_TOL = 1.1e-6     # relative: the head-parallel prefill (PERF.md)
+# gemma3-4b (bf16 cache) on (1, 8): 4 head groups of 2 ranks; a ring of 16
+# (2 slots a rank); and the batch-1 prefill that takes the rows path
+UNEVEN = ("gemma3-4b", "bf16", (1, 8))
+UNEVEN_RING = 16
 
 
 def _id(run) -> str:
@@ -142,13 +153,38 @@ def _serve(cfg, params, x, place=None, ring=None, new=NEW):
     return lg.numpy(), pre_cache, logits, toks, regions, dec_regions
 
 
+def _placed(arch: str, kv: str, p_np, mesh, ring: int):
+    """(config, parameters split by their templates' placements, place):
+    ``place`` puts the batch over 'data' and a decode cache of ``ring``
+    slots as ``launch.shapes.cache_structs`` lays it out."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs.common import ShapeSpec
+    from repro_torch.launch.shapes import cache_structs
+    cfg = dataclasses.replace(_cfg(arch, kv), batch_axes=("data",),
+                              seq_axes=("model",))
+    params = t_layers.tree_map(
+        lambda a, pl: distribute_tensor(torch.from_numpy(a), mesh, pl,
+                                        src_data_rank=None), p_np,
+        t_layers.sharding_tree(t_model.build_template(cfg), mesh))
+    structs = cache_structs(cfg, ShapeSpec("decode", "decode", ring, B),
+                            mesh)
+
+    def place(name, t):
+        if name == "batch":
+            pl = t_layers.placements((cfg.batch_axes,), mesh)
+            return distribute_tensor(t, mesh, pl, src_data_rank=None)
+        return t_layers.tree_map(
+            lambda a, st: distribute_tensor(a.contiguous(), mesh,
+                                            st.placements,
+                                            src_data_rank=None),
+            t, structs)
+    return cfg, params, place
+
+
 def _on_mesh(runs, params_np, xs, edges=(), edge_params=(), edge_xs=()):
     """On each rank: every run of ``runs`` on its mesh, then each of
     ``edges`` on the (2, 2) mesh."""
-    from torch.distributed.tensor import distribute_tensor
-    from repro_torch.configs.common import ShapeSpec
     from repro_torch.launch import mesh as mesh_mod
-    from repro_torch.launch.shapes import cache_structs
     meshes = {shape: mesh_mod.make_mesh(shape, ("data", "model"), "cpu")
               for shape in sorted({_mesh_shape(r) for r in runs})}
     out = []
@@ -159,26 +195,7 @@ def _on_mesh(runs, params_np, xs, edges=(), edge_params=(), edge_xs=()):
     for (arch, kv), shape, ring, new, p_np, x in zip(
             *zip(*jobs), list(params_np) + list(edge_params),
             list(xs) + list(edge_xs)):
-        mesh = meshes[shape]
-        cfg = dataclasses.replace(_cfg(arch, kv), batch_axes=("data",),
-                                  seq_axes=("model",))
-        params = t_layers.tree_map(
-            lambda a, pl: distribute_tensor(torch.from_numpy(a), mesh, pl,
-                                            src_data_rank=None), p_np,
-            t_layers.sharding_tree(t_model.build_template(cfg), mesh))
-        structs = cache_structs(cfg, ShapeSpec("decode", "decode", ring, B),
-                                mesh)
-
-        def place(name, t, cfg=cfg, structs=structs, mesh=mesh):
-            if name == "batch":
-                pl = t_layers.placements((cfg.batch_axes,), mesh)
-                return distribute_tensor(t, mesh, pl, src_data_rank=None)
-            return t_layers.tree_map(
-                lambda a, st: distribute_tensor(a.contiguous(), mesh,
-                                                st.placements,
-                                                src_data_rank=None),
-                t, structs)
-
+        cfg, params, place = _placed(arch, kv, p_np, meshes[shape], ring)
         out.append(_serve(cfg, params, x, place, ring, new))
     out.append(_embed_uneven(meshes[(2, 2)]))
     out.append(_moe_uneven(meshes[(2, 2)]))
@@ -490,3 +507,93 @@ def test_embed_vocab_parallel_uneven_split(runs):
         assert r["regions"] == [("embed", {"vocab_rows": r["local_rows"]})]
         assert np.array_equal(r["rows"], rows.detach().numpy())
         _close(r["grad"], grad.numpy())
+
+
+# ---------------------------------------- heads 'model' does not divide
+def _on_uneven(params_np, x, x1):
+    """On each of 8 ranks, on UNEVEN's (1, 8) mesh: the prefill of ``x``
+    by head group and NEW decode steps with its cache split over the
+    sequence (a ring of UNEVEN_RING), then the prefill of the one row
+    ``x1``."""
+    from repro_torch.launch import mesh as mesh_mod
+    arch, kv, shape = UNEVEN
+    mesh = mesh_mod.make_mesh(shape, ("data", "model"), "cpu")
+    cfg, params, place = _placed(arch, kv, params_np, mesh, UNEVEN_RING)
+    return (_serve(cfg, params, x, place, UNEVEN_RING, NEW),
+            _serve(cfg, params, x1, place, None, 0))
+
+
+@pytest.fixture(scope="module")
+def uneven():
+    """The port's unsharded runs of UNEVEN's inputs and the 8 ranks'."""
+    cfg = _cfg(*UNEVEN[:2])
+    params = _params(cfg)
+    x, x1 = _inputs(cfg), _inputs(cfg, seed=2)[:1]
+    params_np = t_layers.tree_map(lambda v: v.numpy(), params)
+    ranks = run_local(_on_uneven, 8, params_np, x, x1)
+    plain = (_serve(cfg, params, x, None, UNEVEN_RING),
+             _serve(cfg, params, x1, None, None, 0))
+    return plain, ranks, params_np, x
+
+
+def test_uneven_heads_equal_unsharded(uneven):
+    """gemma3-4b's 4 heads over 8 'model' ranks: every rank's prefill
+    logits within ``TOL`` and the head-parallel ``PREFILL_TOL`` of the
+    unsharded ones, the prefill's cache (gathered to the heads whole)
+    within ``TOL``, and the split-cache decode's logits within ``TOL``
+    with the greedy tokens equal."""
+    (lg, cache, dec, toks, _, _), _ = uneven[0]
+    for rank, _ in uneven[1]:
+        _close(rank[0], lg)
+        _close(rank[0], lg, PREFILL_TOL)
+        assert rank[1].keys() == cache.keys()
+        for k, v in cache.items():
+            _close(rank[1][k], v)
+        assert len(rank[2]) == NEW
+        for got, want in zip(rank[2], dec):
+            _close(got, want)
+        for got, want in zip(rank[3], toks):
+            assert np.array_equal(got, want)
+
+
+def test_uneven_prefill_runs_by_head_group(uneven):
+    """The prefill ran attention as head groups on local shards: each
+    rank its group's one head and the kv head that head reads, on 2 of
+    its 4 rows (``rows``), no ``run_on_rows`` for attention and no op of
+    a layer with a DTensor operand; then each decode step ran
+    flash-decoding on the rank's 2 slots of the ring, every head."""
+    cfg = _cfg(*UNEVEN[:2])
+    m = UNEVEN[2][1]
+    want = {("attention", (("heads", 1), ("kv_heads", 1), ("rows", B // 2))),
+            ("dense", (("ff", cfg.d_ff // m),)), ("norm", ()),
+            ("run_on_rows", (("region", "embed"),)), ("dtensor_planned", ())}
+    for i, (rank, _) in enumerate(uneven[1]):
+        assert rank[4] == want, (rank[4], want)
+        assert rank[5] == _decode_regions(cfg, m, UNEVEN_RING, i % m)
+
+
+def test_uneven_prefill_equals_reference(uneven):
+    """The prefill by head group against the JAX package's unsharded
+    prefill on the same weights."""
+    import jax.numpy as jnp
+    from repro.configs import get_arch as j_get_arch
+    from repro.models import model as j_model
+    arch, kv, _ = UNEVEN
+    _, ranks, params_np, x = uneven
+    jc = dataclasses.replace(j_get_arch(arch).smoke, dtype=jnp.float32,
+                             kv_cache_dtype=kv)
+    want = np.asarray(j_model.prefill(jc, t_layers.tree_map(
+        jnp.asarray, params_np), jnp.asarray(x))[0])
+    _close(ranks[0][0][0], want)
+
+
+def test_batch_one_prefill_takes_rows_path(uneven):
+    """A prefill of one row on the (1, 8) mesh: a group of 2 ranks cannot
+    split it, so attention runs every head on each rank's row
+    (``run_on_rows``, so traced) and no attention region; its logits
+    within ``TOL`` of the unsharded prefill's."""
+    (_, (lg, _, _, _, _, _)), ranks = uneven[0], uneven[1]
+    for _, one in ranks:
+        _close(one[0], lg)
+        assert ("run_on_rows", (("region", "attention"),)) in one[4]
+        assert not any(n == "attention" for n, _ in one[4]), one[4]
