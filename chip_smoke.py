@@ -279,6 +279,8 @@ GEN_BATCH, GEN_PROMPT, GEN_NEW = 8, 256, 64
 # long contexts for the kernel table: B9 (B, T = S), B10 (B, S) at a batch
 # of 16 and at batch 1 (B10's split over the keys)
 LONG_B9, LONG_B10, LONG_B10_ONE = (1, 4096), (16, 32768), (1, 32768)
+# B9's CUDA-core (f32) kernel at jamba's prefill shape: (B, T = S, H, Hk, D)
+JAMBA_F32_B9 = (2, 2048, 32, 8, 128)
 # kernels vs the plain path through the bf16 backbone, relative to the
 # largest |value|: B9 and the plain attention agree to f32 rounding before
 # each layer rounds its output to bf16, so a value next to a rounding
@@ -2022,11 +2024,14 @@ def attn_replay(torch, family: str, what: str, name: str, call):
                         want.float().cpu(),
                         attn_err_bound(fa_ref, q, k, v, kind, win,
                                        want).cpu())
-        lib = None
-        if kind in ("causal", "bidir"):
-            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            lib = (lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=kind == "causal", enable_gqa=h > hk))
+        # SDPA on the (B, H, T, D) layout; the window as an explicit
+        # boolean mask
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        mask = (fa_ref.attention_mask(t, s, kind, win, q.device)
+                if kind == "window" else None)
+        lib = (lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=kind == "causal",
+            enable_gqa=h > hk))
         tensor_cores = q.dtype == torch.bfloat16 and d >= 16
         case = (lambda: fa_ops.flash_attention(q, k, v, mask_kind=kind,
                                                window=win),
@@ -4957,7 +4962,8 @@ def attn_bound(torch, b, t, s, h, hk, d, kind, window, esize,
 
 def lm_timing_cases(torch, dev, cfg):
     """B9 and B10 at the LM path's shapes and at long contexts (B10 at B =
-    16 and B = 1, bf16 and int8):
+    16 and B = 1, bf16 and int8), and B9's f32 kernel at jamba's prefill
+    shape (JAMBA_F32_B9):
     (label, kernel, plain, library call or None, (bound ms, by))."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops as dec_ops
@@ -4982,6 +4988,21 @@ def lm_timing_cases(torch, dev, cfg):
             lambda q=qt, k=kt, v=vt: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True),
             attn_bound(torch, b, t, t, h, h, d, "causal", 0, 2)))
+    # the CUDA-core (f32) kernel at jamba's prefill shape: on no f32 path
+    b, t, h32, hk32, d32 = JAMBA_F32_B9
+    q = torch.randn(b, t, h32, d32, generator=gen, device=dev)
+    k, v = (torch.randn(b, t, hk32, d32, generator=gen, device=dev)
+            for _ in range(2))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    cases.append((
+        "flash_attention[jamba f32: B=%d,T=S=%d,H=%d,Hk=%d,D=%d]"
+        % JAMBA_F32_B9,
+        lambda q=q, k=k, v=v: fa_ops.flash_attention(q, k, v, "causal"),
+        lambda q=q, k=k, v=v: fa_ref.flash_attention_ref(q, k, v, "causal"),
+        lambda q=qt, k=kt, v=vt: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True),
+        attn_bound(torch, b, t, t, h32, hk32, d32, "causal", 0, 4,
+                   FP32_FLOP_PER_S)))
     hk = cfg.n_kv_heads
     for label, (b, s, quant) in (
             ("decode_attention", (GEN_BATCH, GEN_PROMPT + GEN_NEW, False)),

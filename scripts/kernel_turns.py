@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""B1, B1-sym, B3, B4, B5, B6, B7, B8 and B10 device times from the port
+"""B1, B1-sym, B3, B4, B5, B6, B7, B8, B9 and B10 device times from the port
 in a given checkout, for comparing two commits in turns on one card.
 
     python3 scripts/kernel_turns.py --root . --label change
@@ -32,6 +32,18 @@ decode step end to end (stablelm-1.6b at full width, seed-initialised,
 batch 8, prompt 256): ms per step of ``serve.engine.generate`` over 64
 new tokens less one, bf16 and int8 caches, the median of 3 runs on the
 host clock.  Needs a CUDA card.
+
+    python3 scripts/kernel_turns.py --root . --b9
+
+builds only B9 and B10, where their libraries are missing or stale, and
+times only B9's rows (B9_ROWS: the f32 shapes of the CUDA-core kernel,
+and the LM path's bf16 shape as a control of the tensor-core kernel) and
+B10's partials mode at the split decode's half ring, each with the
+digest of its output and SDPA beside it (with an explicit boolean mask
+for the window rows), and prints one JSON line; where it built B9, the
+line also holds ``ptxas`` (registers and spills of each CUDA-core
+instance), and where the checkout has it, ``blocks_per_sm`` (its
+occupancy by head dim).  The same rows run at the end of the full mode.
 
     python3 scripts/kernel_turns.py --root . --b3-paths
 
@@ -71,6 +83,22 @@ D2_ROWS = (
     ("sq_dists[serving wave]", "cross", (256, 8, 2048, 54)),
     ("sq_dists[test phase]", "cross", (26, 416, 1824, 54)),
     ("gram", "gram", (2048, 2048, 54)))
+# name, (B, T, S, H, Hk, D, mask kind, window, dtype)
+B9_ROWS = (
+    ("flash_attention[hubert-xlarge f32: 4x1024, H 16, D 80, bidir]",
+     (4, 1024, 1024, 16, 16, 80, "bidir", 0, "float32")),
+    ("flash_attention[head-parallel rank f32: 4x512, H 16, D 64, causal]",
+     (4, 512, 512, 16, 16, 64, "causal", 0, "float32")),
+    ("flash_attention[gemma3-4b group rank f32: 1x2048, H 1, D 256, "
+     "window 1024]", (1, 2048, 2048, 1, 1, 256, "window", 1024, "float32")),
+    ("flash_attention[jamba f32: 2x2048, H 32, Hk 8, D 128, causal]",
+     (2, 2048, 2048, 32, 8, 128, "causal", 0, "float32")),
+    ("flash_attention[command-r smoke f32: 4x24, H 8, Hk 2, D 8, causal]",
+     (4, 24, 24, 8, 2, 8, "causal", 0, "float32")),
+    ("flash_attention[stablelm-12b f32: 1x2048, H 32, Hk 8, D 160, causal]",
+     (1, 2048, 2048, 32, 8, 160, "causal", 0, "float32")),
+    ("flash_attention[LM path bf16: 32x256, H 32, D 64, causal]",
+     (32, 256, 256, 32, 32, 64, "causal", 0, "bfloat16")))
 B10_ROWS = (("decode_attention", 8, 320), ("decode_attention[B=16,S=32768]",
                                            16, 32768),
             ("decode_attention[B=1,S=32768]", 1, 32768))
@@ -184,6 +212,67 @@ def b10_rows(torch, gen, dev, rows: dict, digests: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def b9_rows(torch, gen, dev, rows: dict, digests: dict) -> None:
+    """B9 at B9_ROWS and B10's partials mode at the split decode's half
+    ring (B 4, the first 258 of 516 slots, Hk 32, G 1, D 64, bf16), each
+    with SDPA beside it and the digest of its output."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+    for name, (b, t, s, h, hk, d, kind, win, dt) in B9_ROWS:
+        dtype = getattr(torch, dt)
+        q = torch.randn(b, t, h, d, generator=gen, device=dev, dtype=dtype)
+        k, v = (torch.randn(b, s, hk, d, generator=gen, device=dev,
+                            dtype=dtype) for _ in range(2))
+        rows[name] = cuda_ms(torch, lambda: fa_ops.flash_attention(
+            q, k, v, kind, win), 20)
+        digests[name] = digest(fa_ops.flash_attention(q, k, v, kind,
+                                                      win).float())
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        mask = (attention_mask(t, s, kind, win, dev) if kind == "window"
+                else None)
+        rows[name + "[sdpa]"] = cuda_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=kind == "causal",
+                enable_gqa=h > hk), 20)
+        del q, k, v, qt, kt, vt
+    name = "decode_attention_partials[B 4, 258 of 516, Hk 32, G 1, D 64]"
+    q = torch.randn(4, 32, 1, 64, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    kc, vc = (torch.randn(4, 258, 32, 64, generator=gen, device=dev,
+                          dtype=torch.bfloat16) for _ in range(2))
+    rows[name] = cuda_ms(torch, lambda: dec_ops.decode_attention_partials(
+        q, kc, vc, 515, 0.125, block=(0, 516)), 50)
+    digests[name] = digest(torch.cat([x.flatten() for x in
+                                      dec_ops.decode_attention_partials(
+        q, kc, vc, 515, 0.125, block=(0, 516))]))
+    kt, vt = (x.transpose(1, 2).contiguous() for x in (kc, vc))
+    rows[name + "[sdpa]"] = cuda_ms(
+        torch, lambda: F.scaled_dot_product_attention(q, kt, vt,
+                                                      scale=0.125), 50)
+
+
+def cc_ptxas(log: str) -> dict:
+    """{"<dtype> D <d>": "<registers>; <stack and spill line>"} of the
+    CUDA-core B9 instances (flash_fwd_kernel<T, D>) in an ``-Xptxas -v``
+    log."""
+    pat = re.compile(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+    out, key = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            hit = pat.search(m.group(1))
+            key = (f"{'f32' if hit.group(1) == 'f' else 'bf16'} D "
+                   f"{hit.group(2)}" if hit else None)
+            continue
+        if key is not None and ("stack frame" in line or "Used" in line):
+            out[key] = "; ".join(filter(None, (
+                out.get(key), line.split(" : ", 1)[-1].strip())))
+    return out
+
+
 # decode_fwd_kernel<bf16, bf16, D 64, G 1, HB, DIRECT>, mangled (in an
 # anonymous namespace: the second bf16 a back reference)
 B10_BF16_D64_G1 = re.compile(
@@ -220,6 +309,9 @@ def main() -> int:
                     help="time only B3's copy paths at the serving wave")
     ap.add_argument("--b10", action="store_true",
                     help="build and time only B10's rows, with digests")
+    ap.add_argument("--b9", action="store_true",
+                    help="build B9 and B10 and time only B9's rows and "
+                         "B10's partials, with digests")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -232,9 +324,15 @@ def main() -> int:
     from repro_torch.kernels.svm_predict import ops as sp_ops
 
     ptxas = None
-    if not args.b10:
+    if args.b9:
+        stale = [n for n in ("flash_attention", "decode_attention")
+                 if runtime._stale(n)]
+        built = runtime.build(stale) if stale else {}
+        if "flash_attention" in built:
+            ptxas = cc_ptxas(built["flash_attention"]["log"])
+    elif not args.b10:
         runtime.build(("kernel_matrix", "cd_solver", "decode_attention",
-                       "svm_predict", "assign"))
+                       "svm_predict", "assign", "flash_attention"))
     elif runtime._stale("decode_attention"):
         ptxas = b10_ptxas(runtime.build(("decode_attention",))
                           ["decode_attention"]["log"])
@@ -268,6 +366,15 @@ def main() -> int:
         print(json.dumps({"label": args.label, "card": card(), "ms": rows}))
         return 0
 
+    if args.b9:
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        occupancy = ({d: fa_ops.cc_blocks_per_sm(d) for d in fa_ops.HEAD_DIMS}
+                     if hasattr(fa_ops, "cc_blocks_per_sm") else None)
+        b9_rows(torch, gen, dev, rows, digests)
+        print(json.dumps({"label": args.label, "card": card(), "ms": rows,
+                          "digests": digests, "ptxas": ptxas,
+                          "blocks_per_sm": occupancy}))
+        return 0
     if args.b10:
         b10_rows(torch, gen, dev, rows, digests)
         print(json.dumps({"label": args.label, "card": card(), "ms": rows,
@@ -310,6 +417,7 @@ def main() -> int:
     del k, lo, hi, c, g, one
 
     b10_rows(torch, gen, dev, rows, digests)
+    b9_rows(torch, gen, dev, rows, digests)
     decode = decode_steps(torch, dev)
     print(json.dumps({"label": args.label, "card": card(), "ms": rows,
                       "digests": digests, "decode_ms_per_step": decode}))

@@ -66,257 +66,439 @@
 //   BK 32 or 3 stages at D = 64, 2 warpgroups sharing the ring, and
 //   issuing the next tile's S before this tile's softmax.
 //
-// f32 (flash_fwd_kernel): the f32 smoke configs' kernel, fp32 FMAs on the
+// f32 (flash_fwd_kernel): the f32 configurations' kernel, fp32 FMAs on the
 //   CUDA cores, where the products must not round to bf16 or TF32; also
 //   bf16 at D = 8 (loaded to f32, P kept in f32, the output rounded once).
-//   Any multiple of 8: a thread's output columns are 4, 2 or 1 adjacent
-//   ones a group (D a multiple of 64, of 32, else), threads past D idle in
-//   P V at D = 8.
-//   * One block owns (batch, query head, 64 query rows) and loops over
-//     64-row kv tiles itself, keeping m, l and the accumulator in
-//     registers; the public layouts are read as they are; T and S need
-//     not be multiples of the tile: rows past T are neither read nor
-//     stored, kv rows past S are zero-filled and masked; tiles wholly
-//     hidden by the mask are never loaded.
-//   * Each of the 256 threads holds a 4 x 4 block of the 64 x 64 score
-//     tile (rows ty + 16 i, columns tx + 16 j); the row max and sum are
-//     xor-shuffles over the 16 threads of a row.  Shared rows are padded
-//     by 4 floats, so the float4 reads of k rows are free of bank
-//     conflicts.  Shared memory holds q, k, v in f32 plus the
-//     probabilities: 212 KB at D = 256, one block per SM there.
-//   Masking uses the reference's constants (masked logits -1e30, l
-//   clamped at 1e-30); expf and IEEE division, no fast math.
+//   Bound on the H100: 4 D operations a visible (row, column) pair at 67
+//   TFLOP/s of fp32 FMA (hubert-xlarge's 4 x 1024 x 16 heads at D 80,
+//   bidirectional: 0.321 ms) where q, k, v and o take 0.02 ms to move.
+//   What holds it below that, as measured on the card (PERF.md):
+//   operands reach the FMAs from shared memory at 128 bytes a cycle an SM,
+//   so a warp's 16-byte load costs 4 of those cycles where the SM retires
+//   4 warp FMAs a cycle, and the online softmax is a chain of shuffles and
+//   exps.  The design:
+//   * One block of 256 threads owns (batch, query head, 64 query rows)
+//     and walks a run of kv tiles of BK rows, keeping the rows' offset m,
+//     sum and output in registers.  In S = Q K^T a thread holds rows ty +
+//     16 i (i < 4) and keys tx + 16 j (j < BK / 16).
+//   * P V: a thread's columns are runs 4 tx + 64 jj of its four rows (one
+//     float4 of V feeds 16 FMAs) and the D % 64 columns past them one at a
+//     time, 64 NJ + tx + 16 e of its four rows (one float feeds 4 FMAs);
+//     P comes as float4s of 4 keys of a row.  Runs of 4 of those columns
+//     for one row a thread (4 floats of V and one of P for 4 FMAs) ran 16 %
+//     slower at D 80 and 12 % at D 160.
+//   * K and V reach shared memory by 16-byte cp.async (async_copy.cuh)
+//     through a ring of NP = 2 stages of a K and a V tile: tile j + 1's
+//     copies are in flight while tile j is computed.  One barrier a tile
+//     publishes the landed stage and frees the one the next copies
+//     overwrite; between a row's P and its use in P V only a __syncwarp,
+//     since the 16 threads that write a row of P are the ones that read
+//     it.  Rows past S are zero-filled by the copy and masked; rows past T
+//     are neither read nor stored; tiles wholly hidden by the mask are never
+//     loaded; a tile every row of the block sees whole is not masked.  bf16
+//     (D 8) is loaded and widened by the threads into the same ring.
+//   * The softmax moves a row's offset m only when one of its scores
+//     passes m + RESCALE_AT (8), found by each thread on its own scores
+//     and one warp vote: then the warp takes its rows' true max (shuffles
+//     over a row's 16 threads) and rescales; else p = exp(s - m) <= e^8 with
+//     no shuffle, no exp of the rescale and no multiply of the output.  A
+//     thread sums its own p; the row's 16 partial sums meet once, at the
+//     end.  The result differs from a max taken at every tile by rounding.
+//   * Shared memory: q (64 x (D + 4)), the ring (2 x 2 x BK x (D + 4)) and
+//     P (64 x (BK + 4)), f32, rows padded by 4 floats so the float4 reads
+//     of k rows are free of bank conflicts.  Per head dim: BK, bytes,
+//     blocks an SM (the occupancy calculator on the card), registers and
+//     spills (nvcc -Xptxas -v, sm_90a): 8: 64, 32 KB, 2, 126, none (bf16:
+//     99, none); 16: 64, 42 KB, 2, 128, none; 64: 64, 102 KB, 2, 128,
+//     none; 80: 48 (a 64-row stage pair would leave one block an SM), 97
+//     KB, 2, 128, 8 bytes; 128: 32, 108 KB, 2, 128, none; 160: 32, 132
+//     KB, 1, 168, none; 256: 32, 204 KB, 1, 205, none.  __launch_bounds__
+//     holds D <= 128 to 128 registers (two blocks).
+//   * A split over the keys when a row's blocks would leave SMs idle (the
+//     wrapper's split_count, from T, S, H, D, the mask, the window and the
+//     SM count, never B, so a row's bits do not depend on what shares its
+//     launch): split sp of nsplit takes a run of ceil(n / nsplit) of the
+//     block's n visible kv tiles (the splits past the last run return),
+//     writes its unnormalised output, offset and sum to a workspace, and a
+//     per-(batch, q tile, head) ticket (atomicAdd) picks the block that
+//     arrives last; it merges the partials in split order, so the output
+//     is the same bits in every run, and resets its ticket to 0.  One
+//     launch either way.
+//   The reference's constants: masked logits -1e30, l clamped at 1e-30, a
+//   row that has seen no visible column keeps p = 0 (so a row that sees
+//   none gives 0); expf and IEEE division, no fast math.
+//   Tried on the card and slower or no faster (PERF.md): synchronous
+//   loads (the earlier kernel); a ring of single K or V tiles with two
+//   barriers a tile; 8 rows a thread at 128 threads (fewer floats a FMA in
+//   P V, but half the warps for the softmax's latency); BK 64 at D 128 (one
+//   block an SM); the row max and sum by shuffles at every tile.  Untried:
+//   3xTF32 on the tensor cores.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr float SEEN = -1e20f;  // a running max above this came from a visible logit
+constexpr float RESCALE_AT = 8.f;  // f32 kernel: a score this far above a row's m moves m
 constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // kv rows per tile
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 scores each
-constexpr int PAD = 4;        // row padding of the shared tiles, floats
+constexpr int PAD = 4;        // row padding of its shared tiles, floats
+constexpr int THREADS = 256;  // the f32 kernel: 16 x 16 threads
+constexpr int RM = 4;         // its query rows a thread
+constexpr int SPLIT_MAX = 32; // its splits over the keys (the wrapper's cap)
 
-template <typename T> struct VecN { static constexpr int N = 16 / sizeof(T); };
+// the f32 kernel's tiling per head dim (the header's table)
+template <int D>
+struct CcCfg {
+  static_assert(D % 8 == 0 && D <= 256, "head_dim must be a multiple of 8");
+  static constexpr int BK = D >= 128 ? 32 : D == 80 ? 48 : 64;   // kv rows a tile
+  static constexpr int NP = 2;                      // ring stages of a K and a V tile
+  static constexpr int LD = D + PAD;               // shared row of q, k, v
+  static constexpr int LP = BK + PAD;              // shared row of P
+  static constexpr int KN = BK / 16;               // keys a thread holds in S
+  static constexpr int NJ = D / 64;                // its runs of 4 columns
+  static constexpr int EC = (D % 64 + 15) / 16;    // its columns past them
+  static constexpr int MIN_BLOCKS = D >= 160 ? 1 : 2;   // as shared memory allows
+  static constexpr int SMEM = 4 * (BQ * LD + 2 * NP * BK * LD + BQ * LP);
+  static constexpr int PART = BQ * D + 2 * BQ;     // floats of a split's partial
+};
 
-__device__ __forceinline__ void load_vec(const float* src, float* dst) {
-  *reinterpret_cast<float4*>(dst) = __ldg(reinterpret_cast<const float4*>(src));
-}
-
-// 8 bf16 values (16 bytes) as floats
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* src, float* dst) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(src));
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h2[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
+// ROWS rows [row0, row0 + ROWS) of one head into a (ROWS, D + PAD) f32
+// tile, rows at or past n zero-filled: f32 by 16-byte cp.async (in flight
+// until the caller waits), bf16 loaded and widened here
+template <int ROWS, int D>
+__device__ __forceinline__ void load_tile(const float* __restrict__ base, int row0, int n,
+                                          size_t stride, float* tile) {
+  constexpr int PER_ROW = D / 4;
+  for (int i = threadIdx.x; i < ROWS * PER_ROW; i += THREADS) {
+    const int r = i / PER_ROW, c = (i % PER_ROW) * 4;
+    const bool ok = row0 + r < n;
+    const float* src = ok ? base + (size_t)(row0 + r) * stride + c : base;
+    async_copy::cp_async<16>(tile + r * (D + PAD) + c, src, ok);
   }
 }
 
-__device__ __forceinline__ void st1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void st1(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-
-// W (1, 2 or 4) consecutive shared floats
-template <int W>
-__device__ __forceinline__ void lds(const float* src, float* out) {
-  if constexpr (W == 4) {
-    const float4 a = *reinterpret_cast<const float4*>(src);
-    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  } else if constexpr (W == 2) {
-    const float2 a = *reinterpret_cast<const float2*>(src);
-    out[0] = a.x; out[1] = a.y;
-  } else {
-    out[0] = *src;
-  }
-}
-
-template <int W, typename T>
-__device__ __forceinline__ void store_w(T* dst, const float* v) {
-#pragma unroll
-  for (int e = 0; e < W; ++e) st1(dst + e, v[e]);
-}
-
-// 64 rows [row0, row0 + 64) of one head into a (64, D + PAD) f32 tile;
-// rows at or past n are zero-filled.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(const T* __restrict__ base, int row0, int n,
-                                          size_t row_stride, float* tile) {
-  constexpr int V = VecN<T>::N;
-  constexpr int PER_ROW = D / V;
-  for (int i = threadIdx.x; i < 64 * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW, c = (i % PER_ROW) * V;
+template <int ROWS, int D>
+__device__ __forceinline__ void load_tile(const __nv_bfloat16* __restrict__ base, int row0,
+                                          int n, size_t stride, float* tile) {
+  constexpr int PER_ROW = D / 8;
+  for (int i = threadIdx.x; i < ROWS * PER_ROW; i += THREADS) {
+    const int r = i / PER_ROW, c = (i % PER_ROW) * 8;
     float* dst = tile + r * (D + PAD) + c;
-    if (row0 + r < n) {
-      load_vec(base + (size_t)(row0 + r) * row_stride + c, dst);
-    } else {
-#pragma unroll
-      for (int j = 0; j < V; ++j) dst[j] = 0.f;
-    }
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < n) u = __ldg(reinterpret_cast<const uint4*>(base + (size_t)(row0 + r) * stride + c));
+    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+    const float2 f0 = __bfloat1622float2(h2[0]), f1 = __bfloat1622float2(h2[1]);
+    const float2 f2 = __bfloat1622float2(h2[2]), f3 = __bfloat1622float2(h2[3]);
+    reinterpret_cast<float4*>(dst)[0] = make_float4(f0.x, f0.y, f1.x, f1.y);
+    reinterpret_cast<float4*>(dst)[1] = make_float4(f2.x, f2.y, f3.x, f3.y);
   }
 }
 
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float comp(const float4& a, int c) {
+  return c == 0 ? a.x : c == 1 ? a.y : c == 2 ? a.z : a.w;
+}
+
+__device__ __forceinline__ void store4(float* dst, const float* v) {
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, const float* v) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) dst[e] = __float2bfloat16_rn(v[e]);
+}
+
+__device__ __forceinline__ void store1(float* dst, float v) { *dst = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* dst, float v) { *dst = __float2bfloat16_rn(v); }
+
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, CcCfg<D>::MIN_BLOCKS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int Tq, int S, int H, int Hk, int mask_kind,
-                 int window, float scale) {
-  constexpr int LD = D + PAD;
-  constexpr int LP = BK + PAD;
-  // a thread's output columns: NJ groups of CW adjacent ones, at
-  // tx * CW + 16 * CW * jj, those below D (D = 8: threads tx < 8 only)
-  constexpr int CW = D % 64 == 0 ? 4 : D % 32 == 0 ? 2 : 1;
-  constexpr int NJ = (D + 16 * CW - 1) / (16 * CW);
-  constexpr bool FULL = D % (16 * CW) == 0;
-  static_assert(D % 8 == 0, "head_dim must be a multiple of 8");
+                 T* __restrict__ o, float* __restrict__ ws, int* __restrict__ cnt, int Tq,
+                 int S, int H, int Hk, int mask_kind, int window, float scale, int nsplit) {
+  using C = CcCfg<D>;
+  constexpr int BK = C::BK, NP = C::NP, LD = C::LD, LP = C::LP, KN = C::KN, NJ = C::NJ,
+                EC = C::EC;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;           // BQ x LD
-  float* ks = qs + BQ * LD;   // BK x LD
-  float* vs = ks + BK * LD;   // BK x LD
-  float* ps = vs + BK * LD;   // BQ x LP probabilities
+  __shared__ int last;
+  float* qs = smem;                // BQ x LD
+  float* ring = qs + BQ * LD;          // NP x (K, V) x BK x LD
+  float* ps = ring + 2 * NP * BK * LD; // BQ x LP probabilities
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
+  // blocks: heads fastest, then the splits; the q tiles last-first, so the
+  // blocks with the most kv tiles start first
+  const int nqt = gridDim.y, qt = nqt - 1 - blockIdx.y;
+  const int h = blockIdx.x % H, sp = blockIdx.x / H, b = blockIdx.z, q0 = qt * BQ;
   const int hk = h / (H / Hk);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int off = S - Tq;  // real row coordinate of query t is t + off
-  const T* qb = q + ((size_t)b * Tq * H + h) * D;
-  const T* kb = k + ((size_t)b * S * Hk + hk) * D;
-  const T* vb = v + ((size_t)b * S * Hk + hk) * D;
-  load_tile<T, D>(qb, q0, Tq, (size_t)H * D, qs);
 
-  // the kv columns some row of this block can see
+  // the kv tiles some row of this block can see, and this split's run
   int lo = 0, hi = S - 1;
   if (mask_kind != 2) {
     hi = min(hi, min(q0 + BQ, Tq) - 1 + off);
     if (mask_kind == 1) lo = max(0, q0 + off - window + 1);
   }
+  const int n_tiles = hi >= lo ? hi / BK - lo / BK + 1 : 0;
+  const int chunk = max(1, (n_tiles + nsplit - 1) / nsplit);
+  const int nsp = max(1, (n_tiles + chunk - 1) / chunk);
+  if (sp >= nsp) return;
+  const int t_begin = lo / BK + sp * chunk;
+  const int n_run = max(0, min(n_tiles - sp * chunk, chunk));
 
-  float m_i[4], l_i[4], acc[4][NJ][CW];
+  const T* qb = q + ((size_t)b * Tq * H + h) * D;
+  const T* kb = k + ((size_t)b * S * Hk + hk) * D;
+  const T* vb = v + ((size_t)b * S * Hk + hk) * D;
+  // tile j of the run: its K and V into stage j % NP, one copy group
+  auto issue = [&](int j) {
+    float* st = ring + (j % NP) * 2 * BK * LD;
+    load_tile<BK, D>(kb, (t_begin + j) * BK, S, (size_t)Hk * D, st);
+    load_tile<BK, D>(vb, (t_begin + j) * BK, S, (size_t)Hk * D, st + BK * LD);
+  };
+  load_tile<BQ, D>(qb, q0, Tq, (size_t)H * D, qs);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int j = 0; j < NP - 1; ++j) {
+    if (j < n_run) issue(j);
+    async_copy::cp_async_commit();
+  }
+
+  // a thread's rows ty + 16 i; its columns 4 tx + 64 jj (+ 0..3) and
+  // 64 NJ + tx + 16 e (those below D)
+  float m_i[RM], l_i[RM], acc[RM][NJ > 0 ? NJ : 1][4], ext[RM][EC > 0 ? EC : 1];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
     m_i[i] = NEG_INF;
     l_i[i] = 0.f;
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj)
 #pragma unroll
-      for (int e = 0; e < CW; ++e) acc[i][jj][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[i][jj][e] = 0.f;
+#pragma unroll
+    for (int e = 0; e < EC; ++e) ext[i][e] = 0.f;
   }
 
-  for (int c0 = (lo / BK) * BK; c0 <= hi; c0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(kb, c0, S, (size_t)Hk * D, ks);
-    load_tile<T, D>(vb, c0, S, (size_t)Hk * D, vs);
+  for (int jt = 0; jt < n_run; ++jt) {
+    async_copy::cp_async_wait<NP - 2>();
+    // tile jt's K and V landed for every thread; stage (jt - 1) % NP is free
     __syncthreads();
-
-    float s[4][4];
+    if (jt + NP - 1 < n_run) issue(jt + NP - 1);
+    async_copy::cp_async_commit();
+    const float* tile = ring + (jt % NP) * 2 * BK * LD;   // K, then V
+    const int c0 = (t_begin + jt) * BK;
+    {
+      // S = Q K^T for rows ty + 16 i, keys tx + 16 j
+      float s[RM][KN];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RM; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+        for (int j = 0; j < KN; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4], kv[4];
+      for (int d = 0; d < D; d += 4) {
+        float4 qv[RM], kv[KN];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(&qs[(ty + 16 * i) * LD + d]);
+        for (int i = 0; i < RM; ++i) qv[i] = lds4(qs + (ty + 16 * i) * LD + d);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(&ks[(tx + 16 * j) * LD + d]);
+        for (int j = 0; j < KN; ++j) kv[j] = lds4(tile + (tx + 16 * j) * LD + d);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < RM; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float a = s[i][j];
-          a = fmaf(qv[i].x, kv[j].x, a);
-          a = fmaf(qv[i].y, kv[j].y, a);
-          a = fmaf(qv[i].z, kv[j].z, a);
-          a = fmaf(qv[i].w, kv[j].w, a);
-          s[i][j] = a;
+          for (int j = 0; j < KN; ++j) {
+            float a = s[i][j];
+            a = fmaf(qv[i].x, kv[j].x, a);
+            a = fmaf(qv[i].y, kv[j].y, a);
+            a = fmaf(qv[i].z, kv[j].z, a);
+            a = fmaf(qv[i].w, kv[j].w, a);
+            s[i][j] = a;
+          }
+      }
+      // online softmax; a tile that every row of the block sees whole is
+      // not masked.  The rows' offsets m move only when a score passes m +
+      // RESCALE_AT (or m is still unset): then the warp's rows take their
+      // true max (shuffles over the row's 16 threads) and rescale l and
+      // the output; else p = exp(s - m) <= e^RESCALE_AT with no shuffle.
+      // The result differs from a max taken every tile by rounding only.
+      const bool whole =
+          c0 + BK <= S &&
+          (mask_kind == 2 ||
+           (c0 + BK - 1 <= q0 + off &&
+            (mask_kind == 0 || min(q0 + BQ, Tq) - 1 + off - c0 < window)));
+      float mx[RM];
+      bool grow = false;
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const int row = q0 + ty + 16 * i + off;
+        mx[i] = NEG_INF;
+#pragma unroll
+        for (int j = 0; j < KN; ++j) {
+          const int col = c0 + tx + 16 * j;
+          const bool vis = whole || (col < S && (mask_kind == 2 ||
+                                                 (row >= col && (mask_kind == 0 ||
+                                                                 row - col < window))));
+          s[i][j] = vis ? s[i][j] * scale : NEG_INF;
+          mx[i] = fmaxf(mx[i], s[i][j]);
         }
-    }
-
+        grow |= mx[i] > m_i[i] + RESCALE_AT;
+      }
+      if (__any_sync(0xffffffffu, grow)) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i + off;
-      float mx = NEG_INF;
+        for (int i = 0; i < RM; ++i) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = c0 + tx + 16 * j;
-        bool vis = col < S;
-        if (mask_kind != 2) {
-          vis = vis && row >= col;
-          if (mask_kind == 1) vis = vis && row - col < window;
+          for (int w = 8; w > 0; w >>= 1)
+            mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], w));
+          const float m_new = fmaxf(m_i[i], mx[i]);
+          const float alpha = expf(m_i[i] - m_new);
+          m_i[i] = m_new;
+          l_i[i] *= alpha;
+#pragma unroll
+          for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][jj][e] *= alpha;
+#pragma unroll
+          for (int e = 0; e < EC; ++e) ext[i][e] *= alpha;
         }
-        s[i][j] = vis ? s[i][j] * scale : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
-      for (int w = 8; w > 0; w >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
-      const float m_new = fmaxf(m_i[i], mx);
-      const float alpha = expf(m_i[i] - m_new);
-      float rs = 0.f;
+      for (int i = 0; i < RM; ++i) {
+        const bool seen = m_i[i] > SEEN;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        ps[(ty + 16 * i) * LP + tx + 16 * j] = p;
-        rs += p;
+        for (int j = 0; j < KN; ++j) {
+          const float p = seen ? expf(s[i][j] - m_i[i]) : 0.f;
+          ps[(ty + 16 * i) * LP + tx + 16 * j] = p;
+          l_i[i] += p;   // this thread's keys; the row's sum at the end
+        }
       }
-#pragma unroll
-      for (int w = 8; w > 0; w >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, w);
-      l_i[i] = l_i[i] * alpha + rs;
-      m_i[i] = m_new;
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj)
-#pragma unroll
-        for (int e = 0; e < CW; ++e) acc[i][jj][e] *= alpha;
     }
-    __syncthreads();
-
+    // the rows of P a thread reads are its half-warp's own
+    __syncwarp();
+    {
+      // O += P V over the tile's keys, 4 at a time
+      const float* vt = tile + BK * LD;
 #pragma unroll 2
-    for (int c = 0; c < BK; c += 4) {
-      float4 pv[4];
+      for (int c = 0; c < BK; c += 4) {
+        float4 pv[RM];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(&ps[(ty + 16 * i) * LP + c]);
+        for (int i = 0; i < RM; ++i) pv[i] = lds4(ps + (ty + 16 * i) * LP + c);
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
+        for (int cc = 0; cc < 4; ++cc) {
+          const float* vr = vt + (c + cc) * LD;
 #pragma unroll
-        for (int jj = 0; jj < NJ; ++jj) {
-          const int col = tx * CW + 16 * CW * jj;
-          if (!FULL && col >= D) continue;
-          float vv[CW];
-          lds<CW>(&vs[(c + cc) * LD + col], vv);
+          for (int jj = 0; jj < NJ; ++jj) {
+            const float4 vv = lds4(vr + 4 * tx + 64 * jj);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float p = cc == 0 ? pv[i].x : cc == 1 ? pv[i].y : cc == 2 ? pv[i].z : pv[i].w;
+            for (int i = 0; i < RM; ++i) {
+              const float p = comp(pv[i], cc);
+              acc[i][jj][0] = fmaf(p, vv.x, acc[i][jj][0]);
+              acc[i][jj][1] = fmaf(p, vv.y, acc[i][jj][1]);
+              acc[i][jj][2] = fmaf(p, vv.z, acc[i][jj][2]);
+              acc[i][jj][3] = fmaf(p, vv.w, acc[i][jj][3]);
+            }
+          }
 #pragma unroll
-            for (int e = 0; e < CW; ++e) acc[i][jj][e] = fmaf(p, vv[e], acc[i][jj][e]);
+          for (int e = 0; e < EC; ++e) {
+            // D 8: columns 0..7, the threads tx >= 8 read column tx - 8 and drop it
+            const float ve = vr[NJ * 64 + (D % 64 < 16 ? (tx & 7) : tx + 16 * e)];
+#pragma unroll
+            for (int i = 0; i < RM; ++i) ext[i][e] = fmaf(comp(pv[i], cc), ve, ext[i][e]);
           }
         }
       }
     }
   }
+  async_copy::cp_async_wait_all();
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int w = 8; w > 0; w >>= 1) l_i[i] += __shfl_xor_sync(0xffffffffu, l_i[i], w);
 
+  const bool ext_ok = D % 64 >= 16 || tx < 8;   // D 8: the threads of columns 0..7
+  if (nsp == 1) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty + 16 * i;
-    if (t >= Tq) continue;
-    const float l = fmaxf(l_i[i], 1e-30f);
-    T* orow = o + (((size_t)b * Tq + t) * H + h) * D;
+    for (int i = 0; i < RM; ++i) {
+      const int t = q0 + ty + 16 * i;
+      if (t >= Tq) continue;
+      const float l = fmaxf(l_i[i], 1e-30f);
+      T* orow = o + (((size_t)b * Tq + t) * H + h) * D;
 #pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) {
-      const int col = tx * CW + 16 * CW * jj;
-      if (!FULL && col >= D) continue;
-      float out[CW];
+      for (int jj = 0; jj < NJ; ++jj) {
+        float out[4];
 #pragma unroll
-      for (int e = 0; e < CW; ++e) out[e] = acc[i][jj][e] / l;
-      store_w<CW>(orow + col, out);
+        for (int e = 0; e < 4; ++e) out[e] = acc[i][jj][e] / l;
+        store4(orow + 4 * tx + 64 * jj, out);
+      }
+#pragma unroll
+      for (int e = 0; e < EC; ++e)
+        if (ext_ok) store1(orow + NJ * 64 + tx + 16 * e, ext[i][e] / l);
+    }
+    return;
+  }
+
+  // split over keys: this split's partial (output rows, then the rows' max
+  // and sum) into the workspace of (batch, q tile, head)
+  const size_t pair = ((size_t)b * nqt + qt) * H + h;
+  float* wb = ws + pair * nsplit * C::PART;
+  float* wp = wb + (size_t)sp * C::PART;
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int r = ty + 16 * i;
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) store4(wp + r * D + 4 * tx + 64 * jj, acc[i][jj]);
+#pragma unroll
+    for (int e = 0; e < EC; ++e)
+      if (ext_ok) wp[r * D + NJ * 64 + tx + 16 * e] = ext[i][e];
+    if (tx == 0) {
+      wp[BQ * D + r] = m_i[i];
+      wp[BQ * D + BQ + r] = l_i[i];
     }
   }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(cnt + pair, 1) == nsp - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the last block: each split's weight a row, then the outputs, summed in
+  // split order
+  float* wgt = ps;     // BQ x nsp
+  float* lsum = ring;  // BQ
+  if (tid < BQ) {
+    float mx = NEG_INF;
+    for (int j = 0; j < nsp; ++j) mx = fmaxf(mx, __ldcg(wb + (size_t)j * C::PART + BQ * D + tid));
+    float l = 0.f;
+    for (int j = 0; j < nsp; ++j) {
+      const float* pj = wb + (size_t)j * C::PART + BQ * D;
+      const float w = mx > SEEN ? expf(__ldcg(pj + tid) - mx) : 0.f;
+      wgt[tid * nsp + j] = w;
+      l = fmaf(__ldcg(pj + BQ + tid), w, l);
+    }
+    lsum[tid] = fmaxf(l, 1e-30f);
+  }
+  __syncthreads();
+  for (int i = tid; i < BQ * (D / 4); i += THREADS) {
+    const int r = i / (D / 4), c = i % (D / 4) * 4, t = q0 + r;
+    if (t >= Tq) continue;
+    float out[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int j = 0; j < nsp; ++j) {
+      const float w = wgt[r * nsp + j];
+      const float4 a = __ldcg(reinterpret_cast<const float4*>(wb + (size_t)j * C::PART + r * D + c));
+      out[0] = fmaf(a.x, w, out[0]);
+      out[1] = fmaf(a.y, w, out[1]);
+      out[2] = fmaf(a.z, w, out[2]);
+      out[3] = fmaf(a.w, w, out[3]);
+    }
+    const float l = lsum[r];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[e] /= l;
+    store4(o + (((size_t)b * Tq + t) * H + h) * D + c, out);
+  }
+  if (tid == 0) cnt[pair] = 0;
 }
 
 // The shared-memory opt-in holds for the current device: set it once for
@@ -331,36 +513,68 @@ cudaError_t smem_opt_in(K kernel, int bytes, unsigned long long* done) {
   return e;
 }
 
+// the f32 kernel's opt-in: its shared memory, and the largest carveout, so
+// that MIN_BLOCKS blocks share an SM
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Tq,
-                   int S, int H, int Hk, int mask_kind, int window, float scale,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (3 * 64 * (D + PAD) + BQ * (BK + PAD));
+cudaError_t cc_opt_in() {
   static unsigned long long opted_in = 0;
-  const cudaError_t e = smem_opt_in(flash_fwd_kernel<T, D>, (int)smem, &opted_in);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < 64 && ((opted_in >> dev) & 1ull))) return e;
+  e = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, CcCfg<D>::SMEM);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess && dev < 64) opted_in |= 1ull << dev;
+  return e;
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* ws, int* cnt,
+                   int B, int Tq, int S, int H, int Hk, int mask_kind, int window, float scale,
+                   int nsplit, cudaStream_t stream) {
+  using C = CcCfg<D>;
+  static_assert(SPLIT_MAX <= C::LP, "the merge's weights fit where P was");
+  if (nsplit < 1 || nsplit > SPLIT_MAX || (nsplit > 1 && (ws == nullptr || cnt == nullptr)))
+    return cudaErrorInvalidValue;
+  const cudaError_t e = cc_opt_in<T, D>();
   if (e != cudaSuccess) return e;
-  const dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid(H * nsplit, (Tq + BQ - 1) / BQ, B);
+  flash_fwd_kernel<T, D><<<grid, THREADS, C::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Tq, S, H, Hk, mask_kind, window, scale);
+      static_cast<T*>(o), ws, cnt, Tq, S, H, Hk, mask_kind, window, scale, nsplit);
   return cudaGetLastError();
 }
 
+#define CC_ARGS q, k, v, o, ws, cnt, B, Tq, S, H, Hk, mask_kind, window, scale, nsplit, st
 template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void* o, int B,
-                       int Tq, int S, int H, int Hk, int mask_kind, int window, float scale,
-                       cudaStream_t st) {
+cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void* o, float* ws,
+                       int* cnt, int B, int Tq, int S, int H, int Hk, int mask_kind, int window,
+                       float scale, int nsplit, cudaStream_t st) {
   switch (D) {
-    case 8: return launch<T, 8>(q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
-    case 16: return launch<T, 16>(q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
-    case 64: return launch<T, 64>(q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
-    case 80: return launch<T, 80>(q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
-    case 128: return launch<T, 128>(q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
-    case 160: return launch<T, 160>(q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
-    case 256: return launch<T, 256>(q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
+    case 8: return launch<T, 8>(CC_ARGS);
+    case 16: return launch<T, 16>(CC_ARGS);
+    case 64: return launch<T, 64>(CC_ARGS);
+    case 80: return launch<T, 80>(CC_ARGS);
+    case 128: return launch<T, 128>(CC_ARGS);
+    case 160: return launch<T, 160>(CC_ARGS);
+    case 256: return launch<T, 256>(CC_ARGS);
     default: return cudaErrorInvalidValue;
   }
 }
+
+template <typename T, int D>
+int blocks_per_sm() {
+  int n = 0;
+  if (cc_opt_in<T, D>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, flash_fwd_kernel<T, D>, THREADS,
+                                                    CcCfg<D>::SMEM) != cudaSuccess)
+    return -1;
+  return n;
+}
+
 
 // ------------------------------------------------------------------ bf16
 // the tensor-core kernel's tiling per head_dim
@@ -878,8 +1092,6 @@ cudaError_t dispatch_tc(int D, const void* q, const void* k, const void* v, void
                         int Tq, int S, int H, int Hk, int mask_kind, int window, float scale,
                         cudaStream_t st) {
   switch (D) {
-    // bf16 K steps are 16 wide: D = 8 runs the CUDA-core kernel in bf16
-    case 8: return launch<__nv_bfloat16, 8>(q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
     case 16: return launch_tc<16>(q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
     case 64: return launch_tc<64>(q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
     case 80: return launch_tc<80>(q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
@@ -894,16 +1106,45 @@ cudaError_t dispatch_tc(int D, const void* q, const void* k, const void* v, void
 
 // q (B, T, H, D), k and v (B, S, Hk, D), o (B, T, H, D), all contiguous,
 // 16-byte aligned and of one type (dtype 0: f32, 1: bf16); mask_kind 0
-// causal, 1 window, 2 bidirectional.  Returns cudaGetLastError() after the
-// launch.
+// causal, 1 window, 2 bidirectional.  f32, and bf16 at D = 8 (below the
+// 16-wide K step of a bf16 wgmma), run the CUDA-core kernel with nsplit
+// splits over the keys (1 to 32); nsplit > 1 needs ws (B ceil(T / 64) H
+// nsplit (64 D + 128) floats, no initial value) and cnt (B ceil(T / 64) H
+// ints, zero; left zero).  Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int B, int Tq, int S, int H, int Hk, int D, int dtype,
-                                   int mask_kind, int window, float scale, void* stream) {
+                                   void* ws, void* cnt, int B, int Tq, int S, int H, int Hk,
+                                   int D, int dtype, int mask_kind, int window, float scale,
+                                   int nsplit, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Hk <= 0 || H % Hk != 0) return (int)cudaErrorInvalidValue;
-  const cudaError_t e =
-      dtype == 0
-          ? dispatch_d<float>(D, q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st)
-          : dispatch_tc(D, q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
+  float* w = static_cast<float*>(ws);
+  int* c = static_cast<int*>(cnt);
+  cudaError_t e;
+  if (dtype == 0)
+    e = dispatch_d<float>(D, q, k, v, o, w, c, B, Tq, S, H, Hk, mask_kind, window, scale,
+                          nsplit, st);
+  else if (D == 8)
+    e = launch<__nv_bfloat16, 8>(q, k, v, o, w, c, B, Tq, S, H, Hk, mask_kind, window, scale,
+                                 nsplit, st);
+  else if (nsplit != 1)
+    e = cudaErrorInvalidValue;
+  else
+    e = dispatch_tc(D, q, k, v, o, B, Tq, S, H, Hk, mask_kind, window, scale, st);
   return (int)e;
+}
+
+// blocks of the CUDA-core kernel an SM holds at head dim D (dtype 0 f32, 1
+// bf16), by the occupancy calculator; -1 for a head dim it has no instance of
+extern "C" int flash_attention_cc_blocks_per_sm(int D, int dtype) {
+  if (dtype != 0) return D == 8 ? blocks_per_sm<__nv_bfloat16, 8>() : -1;
+  switch (D) {
+    case 8: return blocks_per_sm<float, 8>();
+    case 16: return blocks_per_sm<float, 16>();
+    case 64: return blocks_per_sm<float, 64>();
+    case 80: return blocks_per_sm<float, 80>();
+    case 128: return blocks_per_sm<float, 128>();
+    case 160: return blocks_per_sm<float, 160>();
+    case 256: return blocks_per_sm<float, 256>();
+    default: return -1;
+  }
 }

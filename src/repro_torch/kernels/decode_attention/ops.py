@@ -46,7 +46,6 @@ LONG_KEYS = 4096                # visible keys from which a run is "long"
 
 launches: Dict[str, int] = {"decode_attention": 0,
                              "decode_attention_partials": 0}
-_tickets: Dict[int, torch.Tensor] = {}   # device index -> zeroed int32
 
 
 def _lib() -> ctypes.CDLL:
@@ -135,14 +134,6 @@ def group_slices(g: int) -> Tuple[int, int]:
     return gl, g // gl
 
 
-def _ticket_counters(device: torch.device, pairs: int) -> torch.Tensor:
-    buf = _tickets.get(device.index)
-    if buf is None or buf.numel() < pairs:
-        buf = torch.zeros(max(pairs, 1024), dtype=torch.int32, device=device)
-        _tickets[device.index] = buf
-    return buf
-
-
 def _check(q, k_cache, v_cache, k_scale, v_scale, caller: str) -> bool:
     """Operand checks of both modes; returns whether the cache is int8."""
     runtime.check_tensor("q", q, tuple(_Q_DTYPES), ndim=4)
@@ -199,7 +190,8 @@ def _launch(q, k_cache, v_cache, k_scale, v_scale, quant: bool, s0: int,
     if n_split > 1:               # partials: (B slices Hk, split, G, D + 2)
         ws = torch.empty(b * ng * hk * n_split * gl * (d + 2),
                          dtype=torch.float32, device=q.device)
-        cnt = _ticket_counters(q.device, b * ng * hk // heads)
+        cnt = runtime.ticket_counters("decode_attention", q.device,
+                                      b * ng * hk // heads)
 
     def ptr(t):
         return null if t is None else runtime.ptr(t)
@@ -266,10 +258,13 @@ def decode_attention_partials(q: torch.Tensor, k_cache: torch.Tensor,
         return ref.decode_attention_partials_ref(q, k_cache, v_cache, s0,
                                                  nvis, scale, k_scale,
                                                  v_scale)
-    out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-    lse = torch.full(q.shape[:3], float("-inf"), device=q.device)
-    if nvis == 0 or not out.numel():
-        return out, lse
+    if nvis == 0 or not q.numel():
+        return (torch.zeros(q.shape, dtype=torch.float32, device=q.device),
+                torch.full(q.shape[:3], float("-inf"), device=q.device))
+    # the launch writes every element of both (each row's output and
+    # log-sum-exp, by its block or by the split's merge): no fill
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     _launch(q, k_cache, v_cache, k_scale, v_scale, quant, s0, nvis, scale,
             None, out, lse)
     launches["decode_attention_partials"] += 1

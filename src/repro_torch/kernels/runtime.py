@@ -27,7 +27,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Union
+from typing import Dict, Iterable, Optional, Tuple, Union
 
 import torch
 
@@ -229,6 +229,7 @@ def library(name: str) -> ctypes.CDLL:
 
 
 _SM_COUNT: Dict[int, int] = {}
+_TICKETS: Dict[Tuple[str, int], torch.Tensor] = {}
 
 
 def sm_count(device: torch.device) -> int:
@@ -238,6 +239,17 @@ def sm_count(device: torch.device) -> int:
         n = torch.cuda.get_device_properties(device).multi_processor_count
         _SM_COUNT[device.index] = n
     return n
+
+
+def ticket_counters(name: str, device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 tickets of kernel ``name`` on ``device``,
+    kept across calls: a kernel's split merge takes its ticket with an
+    atomic add and leaves it 0 again for the next launch."""
+    buf = _TICKETS.get((name, device.index))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[(name, device.index)] = buf
+    return buf
 
 
 def smem_stride(width: int, v: int) -> int:

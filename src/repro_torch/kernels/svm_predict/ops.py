@@ -49,7 +49,6 @@ BULK_BANK_WAYS = 16          # most-way bank conflict of the TMA path's
                              # at 32 ways per-thread copies are faster
 
 launches: Dict[str, int] = {"svm_predict_cells": 0, "svm_predict": 0}
-_tickets: Dict[int, torch.Tensor] = {}   # device index -> zeroed int32
 
 
 class PredictPlan(NamedTuple):
@@ -202,14 +201,6 @@ def svm_predict(x_test: torch.Tensor, sv: torch.Tensor, coefs: torch.Tensor,
     return out[:, 0] if squeeze else out
 
 
-def _ticket_counters(device: torch.device, units: int) -> torch.Tensor:
-    buf = _tickets.get(device.index)
-    if buf is None or buf.numel() < units:
-        buf = torch.zeros(max(units, 1024), dtype=torch.int32, device=device)
-        _tickets[device.index] = buf
-    return buf
-
-
 def _launch(xt: torch.Tensor, sv: torch.Tensor, coefs: torch.Tensor,
             gammas: torch.Tensor, kind: str):
     """B3 on checked (C, m, d), (C, k, d), (C, k, P), (C, P) CUDA operands:
@@ -235,7 +226,7 @@ def _launch(xt: torch.Tensor, sv: torch.Tensor, coefs: torch.Tensor,
     if plan.splits > 1:                  # partials: (unit, split, 64)
         ws = torch.empty(units * plan.splits * 64, dtype=torch.float32,
                          device=xt.device)
-        cnt = _ticket_counters(xt.device, units)
+        cnt = runtime.ticket_counters("svm_predict", xt.device, units)
     null = ctypes.c_void_p(0)
     rc = _lib().svm_predict_cells_f32(
         runtime.ptr(xt), runtime.ptr(sv), runtime.ptr(coefs),

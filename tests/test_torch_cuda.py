@@ -22,7 +22,12 @@ case twice for bitwise equal outputs, and a misaligned cache refused; the
 Gauss-Seidel epoch (B4, B5) bitwise where n is off and below its
 32-coordinate panel, with 8-column blocks and with 8 rows a thread; B9's
 bf16 kernel over 16 kv tiles (its TMA ring wraps) and at gemma3-4b's local
-layers (D = 256, window 1024), and a misaligned view refused; B2 with one
+layers (D = 256, window 1024), and a misaligned view refused; B9's f32
+kernel through its split over the keys (gemma3-4b's head-group rank, a
+4096-key causal head, T off the tile), its bits equal from run to run and
+for a row launched alone or in a batch of 3, rows whose largest logit
+keeps growing (the offsets move at every tile), and its blocks an SM as
+the split planner counts them; B2 with one
 gamma per row bitwise equal to its plain version where rows straddle
 16-byte chunks (N % 8 = 1, 7) and where they do not; B1 and B3 at the
 SVM head's d = 2048; B1 and B1-sym on every path of their launch plan
@@ -433,6 +438,11 @@ def _attn_bound(q, k, v, mask_kind, window, want):
     ("window", 100, 1, 300, 300, 1, 1, 256),  # gemma3-4b: 1 head, local
     ("causal", 0, 1, 300, 300, 1, 1, 256),    # gemma3-4b: global layers
     ("causal", 0, 1, 300, 300, 5, 1, 128),    # llama4-maverick: G 5
+    # f32: the CUDA-core kernel splits the keys of these rows' blocks
+    ("window", 1024, 1, 2048, 2048, 1, 1, 256),  # gemma3-4b's group rank
+    ("causal", 0, 1, 4096, 4096, 1, 1, 128),
+    ("bidir", 0, 1, 2048, 2048, 2, 2, 80),
+    ("causal", 0, 1, 1000, 1500, 2, 1, 160),  # T not a multiple of 64
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, mask_kind, window, b, t,
@@ -450,6 +460,66 @@ def test_flash_attention_kernel_matches_plain(cuda, mask_kind, window, b, t,
     if dtype == torch.bfloat16:
         bnd = _attn_bound(q, k, v, mask_kind, window, want)
         assert bool(((got.float() - want.float()).abs() <= bnd).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mask_kind,window,t,s,h,hk,d,split", [
+    ("window", 1024, 2048, 2048, 1, 1, 256, True),   # gemma3-4b group rank
+    ("causal", 0, 300, 300, 16, 4, 80, False),
+])
+def test_flash_attention_f32_bits_do_not_depend_on_run_or_batch(
+        cuda, mask_kind, window, t, s, h, hk, d, split):
+    """The CUDA-core kernel's split merges in split order and its split
+    count ignores B: two launches give equal bits, and row b of a B = 3
+    launch equals the same row launched alone."""
+    from repro_torch.kernels import runtime
+    assert (fa_ops.split_count(t, s, h, d, mask_kind, window,
+                               runtime.sm_count(cuda)) > 1) == split
+    gen = torch.Generator().manual_seed(t + d)
+    q, k, v = (_rand(gen, 3, n, hh, d).to(cuda)
+               for n, hh in ((t, h), (s, hk), (s, hk)))
+    got = fa_ops.flash_attention(q, k, v, mask_kind, window)
+    again = fa_ops.flash_attention(q, k, v, mask_kind, window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    for b in range(3):
+        one = fa_ops.flash_attention(q[b:b + 1].contiguous(),
+                                     k[b:b + 1].contiguous(),
+                                     v[b:b + 1].contiguous(), mask_kind,
+                                     window)
+        assert torch.equal(one[0], got[b])
+    want = fa_ref.flash_attention_ref(q, k, v, mask_kind, window)
+    assert float((got - want).abs().max()) <= _attn_tol(want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mask_kind,window,t,s,h,d", [
+    ("bidir", 0, 300, 700, 2, 80), ("causal", 0, 500, 500, 2, 64),
+    ("window", 1024, 2048, 2048, 1, 256)])
+def test_flash_attention_f32_rows_whose_max_keeps_growing(
+        cuda, mask_kind, window, t, s, h, d):
+    """Keys scaled up along the sequence, so that a row's largest logit
+    grows from tile to tile: the f32 kernel moves the rows' offsets
+    (rescaling the sums and the output) again and again, split or not,
+    and stays within ``_attn_tol``."""
+    gen = torch.Generator().manual_seed(t + s + d)
+    q = _rand(gen, 1, t, h, d).abs() * 3
+    k = (_rand(gen, 1, s, h, d).abs()
+         * torch.linspace(0.1, 6.0, s)[None, :, None, None])
+    v = _rand(gen, 1, s, h, d)
+    q, k, v = (x.to(cuda) for x in (q, k, v))
+    got = fa_ops.flash_attention(q, k, v, mask_kind, window)
+    want = fa_ref.flash_attention_ref(q, k, v, mask_kind, window)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= _attn_tol(want)
+
+
+@pytest.mark.gpu
+def test_flash_attention_cc_occupancy_is_the_planners(cuda):
+    """The split planner's blocks an SM (``CC_BLOCKS_PER_SM``) are what the
+    card's occupancy calculator gives the CUDA-core kernel."""
+    got = {d: fa_ops.cc_blocks_per_sm(d) for d in fa_ops.HEAD_DIMS}
+    assert got == fa_ops.CC_BLOCKS_PER_SM
 
 
 @pytest.mark.gpu
